@@ -16,6 +16,7 @@ from torch import nn
 
 from humanrf_torch.models.fused_field import _GRID_AXES, apply_decomposition4d_fused
 from humanrf_torch.models.hash_encoding import HashGridConfig
+from humanrf_torch.models.mlp import normal
 
 GRID_NAMES = tuple(name for name, _ in _GRID_AXES)
 
@@ -44,6 +45,16 @@ class Decomposition4D(nn.Module):
         self.vectors = nn.Parameter(
             torch.zeros((4, cfg.feature_dim, cfg.vectors_finest_resolution), device=device)
         )
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Hash tables U[-1e-4, 1e-4] (tcnn's default), vectors 0.1·N(0, 1),
+        as `humanrf_tpu/models/decomposition4d.py::init_decomposition4d`."""
+        for name in GRID_NAMES:
+            table = getattr(self, name)
+            u = torch.rand(table.shape, generator=generator, device=generator.device)
+            table.copy_(u * 2e-4 - 1e-4)
+        self.vectors.copy_(0.1 * normal(self.vectors.shape, generator))
 
     def forward(self, xyz: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
         params = {name: getattr(self, name) for name in (*GRID_NAMES, "vectors")}

@@ -2,7 +2,8 @@
 
 Counterpart of `humanrf_tpu/models/fused_field.py`. Every table lookup (all
 4·L grid level-pairs, then the four 1-D vectors) is one `fused_interp` call,
-so a field query launches the kernel twice. Layouts follow the JAX package:
+so a field query launches the forward kernel twice, and its backward the
+backward kernel twice. Layouts follow the JAX package:
 samples on the last axis, (P, C, N) corner indices/weights, (P, F, N)
 features, one (D, N) → (N, D) transpose at the end.
 

@@ -1,4 +1,4 @@
-"""The HumanRF scene representation as an `nn.Module` (render path).
+"""The HumanRF scene representation as an `nn.Module`.
 
 Counterpart of `humanrf_tpu/models/humanrf.py`. The module owns the
 parameters, in the JAX package's layouts so that `convert.py` maps a JAX
@@ -11,7 +11,13 @@ params pytree leaf for leaf:
 Samples are routed to their segment by index selection, as the reference
 does (`humanrf.py:172-177`); a segment with no samples in the batch runs
 nothing. The JAX package's where-masking plus `lax.cond` gives the same
-numbers.
+numbers, and the same gradients: the scatter into the result routes each
+row's gradient back to its own segment's parameters.
+
+A model is built with zero parameters; `init_parameters` draws a fresh one
+from an explicit `torch.Generator` with the JAX package's distributions
+(its numbers differ from JAX's), and `load_state_dict(convert_params(...))`
+loads a JAX one.
 """
 from __future__ import annotations
 
@@ -20,12 +26,13 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from humanrf_torch.models.activation import truncated_exp
 from humanrf_torch.models.decomposition4d import Decomposition4D, Decomposition4DConfig
 from humanrf_torch.models.hash_encoding import HashGridConfig
-from humanrf_torch.models.mlp import MLP
+from humanrf_torch.models.mlp import MLP, normal
 from humanrf_torch.models.proposal import ProposalField, ProposalFieldConfig
 from humanrf_torch.models.sh import sh_encode
 
@@ -125,6 +132,22 @@ class HumanRFModel(nn.Module):
             "frame_to_local_time", torch.as_tensor(frame_to_local_time, device=device), persistent=False
         )
 
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """A fresh model, as `humanrf_tpu/models/humanrf.py::init_params`
+        draws it: per segment the hash tables U[-1e-4, 1e-4] and the vectors
+        0.1·N(0, 1); He-normal MLPs; camera embeddings N(0, 1); proposal
+        factors 0.3·N(0, 1). Draws on the generator's device, then copies."""
+        for segment in self.segments:
+            segment.init_parameters(generator)
+        self.sigma_net.init_parameters(generator)
+        self.color_net.init_parameters(generator)
+        if self.config.camera_embedding_dim > 0:
+            self.camera_embeddings.copy_(normal(self.camera_embeddings.shape, generator))
+        if self.proposal_config is not None:
+            for field in self.proposal:
+                field.init_parameters(generator)
+
     # ----------------------------------------------------------------- routing
 
     def _per_segment(
@@ -185,7 +208,8 @@ class HumanRFModel(nn.Module):
         color_in = [sh_encode((directions + 1.0) * 0.5, cfg.sh_degree), geo]
         if cfg.camera_embedding_dim > 0:
             if is_training:
-                emb = self.camera_embeddings[camera_numbers.long()]
+                # A row gather whose backward sums duplicate rows by sorting (see proposal.py).
+                emb = F.embedding(camera_numbers.long(), self.camera_embeddings)
             else:
                 # Zeros at validation/test time (humanrf.py:196-204).
                 emb = torch.zeros(

@@ -15,6 +15,11 @@ import torch
 from torch import nn
 
 
+def normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """N(0, 1) float32 draws from `generator`, on the generator's device."""
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
 def _bf16_dot(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 operands, fp32 accumulation, bf16 result.
 
@@ -52,6 +57,12 @@ class MLP(nn.Module):
         dims = [n_input_dims] + [n_neurons] * n_hidden_layers + [n_output_dims]
         for i, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
             self.register_parameter(f"w{i}", nn.Parameter(torch.zeros((din, dout), device=device)))
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """He-normal, std √(2/din), as `humanrf_tpu/models/mlp.py::init_mlp`."""
+        for w in self.parameters():
+            w.copy_(normal(w.shape, generator) * (2.0 / w.shape[0]) ** 0.5)
 
     def forward(self, x: torch.Tensor, output_activation: Optional[str] = None) -> torch.Tensor:
         return apply_mlp(dict(self.named_parameters()), x, output_activation)

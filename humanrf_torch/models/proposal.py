@@ -9,6 +9,12 @@ factor matrix with fp32 accumulation. The port computes the same two taps by
 index: lerp weights and factors rounded to bf16, products and their sum in
 fp32. Where both taps clamp to the same index, the two-hot row holds their
 bf16 sum in one slot, and so does the port.
+
+The taps are row gathers by `F.embedding`, not `factors[idx]`: a training
+batch sends ~500k samples into 128 rows, and the backward of advanced
+indexing on CUDA (`indexing_backward_kernel`) sums duplicate rows one after
+another, ~0.37 s a step at the flagship shapes on an H100; the embedding
+backward sorts the indices and reduces each row's segment in parallel.
 """
 from __future__ import annotations
 
@@ -16,9 +22,11 @@ from dataclasses import dataclass
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from humanrf_torch.models.activation import truncated_exp
+from humanrf_torch.models.mlp import normal
 
 
 @dataclass(frozen=True)
@@ -54,7 +62,7 @@ def apply_proposal_field(
         w0 = torch.where(same, _bf16(w0 + w1), w0)
         w1 = torch.where(same, torch.zeros_like(w1), w1)
         f = factors[axis]
-        vals = w0[:, None] * f[i0] + w1[:, None] * f[i1]  # (N, rank)
+        vals = w0[:, None] * F.embedding(i0, f) + w1[:, None] * F.embedding(i1, f)  # (N, rank)
         rank_prod = vals if rank_prod is None else rank_prod * vals
 
     raw = rank_prod.sum(dim=-1)
@@ -68,6 +76,11 @@ class ProposalField(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.factors = nn.Parameter(torch.zeros((4, cfg.resolution, cfg.rank), device=device))
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """0.3·N(0, 1), as `humanrf_tpu/models/proposal.py::init_proposal_field`."""
+        self.factors.copy_(0.3 * normal(self.factors.shape, generator))
 
     def forward(self, coords: torch.Tensor) -> torch.Tensor:
         return apply_proposal_field({"factors": self.factors}, coords, self.cfg)

@@ -1,21 +1,30 @@
 """Importance resampling along rays (proposal sampling).
 
-Counterpart of `humanrf_tpu/ops/resample.py` (render-path functions): coarse
-stratified bins, a per-ray piecewise-constant PDF from the proposal weights,
-and a stratified inverse-CDF draw of the render intervals.
+Counterpart of `humanrf_tpu/ops/resample.py`: coarse stratified bins, a
+per-ray piecewise-constant PDF from the proposal weights, a stratified
+inverse-CDF draw of the render intervals, and the interlevel (distillation)
+loss that teaches the proposal to bound the fine weights. Each draw takes
+optional stratified offsets `u`; without them it takes the render path's
+deterministic draw (bin centres, strata midpoints).
+
+Where the JAX package picks one bin per row by a one-hot select-and-sum (a
+TPU has no fast gather), the port gathers: the same value, and the same
+gradient, which reaches only the picked element.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 
-def stratified_bins(tmin: torch.Tensor, tmax: torch.Tensor, num_bins: int):
-    """tmin/tmax (R,) → (t_mid (R, K), dt (R, K), edges (R, K+1)), with the
-    samples at the bin centres (the render path's deterministic draw)."""
+def stratified_bins(tmin: torch.Tensor, tmax: torch.Tensor, num_bins: int, u: Optional[torch.Tensor] = None):
+    """tmin/tmax (R,) → (t (R, K), dt (R, K), edges (R, K+1)): the sample of
+    bin k at offset u[:, k] ∈ [0, 1) within it (0.5, the centre, when None)."""
     span = torch.clamp(tmax - tmin, min=1e-8)[:, None]  # (R, 1)
     k = torch.arange(num_bins + 1, dtype=torch.float32, device=tmin.device)[None, :]
     edges = tmin[:, None] + span * (k / num_bins)
-    t = edges[:, :-1] + (span / num_bins) * 0.5
+    t = edges[:, :-1] + (span / num_bins) * (0.5 if u is None else u)
     dt = (span / num_bins).expand(tmin.shape[0], num_bins)
     return t, dt, edges
 
@@ -29,19 +38,29 @@ def weights_to_cdf(weights: torch.Tensor, uniform_bonus: float = 1e-2) -> torch.
     return torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
 
 
-def sample_intervals(edges: torch.Tensor, cdf: torch.Tensor, num_samples: int, return_edges: bool = False):
-    """Inverse-CDF draw of `num_samples` intervals per ray, the interval
-    edges at the strata's midpoints (the render path's deterministic draw).
+def _bin_of(boundaries: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """boundaries (R, K+1), t (R, S) → (R, S) index of the bin each t falls in:
+    the count of boundaries <= t, minus one, clamped to [0, K-1]."""
+    kp1 = boundaries.shape[1]
+    return torch.clamp((boundaries[:, None, :] <= t[:, :, None]).sum(dim=-1) - 1, 0, kp1 - 2)
 
-    edges, cdf: (R, K+1) → (t_mid (R, S), dt (R, S)) [, t_edges (R, S+1)].
+
+def sample_intervals(
+    edges: torch.Tensor, cdf: torch.Tensor, num_samples: int, u: Optional[torch.Tensor] = None, return_edges: bool = False
+):
+    """Inverse-CDF draw of `num_samples` intervals per ray.
+
+    edges, cdf: (R, K+1); u: (R, S+1) stratified offsets of the interval edges
+    in [0, 1) (the strata's midpoints when None) → (t_mid (R, S), dt (R, S))
+    [, t_edges (R, S+1)].
     """
-    kp1 = edges.shape[1]
     s = num_samples
     j = torch.arange(s + 1, dtype=torch.float32, device=edges.device)[None, :]
-    pos = torch.clamp(j / s, 1e-6, 1.0 - 1e-6)  # (1, S+1)
+    strata = j if u is None else j + u - 0.5
+    pos = torch.clamp(strata / s, 1e-6, 1.0 - 1e-6)  # (R or 1, S+1)
+    pos = pos.expand(edges.shape[0], s + 1)
 
-    # Count of CDF entries <= pos, minus one: the bin each edge falls in.
-    bin_idx = torch.clamp((cdf[:, None, :] <= pos[:, :, None]).sum(dim=-1) - 1, 0, kp1 - 2)
+    bin_idx = _bin_of(cdf, pos)
     c0 = torch.gather(cdf[:, :-1], 1, bin_idx)
     c1 = torch.gather(cdf[:, 1:], 1, bin_idx)
     e0 = torch.gather(edges[:, :-1], 1, bin_idx)
@@ -54,3 +73,46 @@ def sample_intervals(edges: torch.Tensor, cdf: torch.Tensor, num_samples: int, r
     if return_edges:
         return t_mid, dt, t_edges
     return t_mid, dt
+
+
+def histogram_outer_mass(edges: torch.Tensor, weights: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor) -> torch.Tensor:
+    """Proposal mass over each query interval, through the proposal's
+    piecewise-linear cumulative mass.
+
+    edges (R, K+1), weights (R, K) (not normalized), t0/t1 (R, S) → (R, S).
+    """
+    cum = torch.cat([torch.zeros_like(weights[:, :1]), torch.cumsum(weights, dim=-1)], dim=-1)
+
+    def cum_at(t):
+        idx = _bin_of(edges, t)
+        e0, e1 = torch.gather(edges[:, :-1], 1, idx), torch.gather(edges[:, 1:], 1, idx)
+        c0, c1 = torch.gather(cum[:, :-1], 1, idx), torch.gather(cum[:, 1:], 1, idx)
+        frac = torch.clamp((t - e0) / torch.clamp(e1 - e0, min=1e-12), 0.0, 1.0)
+        below = c0 + frac * (c1 - c0)
+        below = torch.where(t <= edges[:, :1], 0.0, below)  # clamp outside the range
+        return torch.where(t >= edges[:, -1:], cum[:, -1:], below)
+
+    diff = cum_at(t1) - cum_at(t0)
+    # torch.maximum splits the gradient at a tie, as jnp.maximum does.
+    return torch.maximum(diff, torch.zeros_like(diff))
+
+
+def proposal_distillation_per_ray(
+    prop_edges: torch.Tensor,
+    prop_weights: torch.Tensor,
+    fine_t0: torch.Tensor,
+    fine_t1: torch.Tensor,
+    fine_weights: torch.Tensor,
+) -> torch.Tensor:
+    """mip-NeRF 360 interlevel loss per ray (R,): the proposal histogram must
+    upper-bound the detached fine weights on every fine interval,
+
+        L_ray = Σ_samples relu(w_f − P)² / (w_f + 1e-7).
+
+    Gradients flow only into `prop_weights`; callers mask and average.
+    """
+    w_f = fine_weights.detach()
+    bound = histogram_outer_mass(prop_edges, prop_weights, fine_t0, fine_t1)
+    excess = w_f - bound
+    excess = torch.maximum(excess, torch.zeros_like(excess))
+    return (excess**2 / (w_f + 1e-7)).sum(dim=-1)

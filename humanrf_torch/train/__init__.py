@@ -1,1 +1,1 @@
-"""Render pipeline, checkpoint reading and image rendering."""
+"""Render and training pipeline, losses, optimizer, checkpoint reading and image rendering."""

@@ -1,16 +1,20 @@
-"""The render pipeline: pixels → rays → proposal samples → field → composite.
+"""The pipeline: pixels → rays → proposal samples → field → composite → loss.
 
-Counterpart of the validation/test half of `humanrf_tpu/train/pipeline.py`
-(`build_rays`, `proposal_render`, `make_render_fn`), with `sampling =
-"proposal"` and no training noise: coarse bins sit at their centres and the
-inverse-CDF draw at interval midpoints, so a render is deterministic.
-Training (the jittered draw, the losses, the step) arrives with the training
-port; dense sampling is not ported.
+Counterpart of `humanrf_tpu/train/pipeline.py` with `sampling = "proposal"`
+(dense sampling is not ported): `build_rays`, `compact_rays`,
+`proposal_render`, `training_loss`, `make_train_step` and `make_render_fn`.
+
+A training step keys all its noise by global ray id (`utils/rngs.py`), as the
+JAX step does: the coarse, mid and fine stratified offsets and the random
+background, so a ray draws the same noise wherever compaction moves it, and
+the same as the JAX package's step under the same key. A render has no
+noise: coarse bins sit at their centres and the inverse-CDF draw at interval
+midpoints, so it is deterministic.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -18,22 +22,33 @@ from humanrf_torch.models.humanrf import HumanRFModel
 from humanrf_torch.ops.occupancy import coarsen_grid, occupancy_ray_minmax, sample_occupancy
 from humanrf_torch.ops.rays import aabb_intersect, pixel_to_ray
 from humanrf_torch.ops.render import RenderOutput, composite_grid, render_weights_grid
-from humanrf_torch.ops.resample import sample_intervals, stratified_bins, weights_to_cdf
+from humanrf_torch.ops.resample import proposal_distillation_per_ray, sample_intervals, stratified_bins, weights_to_cdf
+from humanrf_torch.train.losses import bce_loss, huber_loss, masked_mean
+from humanrf_torch.utils.rngs import split, uniform_per_id
 
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """The render's sampling settings. The batch size is the batch's own
-    length: nothing here depends on it."""
+    """Sampling and loss settings. A render's batch size is the batch's own
+    length; a training step takes `num_rays × candidate_rays_factor`
+    candidate rays and supervises `num_rays`."""
 
+    num_rays: int = 8192
+    bce_loss_weight: Optional[float] = 1e-3
+    huber_delta: float = 0.01
     # tmin/tmax march on a conservatively max-pooled grid (factor× coarser).
     march_grid_factor: int = 2
     proposal_samples_per_ray: int = 64
     render_samples_per_ray: int = 32
     # Second proposal level (0 = single level).
     proposal_mid_samples_per_ray: int = 0
+    proposal_loss_weight: float = 1.0
     # Exploration floor of the resampling CDF.
     proposal_uniform_bonus: float = 5e-2
+    # The host ships factor × num_rays candidate pixels; after the occupancy
+    # march the hull-hitting ones are compacted into the num_rays render
+    # slots (training only).
+    candidate_rays_factor: int = 1
 
 
 class PoolArrays(NamedTuple):
@@ -50,6 +65,7 @@ class PoolArrays(NamedTuple):
 class HostBatch(NamedTuple):
     buffer_idx: torch.Tensor    # (R,) int — pool entry per ray
     pixel_idx: torch.Tensor     # (R,) int — flat pixel within the image
+    rgba: torch.Tensor          # (R, 4) float32 in [0, 1] (zeros at test time)
     ray_light_ok: torch.Tensor  # (R,) bool — light-bloom filter (True = keep)
 
 
@@ -91,6 +107,22 @@ def build_rays(cfg: PipelineConfig, batch: HostBatch, pool: PoolArrays, grids, a
     )
 
 
+def compact_rays(rays: RayData, batch: HostBatch, ray_ids: torch.Tensor, num_out: int):
+    """Compact hull-hitting candidate rays into `num_out` slots: valid rays
+    first, in their original order (stable sort). `ray_ids` travel with their
+    rays, so identity-keyed noise does not depend on the compaction."""
+    order = torch.argsort((~rays.valid).int(), stable=True)[:num_out]
+    rays = RayData(*(f[order] for f in rays))
+    batch = HostBatch(*(f[order] for f in batch))
+    return rays, batch, ray_ids[order]
+
+
+def _slot_ids(ray_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """(R,) ray ids → (R·num_slots,) ids `ray_id·num_slots + slot`."""
+    slots = torch.arange(num_slots, dtype=torch.int64, device=ray_ids.device)
+    return (ray_ids.long()[:, None] * num_slots + slots[None, :]).reshape(-1)
+
+
 def proposal_render(
     cfg: PipelineConfig,
     model: HumanRFModel,
@@ -99,17 +131,37 @@ def proposal_render(
     grids,
     buffer_idx,
     background_rgb,
-) -> RenderOutput:
+    rng: Optional[torch.Tensor] = None,
+    ray_ids: Optional[torch.Tensor] = None,
+):
     """Importance-sampled rendering over a static (R, K) lattice.
 
-    1. coarse bins over [tmin, tmax] → proposal density → coarse weights;
-    2. inverse-CDF draw of `render_samples_per_ray` intervals (midpoints);
+    1. bins over [tmin, tmax] → proposal density → coarse weights;
+    2. inverse-CDF draw of `render_samples_per_ray` intervals, from the
+       detached proposal weights (gradients reach the proposal only through
+       the distillation loss);
     3. one field evaluation on the (R, K_f) lattice, per-row compositing.
+
+    With a key `rng` this is the training render: stratified offsets keyed by
+    `ray_ids` (default arange), camera embeddings on, and the per-ray
+    distillation loss summed over the proposal levels in the aux. Without
+    one it is the deterministic render. → (RenderOutput, aux).
     """
     num_rays = rays.origins.shape[0]
     k_coarse = cfg.proposal_samples_per_ray
     k_mid = cfg.proposal_mid_samples_per_ray
     k_fine = cfg.render_samples_per_ray
+    is_training = rng is not None
+
+    u_coarse = u_mid = u_fine = None
+    if is_training:
+        if ray_ids is None:
+            ray_ids = torch.arange(num_rays, device=rays.origins.device)
+        rng_c, rng_m, rng_f = split(rng, 3)
+        u_coarse = uniform_per_id(rng_c, _slot_ids(ray_ids, k_coarse)).reshape(num_rays, k_coarse)
+        if k_mid:
+            u_mid = uniform_per_id(rng_m, _slot_ids(ray_ids, k_mid + 1)).reshape(num_rays, k_mid + 1)
+        u_fine = uniform_per_id(rng_f, _slot_ids(ray_ids, k_fine + 1)).reshape(num_rays, k_fine + 1)
 
     grid_ids = pool.grid_slots[buffer_idx.long()]
 
@@ -124,12 +176,16 @@ def proposal_render(
         mask = rays.valid[:, None] & sample_occupancy(grids, grid_ids[:, None], pts + 0.5)
         return render_weights_grid(sigma, dt, mask)
 
-    t_c, dt_c, edges_c = stratified_bins(rays.tmin, rays.tmax, k_coarse)
-    cdf = weights_to_cdf(proposal_weights(t_c, dt_c), cfg.proposal_uniform_bonus)
+    t_c, dt_c, edges_c = stratified_bins(rays.tmin, rays.tmax, k_coarse, u_coarse)
+    w_prop = proposal_weights(t_c, dt_c)
+    cdf = weights_to_cdf(w_prop.detach(), cfg.proposal_uniform_bonus)
+    levels = [(edges_c, w_prop)]
     if k_mid:
-        t_m, dt_m, edges_c = sample_intervals(edges_c, cdf, k_mid, return_edges=True)
-        cdf = weights_to_cdf(proposal_weights(t_m, dt_m), cfg.proposal_uniform_bonus)
-    t_f, dt_f = sample_intervals(edges_c, cdf, k_fine)
+        t_m, dt_m, edges_c = sample_intervals(edges_c, cdf, k_mid, u_mid, return_edges=True)
+        w_mid = proposal_weights(t_m, dt_m)
+        cdf = weights_to_cdf(w_mid.detach(), cfg.proposal_uniform_bonus)
+        levels.append((edges_c, w_mid))
+    t_f, dt_f = sample_intervals(edges_c, cdf, k_fine, u_fine)
 
     pts_f = rays.origins[:, None, :] + rays.directions[:, None, :] * t_f[..., None]
     density, radiance = model(
@@ -137,13 +193,92 @@ def proposal_render(
         rays.directions.repeat_interleave(k_fine, dim=0),
         rays.frame_numbers.repeat_interleave(k_fine),
         rays.camera_numbers.repeat_interleave(k_fine),
-        is_training=False,
+        is_training=is_training,
     )
     density = density.reshape(num_rays, k_fine)
     radiance = radiance.reshape(num_rays, k_fine, 3)
     fine_mask = rays.valid[:, None].expand(num_rays, k_fine)
     w_fine = render_weights_grid(density, dt_f, fine_mask)
-    return composite_grid(w_fine, radiance, background_rgb)
+    out = composite_grid(w_fine, radiance, background_rgb)
+
+    aux = {"num_samples": fine_mask.sum()}
+    if is_training:
+        aux["proposal_loss_per_ray"] = sum(
+            proposal_distillation_per_ray(edges, weights, t_f - 0.5 * dt_f, t_f + 0.5 * dt_f, w_fine)
+            for edges, weights in levels
+        )
+    return out, aux
+
+
+def training_loss(
+    cfg: PipelineConfig,
+    model: HumanRFModel,
+    rays: RayData,
+    rgba: torch.Tensor,
+    rng: torch.Tensor,
+    pool: PoolArrays,
+    grids,
+    buffer_idx,
+    ray_ids: Optional[torch.Tensor] = None,
+):
+    """Random-background compositing, Huber + BCE + distillation, each a
+    mean over the valid rays (trainer.py:229-248 of the reference).
+    → (loss, aux) with aux `photometric`, `mask_loss`, `proposal_loss`,
+    `mse`, `num_samples` and `num_rays_supervised`."""
+    if ray_ids is None:
+        ray_ids = torch.arange(cfg.num_rays, device=rgba.device)
+    rng_bg, rng_jitter = split(rng)
+    gt_mask = rgba[:, 3:4]
+    background = uniform_per_id(rng_bg, ray_ids, num=3)
+    gt_rgb = rgba[:, 0:3] * gt_mask + background * (1.0 - gt_mask)
+
+    out, proposal_aux = proposal_render(cfg, model, rays, pool, grids, buffer_idx, background, rng_jitter, ray_ids)
+    loss_mask = rays.valid
+
+    photometric = masked_mean(huber_loss(out.color, gt_rgb, cfg.huber_delta), loss_mask)
+    total = photometric
+    aux = {"photometric": photometric}
+    if cfg.bce_loss_weight is not None:
+        mask_l = masked_mean(bce_loss(out.weights_sum, gt_mask), loss_mask) * cfg.bce_loss_weight
+        total = total + mask_l
+        aux["mask_loss"] = mask_l
+    prop_l = masked_mean(proposal_aux["proposal_loss_per_ray"][:, None], loss_mask)
+    total = total + cfg.proposal_loss_weight * prop_l
+    aux["proposal_loss"] = prop_l
+
+    aux["mse"] = masked_mean((out.color - gt_rgb) ** 2, loss_mask)
+    aux["num_samples"] = proposal_aux["num_samples"]
+    aux["num_rays_supervised"] = loss_mask.sum()
+    return total, aux
+
+
+def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: int, height: int):
+    """Returns train_step(batch, pool, grids, aabb, rng) → (loss, aux).
+
+    `batch` carries `num_rays × candidate_rays_factor` candidate rays; after
+    the occupancy march the valid ones are compacted into the `num_rays`
+    render slots. The step computes the loss, back-propagates into the
+    model's parameters and applies `optimizer` (`train/trainer.py::AdamW`).
+    It updates the parameters and the optimizer's state in place: the
+    PyTorch form of the JAX step's donated buffers. `loss` and `aux` are
+    detached device tensors; nothing waits for the device.
+    """
+
+    def step(batch: HostBatch, pool: PoolArrays, grids, aabb, rng: torch.Tensor):
+        rays = build_rays(cfg, batch, pool, grids, aabb, width, height)
+        ray_ids = None
+        if cfg.candidate_rays_factor > 1:
+            ray_ids = torch.arange(cfg.num_rays * cfg.candidate_rays_factor, device=rays.origins.device)
+            rays, batch, ray_ids = compact_rays(rays, batch, ray_ids, cfg.num_rays)
+        optimizer.zero_grad()
+        loss, aux = training_loss(
+            cfg, model, rays, batch.rgba, rng, pool, grids, batch.buffer_idx, ray_ids=ray_ids
+        )
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    return step
 
 
 def make_render_fn(cfg: PipelineConfig, model: HumanRFModel, width: int, height: int):
@@ -154,7 +289,7 @@ def make_render_fn(cfg: PipelineConfig, model: HumanRFModel, width: int, height:
     @torch.no_grad()
     def fn(batch: HostBatch, pool: PoolArrays, grids, aabb, background_rgb):
         rays = build_rays(cfg, batch, pool, grids, aabb, width, height)
-        out = proposal_render(cfg, model, rays, pool, grids, batch.buffer_idx, background_rgb)
+        out, _ = proposal_render(cfg, model, rays, pool, grids, batch.buffer_idx, background_rgb)
         valid = rays.valid[:, None]
         color = torch.where(valid, out.color, torch.as_tensor(background_rgb, dtype=out.color.dtype, device=out.color.device))
         wsum = torch.where(valid, out.weights_sum, 0.0)

@@ -1,11 +1,14 @@
-"""Load a baked test view: the model/pipeline settings and the loader state of
-one image, as `scripts/make_torch_view_inputs.py` writes them.
+"""Load baked inputs of the r4 scene: a test view (the model/pipeline
+settings and the loader state of one image, as
+`scripts/make_torch_view_inputs.py` writes them) and a training pool (the
+loader state and pooled images of the train cameras at two frames, as
+`scripts/make_torch_train_inputs.py` writes them).
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -23,6 +26,38 @@ class BakedView(NamedTuple):
     images: Dict[str, np.ndarray]  # gt_rgb, gt_mask, jax_render (uint8)
     camera_name: str
     frame_number: int
+
+
+class TrainInputs(NamedTuple):
+    pool: PoolArrays
+    grids: torch.Tensor        # (G, res, res, res) bool
+    aabb: torch.Tensor         # (2, 3) float32
+    width: int
+    height: int
+    pixel_rgba: torch.Tensor   # (B, H·W, 4) uint8: (rgb·mask, mask) per pool entry
+    camera_names: List[str]    # per pool entry
+
+
+def _grids(data) -> np.ndarray:
+    shape = tuple(int(s) for s in data["grids_shape"])
+    return np.unpackbits(data["grids_packed"], count=int(np.prod(shape))).astype(bool).reshape(shape)
+
+
+def _pool(data, device) -> PoolArrays:
+    return PoolArrays(*(torch.as_tensor(data[name], device=device) for name in PoolArrays._fields))
+
+
+def load_train_inputs(path, device) -> TrainInputs:
+    data = np.load(Path(path))
+    return TrainInputs(
+        pool=_pool(data, device),
+        grids=torch.as_tensor(_grids(data), device=device),
+        aabb=torch.as_tensor(data["aabb"], device=device),
+        width=int(data["width"]),
+        height=int(data["height"]),
+        pixel_rgba=torch.as_tensor(data["pixel_rgba"], device=device),
+        camera_names=[str(n) for n in data["camera_names"]],
+    )
 
 
 def load_view_inputs(path, device) -> BakedView:
@@ -55,22 +90,10 @@ def load_view_inputs(path, device) -> BakedView:
         proposal_uniform_bonus=tpu["proposal_uniform_bonus"],
     )
 
-    def t(name):
-        return torch.as_tensor(data[name], device=device)
-
-    shape = tuple(int(s) for s in data["grids_shape"])
-    grids = np.unpackbits(data["grids_packed"], count=int(np.prod(shape))).astype(bool).reshape(shape)
     inputs = ViewInputs(
-        pool=PoolArrays(
-            inverse_krs=t("inverse_krs"),
-            camera_origins=t("camera_origins"),
-            landscape=t("landscape"),
-            frame_numbers=t("frame_numbers"),
-            camera_numbers=t("camera_numbers"),
-            grid_slots=t("grid_slots"),
-        ),
-        grids=torch.as_tensor(grids, device=device),
-        aabb=t("aabb"),
+        pool=_pool(data, device),
+        grids=torch.as_tensor(_grids(data), device=device),
+        aabb=torch.as_tensor(data["aabb"], device=device),
         width=int(data["width"]),
         height=int(data["height"]),
         buffer_index=int(data["buffer_index"]),

@@ -1,9 +1,11 @@
-"""The port's `fused_interp` (humanrf_torch/ops/fused_interp.py) against the
-JAX package's oracle and Pallas kernel (humanrf_tpu/ops/fused_interp.py).
+"""The port's `fused_interp` (humanrf_torch/ops/fused_interp.py), forward and
+backward, against the JAX package's oracle and Pallas kernel
+(humanrf_tpu/ops/fused_interp.py).
 
-On the CPU the wrapper runs the plain PyTorch version; the CUDA kernel is
-checked against it by the `cuda`-marked test, on the card only.
+On the CPU the wrapper runs the plain PyTorch versions; the CUDA kernels are
+checked against them by the `cuda`-marked tests, on the card only.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,10 +71,76 @@ def test_plain_matches_pallas_kernel_interpreted(outside):
 
 def test_wrapper_takes_plain_version_on_cpu_without_launching():
     tables, idx, w = (torch.tensor(a) for a in _inputs())
-    before = fi.launches
-    out = fi.fused_interp(tables, idx, w)
+    before = dict(fi.launches)
+    out = fi.fused_interp(tables.requires_grad_(), idx, w)
+    out.sum().backward()
     assert fi.launches == before
     torch.testing.assert_close(out, fi.fused_interp_plain(tables, idx, w), rtol=0, atol=0)
+    g = torch.ones_like(out)
+    torch.testing.assert_close(tables.grad, fi.fused_interp_bwd_plain(g, idx, w, tables.shape[-1]), rtol=0, atol=0)
+
+
+def _cotangent(P, F, N, seed=1):
+    return np.random.default_rng(seed).normal(size=(P, F, N)).astype(np.float32)
+
+
+def _jax_table_grad(fn, tables, idx, w, g):
+    return np.asarray(jax.grad(lambda t: (fn(t, jnp.asarray(idx), jnp.asarray(w)) * jnp.asarray(g)).sum())(jnp.asarray(tables)))
+
+
+@pytest.mark.parametrize("shape", [(3, 4, 256, 8, 700), (4, 32, 128, 2, 300)], ids=["grids", "vectors"])
+def test_plain_backward_matches_jax_oracle_gradient(shape):
+    """`fused_interp_bwd_plain` against `jax.grad` of `fused_interp_reference`:
+    both scatter-add fp32 products, in another order, so 1e-6 of the scale."""
+    P, F, T, C, N = shape
+    tables, idx, w = _inputs(P, F, T, C, N)
+    g = _cotangent(P, F, N)
+    ref = _jax_table_grad(fused_interp_reference, tables, idx, w, g)
+    out = fi.fused_interp_bwd_plain(torch.tensor(g), torch.tensor(idx), torch.tensor(w), T).numpy()
+    assert out.shape == (P, F, T)
+    assert _scaled_err(out, ref) <= 1e-6
+
+
+@pytest.mark.parametrize("outside", [False, True], ids=["inside", "outside"])
+def test_plain_backward_matches_pallas_backward_interpreted(outside):
+    """The Pallas backward contracts bf16 cotangents with bf16 one-hot rows
+    (fp32 accumulation): 2e-2 of the scale, tests/test_fused_interp.py's
+    bound. An index outside [0, T) has no one-hot entry there and gets no
+    gradient here."""
+    tables, idx, w = _inputs(outside=outside)
+    g = _cotangent(*tables.shape[:2], idx.shape[-1])
+    ref = _jax_table_grad(lambda t, i, ww: pallas_fused_interp(t, i, ww, "twolevel", 128, True), tables, idx, w, g)
+    out = fi.fused_interp_bwd_plain(torch.tensor(g), torch.tensor(idx), torch.tensor(w), tables.shape[-1]).numpy()
+    assert _scaled_err(out, ref) < 2e-2
+
+
+def test_corners_outside_the_table_get_no_gradient():
+    """Exactly the in-table corners' scatter: the same samples with the
+    out-of-table corners' weights zeroed give the same gradient, bit for bit."""
+    tables, idx, w = _inputs(outside=True)
+    T = tables.shape[-1]
+    inside = (idx >= 0) & (idx < T)
+    g = torch.tensor(_cotangent(*tables.shape[:2], idx.shape[-1]))
+    out = fi.fused_interp_bwd_plain(g, torch.tensor(idx), torch.tensor(w), T)
+    ref = fi.fused_interp_bwd_plain(g, torch.tensor(np.clip(idx, 0, T - 1)), torch.tensor(np.where(inside, w, 0)), T)
+    assert torch.equal(out, ref)
+
+
+def test_autograd_through_the_function_on_cpu():
+    """Gradients reach the tables through `fused_interp` (the plain
+    `autograd.Function` on the CPU) and match autograd of the plain forward;
+    idx and w get none. gradcheck in float64 is not possible (the op is
+    float32 only), so the comparison is against torch's own gather backward:
+    both are fp32 scatter-adds, 1e-6 of the scale."""
+    tables, idx, w = _inputs()
+    t1 = torch.tensor(tables, requires_grad=True)
+    wt = torch.tensor(w, requires_grad=True)
+    g = torch.tensor(_cotangent(*tables.shape[:2], idx.shape[-1]))
+    (fi.fused_interp(t1, torch.tensor(idx), wt) * g).sum().backward()
+    t2 = torch.tensor(tables, requires_grad=True)
+    (fi.fused_interp_plain(t2, torch.tensor(idx), torch.tensor(w)) * g).sum().backward()
+    assert wt.grad is None
+    assert _scaled_err(t1.grad.numpy(), t2.grad.numpy()) <= 1e-6
 
 
 @pytest.mark.parametrize(
@@ -111,16 +179,35 @@ def test_kernel_matches_plain_on_card(cuda_device, shape):
     order (the kernel with fma): 1e-5 of the output scale."""
     P, F, T, C, N, outside = shape
     tables, idx, w = (torch.tensor(a, device=cuda_device) for a in _inputs(P, F, T, C, N, outside=outside))
-    before = fi.launches
+    before = fi.launches["fwd"]
     out = fi.fused_interp(tables, idx, w)
     ref = fi.fused_interp_plain(tables, idx, w)
     torch.cuda.synchronize()
-    assert fi.launches == before + 1
+    assert fi.launches["fwd"] == before + 1
     assert float((out - ref).abs().max() / ref.abs().max()) < 1e-5
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_tables_that_need_gradients(cuda_device):
-    tables, idx, w = (torch.tensor(a, device=cuda_device) for a in _inputs())
-    with pytest.raises(RuntimeError, match="backward"):
-        fi.fused_interp(tables.requires_grad_(), idx, w)
+@pytest.mark.parametrize(
+    "shape",
+    [(32, 4, 2048, 8, 262_144, False), (4, 32, 2048, 2, 262_144, False), (64, 2, 1 << 19, 8, 65_536, False),
+     (3, 4, 100, 8, 1000, True)],
+    ids=["grids", "vectors", "capacity", "ragged-outside"],
+)
+def test_backward_kernel_matches_plain_on_card(cuda_device, shape):
+    """Both are fp32 sums whose order differs (atomics add in a run-dependent
+    order; the plain scatter_add too). An entry of dtab sums ~N·C/T terms
+    (≤ 1,024 at these shapes); reordering such a sum moves it by about
+    eps·√n of its terms' size, ~2e-6 relative, so 1e-5 of the scale bounds it.
+    The grid and vector shapes take the shared-memory slab, T = 2^19 the
+    global-atomic path."""
+    P, F, T, C, N, outside = shape
+    _, idx, w = (torch.tensor(a, device=cuda_device) for a in _inputs(P, F, T, C, N, outside=outside))
+    g = torch.tensor(_cotangent(P, F, N), device=cuda_device)
+    before = fi.launches["bwd"]
+    tables = torch.zeros((P, F, T), device=cuda_device, requires_grad=True)
+    fi.fused_interp(tables, idx, w).backward(g)
+    ref = fi.fused_interp_bwd_plain(g, idx, w, T)
+    torch.cuda.synchronize()
+    assert fi.launches["bwd"] == before + 1
+    assert float((tables.grad - ref).abs().max() / ref.abs().max()) < 1e-5

@@ -165,7 +165,9 @@ def _render_both(jax_model, jax_params, torch_model, pcfg_kwargs, pool, grids, a
 
     tcfg = t_pipeline.PipelineConfig(**pcfg_kwargs)
     tfn = t_pipeline.make_render_fn(tcfg, torch_model, width, height)
-    tbatch = t_pipeline.HostBatch(torch.tensor(buffer_idx), torch.tensor(pixel_idx), torch.ones(n, dtype=torch.bool))
+    tbatch = t_pipeline.HostBatch(
+        torch.tensor(buffer_idx), torch.tensor(pixel_idx), torch.zeros((n, 4)), torch.ones(n, dtype=torch.bool)
+    )
     tout, tvalid = tfn(tbatch, pool, grids, aabb, 0.0)
     np.testing.assert_array_equal(_np(tvalid), _np(jvalid))
     return _np(tout.color), _np(jout.color), _np(tout.weights_sum), _np(jout.weights_sum)
@@ -287,7 +289,8 @@ def test_render_image_matches_one_batch_of_the_render_fn(view):
 
     fn = t_pipeline.make_render_fn(pcfg, torch_model, 12, 12)
     batch = t_pipeline.HostBatch(
-        torch.ones(144, dtype=torch.int32), torch.arange(144, dtype=torch.int32), torch.ones(144, dtype=torch.bool)
+        torch.ones(144, dtype=torch.int32), torch.arange(144, dtype=torch.int32), torch.zeros((144, 4)),
+        torch.ones(144, dtype=torch.bool),
     )
     out, valid = fn(batch, pool, view.inputs.grids, view.inputs.aabb, 0.0)
     assert img.shape == (12, 12, 3)
