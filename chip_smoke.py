@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA Hopper GPU.
 
-Drives the port's two paths at the full width of the r4 HumanRF model (2
+Drives the port's paths at the full width of the r4 HumanRF model (2
 segments [25, 25], L8/F4 grids with T=2048 per segment, rank-32 proposal,
 camera embedding 2) through its own entry points, with every field lookup on
 the hand-written CUDA `fused_interp` kernels (forward and backward):
@@ -11,7 +11,10 @@ the hand-written CUDA `fused_interp` kernels (forward and backward):
   `render_image`), the 748×748 Cam012 frame-0 test view;
 - the flagship training step (`make_train_step` with proposal sampling,
   16,384 rays from 2× candidates, Kc=32, Kf=16, AdamW) on a fresh model, fed
-  from the baked pool of the scene's train cameras at frames 0 and 25.
+  from the baked pool of the scene's train cameras at frames 0 and 25;
+- the CLI, `python -m humanrf_torch.run`, on the r4 scene written by the
+  port: the loader's pool, training with validation and checkpoints, a
+  resume, the test render and the evaluation.
 
 Phases, each of which raises on failure:
 
@@ -29,11 +32,26 @@ Phases, each of which raises on failure:
    (2 forward + 2 backward per segment per step), finite losses, no skipped
    update and falling mse; ms per step, supervised rays/s, peak memory and
    the device's busy share in one profiled step; the held-out Cam012 view's
-   ROI-PSNR before and after training.
+   ROI-PSNR before and after training;
+6. the CLI: the r4 scene written with the port's generator (its time; one
+   JPEG decoded back against the renderer's image, PSNR ≥ JPEG_PSNR_MIN;
+   adaptive partitioning gives [25, 25]), then `humanrf_torch.run.main` with
+   the r4 command's flags: EARLY_STEPS steps validated and saved at the end,
+   resumed from `latest` to CLI_STEPS with validation and saves every
+   CLI_STEPS / 2, and frame 0 of the test camera rendered and evaluated.
+   Checks: three validation blocks of 3 finite images, the later two above
+   the early one in mean PSNR (the CLI's validation PSNR plateaus by step
+   ~100 on this scene, so the rise shows against an early block), at most 2
+   step checkpoints after the rolling prune and a best.ckpt, the test frame
+   and the CSVs, no skipped update, launches of both kernel directions
+   counted over these runs; then a resume from `latest` for RESUME_STEPS
+   more steps. Prints ms per step, nominal and supervised rays/s, the host
+   fetch share and the pool's replacement rate.
 
 The last three lines of output are the kernel table as JSON (the forward and
-the backward kernel, launches from the training run), the card's name and
-power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
+the backward kernel; `launches` counted over phase 6, the CLI, with each
+phase's counts beside them), the card's name and power limit from
+nvidia-smi, and `{"ok": true, "device": {...}}`.
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
@@ -42,6 +60,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -49,11 +68,17 @@ from unittest import mock
 import numpy as np
 import torch
 
+from humanrf_torch import run as cli
 from humanrf_torch.convert import convert_params
+from humanrf_torch.core import image_io
+from humanrf_torch.core.dataset import VolumetricDataset
+from humanrf_torch.core.synthetic import make_cameras, render_cameras
 from humanrf_torch.models import fused_field
 from humanrf_torch.models.humanrf import HumanRFModel
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops.cuda_build import load_library
+from humanrf_torch.r4 import NUM_FRAMES, R4_SCENE, r4_flags, write_scene
+from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
 from humanrf_torch.train.checkpoint import load_checkpoint
 from humanrf_torch.train.pipeline import make_train_step
 from humanrf_torch.train.trainer import make_optimizer, render_image, sample_batch
@@ -82,11 +107,19 @@ KERNEL_SHAPES = (
 # distillation. The sampling settings come from the view's config.
 TRAIN_CONFIG = dict(num_rays=16_384, candidate_rays_factor=2, bce_loss_weight=1e-3, huber_delta=0.01,
                     proposal_loss_weight=1.0)
-TRAIN_STEPS = 400          # steps of phase 5 (a fresh model), ~80 s
+TRAIN_STEPS = 300          # steps of phase 5 (a fresh model), ~60 s
 WARM_STEPS = 5             # not timed
 STEP0_LOSS_REL = 1e-5      # step-0 loss, kernels vs plain
 STEP0_GRAD_COSINE = 0.9999 # step-0 gradient per parameter, kernels vs plain
 MSE_DROP = 0.5             # mean mse of the last 20 steps ≤ this × that of the first 5
+
+EARLY_STEPS = 20           # phase 6: the first CLI run, validated and saved at its end
+CLI_STEPS = 600            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
+RESUME_STEPS = 20          # phase 6: steps of the resumed run
+# dB, a written q98 JPEG decoded back against the rendered image. JPEG's own
+# loss on this texture is ~44 dB (Cam001 frame 0: 44.14 dB on the CPU, the
+# bytes cv2 writes); a wrong colour conversion or upsampling falls far below.
+JPEG_PSNR_MIN = 40.0
 
 
 def log(msg: str) -> None:
@@ -254,7 +287,7 @@ def train(device, view) -> dict:
     roi_before = held_out_roi_psnr(model, view)
     log(f"held-out {view.camera_name} frame {view.frame_number} before training: ROI-PSNR {roi_before:.3f} dB")
 
-    optimizer = make_optimizer(model.parameters(), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
+    optimizer = make_optimizer(model.named_parameters(), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
     step = make_train_step(cfg, model, optimizer, width, height)
     losses, mses, supervised, per_step_launches = [], [], [], []
     torch.cuda.synchronize()
@@ -338,6 +371,88 @@ def profile_step(step, batch, pool, key, device) -> dict:
     }
 
 
+def validation_blocks(ws: Path) -> dict:
+    """validation.txt → {step: [psnr of each image]}."""
+    blocks, step = {}, None
+    for line in (ws / "validation.txt").read_text().splitlines():
+        if line.startswith("Step: "):
+            step = int(line.split()[1])
+            blocks[step] = []
+        else:
+            blocks[step] += [float(p.split("=")[1]) for p in line.split() if p.startswith("psnr=")]
+    return blocks
+
+
+def cli_phase(device) -> dict:
+    """Phase 6 (see the module docstring). → the CLI run's launches."""
+    with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
+        scene, ws = Path(tmp) / "scene", Path(tmp) / "workspace"
+        seconds = write_scene(scene, device)
+        data_dir = scene / "SynthActor" / "Sequence1" / "1x"
+        cam = make_cameras(R4_SCENE)[0]
+        rendered, _ = render_cameras(
+            R4_SCENE, torch.tensor(cam.inverse_kr()[None].astype(np.float32), device=device),
+            torch.tensor(cam.translation[None].astype(np.float32), device=device),
+            torch.tensor(np.asarray(R4_SCENE.center_start, dtype=np.float32), device=device), 0.0, cam.height, cam.width)
+        decoded = image_io.imread(data_dir / "rgbs" / cam.name / f"{cam.name}_rgb000000.jpg")[..., ::-1]
+        jpeg_psnr = psnr(decoded / 255.0, rendered[0].cpu().numpy() / 255.0)
+        sizes = compute_adaptive_segment_sizes(VolumetricDataset(data_dir), list(range(NUM_FRAMES)))
+        log(f"cli: r4 scene ({R4_SCENE.num_cameras} cameras × {NUM_FRAMES} frames, {cam.width}x{cam.height}) "
+            f"written in {seconds:.1f} s; {cam.name} frame 0 JPEG vs render {jpeg_psnr:.2f} dB; segments {sizes}")
+        if not jpeg_psnr >= JPEG_PSNR_MIN:
+            raise AssertionError(f"a written JPEG decodes {jpeg_psnr:.2f} dB from its render (< {JPEG_PSNR_MIN})")
+        if sizes != [25, 25]:
+            raise AssertionError(f"adaptive partitioning of the r4 scene gave {sizes}, not [25, 25]")
+
+        half = CLI_STEPS // 2
+        early = r4_flags(scene, ws, EARLY_STEPS, EARLY_STEPS)
+        flags = r4_flags(scene, ws, CLI_STEPS, half) + [
+            "--training.checkpoint", "latest", "--evaluate", "true", "--evaluation.frame_numbers", "0"]
+        torch.cuda.synchronize()
+        fi.reset_launches()
+        t0 = time.perf_counter()
+        cli.main(early)
+        result = cli.main(flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fi.launches)
+        stats = result["train"]
+        blocks = validation_blocks(ws)
+        means = {step: float(np.mean(v)) for step, v in blocks.items()}
+        log(f"cli: {EARLY_STEPS} steps, then resumed to {CLI_STEPS} + 3 validations + test render + evaluation "
+            f"in {wall:.1f} s wall; kernel launches {launches}; validation PSNR per block {blocks}; "
+            f"evaluation {result['averages']}")
+        log(f"cli: trainer scale ({stats['steps']} steps timed): {stats['ms_per_step']:.2f} ms per step, "
+            f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised rays/s, "
+            f"host fetch {100 * stats['fetch_share']:.1f}% of the train time, "
+            f"{stats['images_replaced_per_step']:.2f} pool images replaced per step")
+        if sorted(blocks) != [EARLY_STEPS, half, CLI_STEPS] or any(
+                len(v) != 3 or not np.isfinite(v).all() for v in blocks.values()):
+            raise AssertionError(f"expected three validation blocks of 3 finite images, got {blocks}")
+        if not min(means[half], means[CLI_STEPS]) > means[EARLY_STEPS]:
+            raise AssertionError(f"validation PSNR did not rise: {means}")
+        if stats["start_step"] != EARLY_STEPS:
+            raise AssertionError(f"the second run did not resume from step {EARLY_STEPS}: {stats}")
+        ckpts = sorted(p.name for p in (ws / "checkpoints").glob("*.ckpt"))
+        if "best.ckpt" not in ckpts or len([c for c in ckpts if c.startswith("step_")]) > 2:
+            raise AssertionError(f"checkpoints: {ckpts}")
+        results = ws / "results"
+        if not (list((results / "test_frames").glob("*.png")) and (results / "metrics.csv").exists()
+                and (results / "averages.csv").exists()):
+            raise AssertionError("the evaluate phase wrote no test frame or CSV")
+        if stats["skipped_nonfinite"] != 0:
+            raise AssertionError(f"{stats['skipped_nonfinite']} updates skipped as non-finite")
+        if not (launches["fwd"] > 0 and launches["bwd"] > 0):
+            raise AssertionError(f"the CLI run launched fused_interp {launches}")
+
+        resumed = cli.main(r4_flags(scene, ws, CLI_STEPS + RESUME_STEPS, CLI_STEPS // 2)
+                           + ["--training.checkpoint", "latest"])["train"]
+        log(f"cli: resumed from step {resumed['start_step']} to {resumed['end_step']}")
+        if (resumed["start_step"], resumed["end_step"]) != (CLI_STEPS, CLI_STEPS + RESUME_STEPS + 1):
+            raise AssertionError(f"the resume ran steps {resumed['start_step']}..{resumed['end_step']}")
+    return launches
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -362,7 +477,7 @@ def main() -> int:
 
     # Phase 4: the render.
     view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
-    params, step, _, _ = load_checkpoint(RUN_DIR / "best.ckpt")
+    params, _, step, _, _ = load_checkpoint(RUN_DIR / "best.ckpt")
     model = HumanRFModel(view.model_config, device=device)
     model.load_state_dict(convert_params(params))
     model.eval()
@@ -418,13 +533,18 @@ def main() -> int:
     # Phase 5: training.
     train_launches = train(device, view)
 
+    # Phase 6: the CLI.
+    cli_launches = cli_phase(device)
+
     records = [
         {
             "name": f"fused_interp_{direction}",
             "route": "cuda",
             "source": "humanrf_torch/csrc/fused_interp.cu",
             "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
-            "launches": train_launches[direction],
+            "launches": cli_launches[direction],
+            "launches_by_phase": {"render": launches[direction], "train_step": train_launches[direction],
+                                  "cli": cli_launches[direction]},
             **kernels[direction],
         }
         for direction, line in (("fwd", 87), ("bwd", 97))

@@ -1,10 +1,15 @@
-"""Build a CUDA source of `humanrf_torch/csrc/` into a shared library and load it.
+"""Build a source of `humanrf_torch/csrc/` into a shared library and load it.
 
-Each `csrc/<name>.cu` exposes a plain C interface. It is compiled with `nvcc`
-for Hopper (`sm_90a`) into `humanrf_torch/build/` at first use and loaded
-with `ctypes`; no PyTorch headers are involved, so a build takes seconds. The
-library's file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.
+Each source exposes a plain C interface and is compiled into
+`humanrf_torch/build/` at first use and loaded with `ctypes`; no PyTorch
+headers are involved, so a build takes seconds. Two routes:
+
+- `csrc/<name>.cu`, the CUDA kernels: `nvcc` for Hopper (`sm_90a`);
+- `csrc/<name>.c`, host code (the image codec): the system C compiler.
+
+The library's file name carries a hash of the source and the flags, so an
+edited source is rebuilt and a stale library is never loaded. A failed build
+raises; nothing falls back.
 
 Nothing here runs at import time: a machine without `nvcc` (the CPU test
 environment) can import every module of the package.
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -29,6 +35,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CC_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c99")
 
 
 @dataclass
@@ -40,6 +47,7 @@ class BuiltLibrary:
 
 
 _LOADED: Dict[str, BuiltLibrary] = {}
+_LOCK = threading.Lock()  # loader threads may ask for the codec at once
 
 
 def find_nvcc() -> str:
@@ -57,29 +65,48 @@ def find_nvcc() -> str:
     return found
 
 
+def find_cc() -> str:
+    """The system C compiler ($CC, cc, gcc or clang); raises when there is none."""
+    for c in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        if c and shutil.which(c):
+            return shutil.which(c)
+    raise RuntimeError("no C compiler found (set CC or put cc on PATH)")
+
+
+def _route(name: str):
+    """→ (source path, compiler command without output and source)."""
+    if (CSRC_DIR / f"{name}.cu").exists():
+        return CSRC_DIR / f"{name}.cu", lambda: [find_nvcc(), *NVCC_FLAGS]
+    return CSRC_DIR / f"{name}.c", lambda: [find_cc(), *CC_FLAGS]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src, _ = _route(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def load_library(name: str) -> BuiltLibrary:
-    """Compile `csrc/<name>.cu` if needed and return the loaded library."""
-    if name in _LOADED:
-        return _LOADED[name]
-    out = library_path(name)
-    build_seconds, log = 0.0, ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    built = BuiltLibrary(ctypes.CDLL(str(out)), out, build_seconds, log)
-    _LOADED[name] = built
-    return built
+    """Compile `csrc/<name>.cu` (nvcc) or `csrc/<name>.c` (cc) if needed and
+    return the loaded library."""
+    with _LOCK:
+        if name in _LOADED:
+            return _LOADED[name]
+        src, compiler = _route(name)
+        out = library_path(name)
+        build_seconds, log = 0.0, ""
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [*compiler(), "-o", str(tmp), str(src)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}) for {src.name}:\n{log}")
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        built = BuiltLibrary(ctypes.CDLL(str(out)), out, build_seconds, log)
+        _LOADED[name] = built
+        return built

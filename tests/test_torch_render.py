@@ -194,7 +194,7 @@ def test_render_fn_matches_jax_on_trained_checkpoint(view):
     template = jax_model.init_params(jax.random.PRNGKey(0))
     jax_params, _, _, _, _ = j_load_checkpoint(RUN_DIR / "best.ckpt", template, None)
 
-    params, step, _, _ = t_load_checkpoint(RUN_DIR / "best.ckpt")
+    params, _, step, _, _ = t_load_checkpoint(RUN_DIR / "best.ckpt")
     torch_model = THumanRFModel(mc)
     torch_model.load_state_dict(convert_params(params))
 

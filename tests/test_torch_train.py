@@ -254,7 +254,7 @@ def test_optimizer_matches_optax_with_a_nonfinite_step():
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     jstate = jopt.init(jparams)
     tparams = {k: torch.nn.Parameter(torch.tensor(v)) for k, v in params.items()}
-    topt = t_trainer.make_optimizer(tparams.values(), 1e-2, 0.5, 50_001, weight_decay=0.03)
+    topt = t_trainer.make_optimizer(tparams.items(), 1e-2, 0.5, 50_001, weight_decay=0.03)
 
     for i, g in enumerate(grads):
         updates, jstate = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), jstate, jparams)
@@ -396,7 +396,7 @@ def test_train_step_matches_jax_on_a_two_segment_model(train_inputs):
         jparams, jax.random.PRNGKey(5), jbatch, jpool, jgrids, jaabb
     )
 
-    topt = t_trainer.make_optimizer(tmodel.parameters(), 1e-2, 0.5, 50_001, weight_decay=0.03)
+    topt = t_trainer.make_optimizer(tmodel.named_parameters(), 1e-2, 0.5, 50_001, weight_decay=0.03)
     tstep = t_pipeline.make_train_step(tcfg, tmodel, topt, w, h)
     tloss, taux = tstep(tbatch, train_inputs.pool, grids, aabb, t_rngs.make_key(5))
 
@@ -416,7 +416,7 @@ def test_train_step_matches_jax_on_a_two_segment_model(train_inputs):
     jstep = j_pipeline.make_train_step(jcfg, jmodel, jopt, w, h)
     jstate = jopt.init(jparams)
     tmodel.load_state_dict(convert_params(jax.tree_util.tree_map(np.asarray, jparams)))
-    topt = t_trainer.make_optimizer(tmodel.parameters(), 1e-2, 0.5, 50_001, weight_decay=0.03)
+    topt = t_trainer.make_optimizer(tmodel.named_parameters(), 1e-2, 0.5, 50_001, weight_decay=0.03)
     tstep = t_pipeline.make_train_step(tcfg, tmodel, topt, w, h)
     key, tkey = jax.random.PRNGKey(11), t_rngs.make_key(11)
     for i in range(3):
@@ -472,7 +472,7 @@ def test_train_step_loss_matches_jax_on_the_trained_checkpoint(train_inputs):
     mc = view.model_config
     jmodel = HumanRFModel(HumanRFConfig(**{**mc.__dict__, "field_backend": "gather"}))
     jparams, _, _, _, _ = j_load_checkpoint(RUN_DIR / "best.ckpt", jmodel.init_params(jax.random.PRNGKey(0)), None)
-    params, _, _, _ = t_load_checkpoint(RUN_DIR / "best.ckpt")
+    params, _, _, _, _ = t_load_checkpoint(RUN_DIR / "best.ckpt")
     tmodel = THumanRFModel(mc)
     tmodel.load_state_dict(convert_params(params))
 
@@ -486,7 +486,7 @@ def test_train_step_loss_matches_jax_on_the_trained_checkpoint(train_inputs):
     jloss, jaux = jax.jit(_jax_loss_fn(jcfg, jmodel, w, h))(
         jparams, jax.random.PRNGKey(3), jbatch, jpool, jnp.asarray(_np(grids)), jnp.asarray(_np(aabb))
     )
-    topt = t_trainer.make_optimizer(tmodel.parameters(), 1e-2, 0.5, 50_001, weight_decay=0.03)
+    topt = t_trainer.make_optimizer(tmodel.named_parameters(), 1e-2, 0.5, 50_001, weight_decay=0.03)
     tloss, taux = t_pipeline.make_train_step(tcfg, tmodel, topt, w, h)(
         tbatch, train_inputs.pool, grids, aabb, t_rngs.make_key(3)
     )
