@@ -4,7 +4,8 @@
 Drives the port's paths at the full width of the r4 HumanRF model (2
 segments [25, 25], L8/F4 grids with T=2048 per segment, rank-32 proposal,
 camera embedding 2) through its own entry points, with every field lookup on
-the hand-written CUDA `fused_interp` kernels (forward and backward):
+the hand-written CUDA `field_interp` kernels (forward and backward), which
+compute the field's corners from the sample coordinates themselves:
 
 - the render of the trained model `runs_evidence/r4_full_schedule_748/
   best.ckpt` (`load_checkpoint` → `convert_params` → `HumanRFModel` →
@@ -16,23 +17,38 @@ the hand-written CUDA `fused_interp` kernels (forward and backward):
   port: the loader's pool, training with validation and checkpoints, a
   resume, the test render and the evaluation.
 
+The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
+math ("the old path"), is off the main path; phases 3-5 time it beside the
+new kernels in the same call.
+
 Phases, each of which raises on failure:
 
 1. device: a CUDA Hopper card (capability 9.0) is required;
-2. build: `humanrf_torch/csrc/fused_interp.cu` with nvcc for sm_90a;
-3. each kernel vs its plain PyTorch version at the field's shapes and at a
-   reference-capacity table (T = 2^19), max|err| / max|ref| < 1e-5, and
-   their times;
-4. the render: kernel launches counted over it (2 forward per batch and
-   segment with samples, no backward), kernel render vs plain render (PSNR
-   ≥ 50 dB), and ROI-PSNR against the ground truth within 0.5 dB of the JAX
-   package's banked render of the same view;
+2. build: `humanrf_torch/csrc/field_interp.cu` and `fused_interp.cu` with
+   nvcc for sm_90a, side by side (registers, shared memory and spills from
+   `-Xptxas -v`);
+3. kernels: each (idx, w) kernel against its plain version at KERNEL_SHAPES,
+   with its time, bound and the time of `F.embedding_bag`, the one PyTorch
+   call that computes the same function; each `field_interp` kernel against
+   its plain version at the r4 grid, the r4 vectors and a reference-capacity
+   grid (T = 2^19, dense and hashed levels), at uniform random positions and
+   at real ones (the step-0 field query of phase 5's first batch), with its
+   time beside its plain version's, the old path's (eager corner math plus
+   the (idx, w) kernel, timed in turns) and its bound. Bars: max|err| /
+   max|ref| < 1e-5 (the forward is also reported bit for bit);
+4. the render: kernel launches counted over it (2 `field_interp` forward per
+   batch and segment with samples, no backward, no `fused_interp`), kernel
+   render vs plain render (PSNR ≥ 50 dB), ROI-PSNR against the ground truth
+   within 0.5 dB of the JAX package's banked render of the same view, and
+   warm renders of the plain, the old and the new path in turns;
 5. training: a step-0 A/B of loss and gradients through the kernels against
    both directions' plain versions; TRAIN_STEPS steps with launches counted
-   (2 forward + 2 backward per segment per step), finite losses, no skipped
-   update and falling mse; ms per step, supervised rays/s, peak memory and
-   the device's busy share in one profiled step; the held-out Cam012 view's
-   ROI-PSNR before and after training;
+   (2 forward + 2 backward per segment per step, no `fused_interp`), finite
+   losses, no skipped update and falling mse; ms per step, supervised rays/s,
+   peak memory and the device's busy share in one profiled step; then
+   windows of the old and the new path in turns (ms per step, peak memory,
+   kernels and busy share of a profiled step each); the held-out Cam012
+   view's ROI-PSNR before and after training;
 6. the CLI: the r4 scene written with the port's generator (its time; one
    JPEG decoded back against the renderer's image, PSNR ≥ JPEG_PSNR_MIN;
    adaptive partitioning gives [25, 25]), then `humanrf_torch.run.main` with
@@ -43,38 +59,46 @@ Phases, each of which raises on failure:
    the early one in mean PSNR (the CLI's validation PSNR plateaus by step
    ~100 on this scene, so the rise shows against an early block), at most 2
    step checkpoints after the rolling prune and a best.ckpt, the test frame
-   and the CSVs, no skipped update, launches of both kernel directions
-   counted over these runs; then a resume from `latest` for RESUME_STEPS
-   more steps. Prints ms per step, nominal and supervised rays/s, the host
-   fetch share and the pool's replacement rate.
+   and the CSVs, no skipped update, launches of both `field_interp`
+   directions and none of `fused_interp` counted over these runs; then a
+   resume from `latest` for RESUME_STEPS more steps. Prints ms per step,
+   nominal and supervised rays/s, the host fetch share and the pool's
+   replacement rate.
 
-The last three lines of output are the kernel table as JSON (the forward and
-the backward kernel; `launches` counted over phase 6, the CLI, with each
-phase's counts beside them), the card's name and power limit from
-nvidia-smi, and `{"ok": true, "device": {...}}`.
+The last three lines of output are the kernel table as JSON (the four
+kernels: `field_interp` forward and backward, with `launches` counted over
+phase 6, the CLI, and each phase's counts beside them; the earlier
+`fused_interp` design, launched by phase 3 only), the card's name and power
+limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from humanrf_torch import run as cli
 from humanrf_torch.convert import convert_params
 from humanrf_torch.core import image_io
 from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.core.synthetic import make_cameras, render_cameras
-from humanrf_torch.models import fused_field
-from humanrf_torch.models.humanrf import HumanRFModel
+from humanrf_torch.models import decomposition4d, fused_field
+from humanrf_torch.models.hash_encoding import HashGridConfig
+from humanrf_torch.models.humanrf import HumanRFModel, segment_grid_config
+from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.r4 import NUM_FRAMES, R4_SCENE, r4_flags, write_scene
@@ -100,6 +124,26 @@ KERNEL_SHAPES = (
     ("vectors", 4, 2, 32, 2048, 262_144),
     ("capacity", 64, 8, 2, 1 << 19, 65_536),
 )
+# Sample counts of the random positions for the field_interp checks: one
+# field query of a 16,384-ray batch × 16 samples, and fewer at T = 2^19.
+FIELD_RANDOM_N = {"grids": 262_144, "vectors": 262_144, "capacity": 65_536}
+
+# The least time of a call (H100 SXM peak rates): each input
+# read once and each output written once over the HBM rate, or its fp32 and
+# integer operations over the fp32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Operations per sample and pair of the corner math: grid 15 for the three
+# axes' scale, floor and fractions, then 9 per corner (3 adds of the corner
+# bits, 2 multiplies and 2 xors of the hash, its mask, 2 weight multiplies);
+# vector 8.
+CORNER_OPS = {8: 15 + 8 * 9, 2: 8}
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """→ (bound_ms, "bytes" or "operations")."""
+    by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 # The flagship step (bench.py:121-136, 211; the r4 run's config.yaml): 16,384
@@ -112,6 +156,8 @@ WARM_STEPS = 5             # not timed
 STEP0_LOSS_REL = 1e-5      # step-0 loss, kernels vs plain
 STEP0_GRAD_COSINE = 0.9999 # step-0 gradient per parameter, kernels vs plain
 MSE_DROP = 0.5             # mean mse of the last 20 steps ≤ this × that of the first 5
+AB_WARM_STEPS = 2          # phase 5's old/new windows: steps before each timed window
+AB_STEPS = 10              # phase 5's old/new windows: timed steps each
 
 EARLY_STEPS = 20           # phase 6: the first CLI run, validated and saved at its end
 CLI_STEPS = 600            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
@@ -139,9 +185,38 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def embedding_bag_inputs(tables, idx, w):
+    """The (idx, w) lookup as `F.embedding_bag` bags: input (idx + p·T) as
+    (P·N, C) bags, weight the tables as (P·T, F), per-sample weights w in the
+    bags' layout. Its output is (P·N, F), the kernel's (P, F, N) transposed."""
+    P, F_, T = tables.shape
+    _, C, N = idx.shape
+    bags = (idx.long() + torch.arange(P, device=idx.device)[:, None, None] * T).permute(0, 2, 1).reshape(P * N, C)
+    weight = tables.permute(0, 2, 1).reshape(P * T, F_).contiguous()
+    return bags.contiguous(), weight, w.permute(0, 2, 1).reshape(P * N, C).contiguous()
+
+
+def library_times(tables, idx, w, g) -> dict:
+    """`F.embedding_bag` (mode "sum", per-sample weights) on the same inputs,
+    prepared outside the timed window: the forward's time, and the backward
+    into the weight timed as (forward + backward) − forward."""
+    P, F_, _ = tables.shape
+    bags, weight, psw = embedding_bag_inputs(tables, idx, w)
+    weight = weight.requires_grad_()
+    g_bags = g.permute(0, 2, 1).reshape(-1, F_).contiguous()
+    out = F.embedding_bag(bags, weight, mode="sum", per_sample_weights=psw)
+    ref = fi.fused_interp_plain(tables, idx, w).permute(0, 2, 1).reshape(-1, F_)
+    err = float((out.detach() - ref).abs().max() / ref.abs().max())
+    fwd = time_ms(lambda: F.embedding_bag(bags, weight, mode="sum", per_sample_weights=psw))
+    both = time_ms(lambda: torch.autograd.grad(
+        F.embedding_bag(bags, weight, mode="sum", per_sample_weights=psw), weight, g_bags))
+    return {"fwd": fwd, "bwd": both - fwd, "scaled_err": err}
+
+
 def check_kernels(device) -> dict:
-    """Each kernel against its plain version at KERNEL_SHAPES, random inputs
-    with per-sample-normalised corner weights, and both times.
+    """Each (idx, w) kernel against its plain version at KERNEL_SHAPES, random
+    inputs with per-sample-normalised corner weights; its time, its plain
+    version's, its bound and the time of `F.embedding_bag` on the same inputs.
 
     The forward and its plain version sum the same fp32 products in the same
     order (the kernel with fma). The backward's atomics add in a
@@ -155,40 +230,194 @@ def check_kernels(device) -> dict:
         "bwd": (lambda t, i, w, g: fi._launch_bwd(g, i, w, t.shape[2]),
                 lambda t, i, w, g: fi.fused_interp_bwd_plain(g, i, w, t.shape[2])),
     }
-    results = {}
-    for direction, (kernel, plain) in directions.items():
-        per_shape, max_abs = [], 0.0
-        for name, P, C, F, T, N in KERNEL_SHAPES:
-            rng = np.random.default_rng(0)
-            tables = torch.tensor(rng.normal(size=(P, F, T)).astype(np.float32), device=device)
-            idx = torch.tensor(rng.integers(0, T, (P, C, N)).astype(np.int32), device=device)
-            w = rng.uniform(0, 1, (P, C, N)).astype(np.float32)
-            w = torch.tensor(w / w.sum(axis=1, keepdims=True), device=device)  # corner weights sum to 1
-            g = torch.tensor(rng.normal(size=(P, F, N)).astype(np.float32), device=device)
+    per_shape = {"fwd": [], "bwd": []}
+    for name, P, C, F_, T, N in KERNEL_SHAPES:
+        rng = np.random.default_rng(0)
+        tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
+        idx = torch.tensor(rng.integers(0, T, (P, C, N)).astype(np.int32), device=device)
+        w = rng.uniform(0, 1, (P, C, N)).astype(np.float32)
+        w = torch.tensor(w / w.sum(axis=1, keepdims=True), device=device)  # corner weights sum to 1
+        g = torch.tensor(rng.normal(size=(P, F_, N)).astype(np.float32), device=device)
+        library = library_times(tables, idx, w, g)
+        # idx and w, 8 B per corner and sample, then tables or g in, out or dtab out.
+        nbytes = 8 * P * C * N + 4 * P * F_ * T + 4 * P * F_ * N
+        for direction, (kernel, plain) in directions.items():
             out = kernel(tables, idx, w, g)
             ref = plain(tables, idx, w, g)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             scaled = err / float(ref.abs().max())
             if not scaled < KERNEL_TOL:
-                raise AssertionError(f"fused_interp_{direction} kernel disagrees at {name} {(P, C, F, T, N)}: "
+                raise AssertionError(f"fused_interp_{direction} kernel disagrees at {name} {(P, C, F_, T, N)}: "
                                      f"scaled err {scaled:.3e}")
             plain_ms = time_ms(lambda: plain(tables, idx, w, g))
             ms = time_ms(lambda: kernel(tables, idx, w, g))
-            log(f"kernel {direction} {name} P={P} C={C} F={F} T={T} N={N}: max|err| {err:.3e} "
-                f"(scaled {scaled:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            per_shape.append({"shape": name, "P": P, "C": C, "F": F, "T": T, "N": N,
-                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-            max_abs = max(max_abs, err)
-        query = [s for s in per_shape if s["shape"] in ("grids", "vectors")]
-        results[direction] = {
-            "max_abs_err": max_abs,
-            # One field query = the grid call plus the vector call.
-            "ms": sum(s["ms"] for s in query),
-            "plain_ms": sum(s["plain_ms"] for s in query),
-            "per_shape": per_shape,
-        }
-    return results
+            bound_ms, bound_by = bound(nbytes, 2 * P * C * F_ * N)
+            log(f"kernel fused_interp_{direction} {name} P={P} C={C} F={F_} T={T} N={N}: max|err| {err:.3e} "
+                f"(scaled {scaled:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"embedding_bag {library[direction]:.4f} ms ({'forward' if direction == 'fwd' else '(forward + backward) − forward'}; "
+                f"its scaled err {library['scaled_err']:.1e}), bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.1f}% of it")
+            per_shape[direction].append({"shape": name, "P": P, "C": C, "F": F_, "T": T, "N": N,
+                                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                         "library_ms": library[direction], "bound_ms": bound_ms,
+                                         "bound_by": bound_by})
+    return {direction: summarize(rows) for direction, rows in per_shape.items()}
+
+
+def summarize(rows) -> dict:
+    """A kernel's record: one field query is the grid call plus the vector
+    call, so its times and bound are those two shapes' sums."""
+    query = [r for r in rows if r["shape"] in ("grids", "vectors")]
+    record = {"max_abs_err": max(r["max_abs_err"] for r in rows)}
+    for key in ("ms", "plain_ms", "library_ms", "old_path_ms", "bound_ms"):
+        if key in query[0]:
+            record[key] = sum(r[key] for r in query)
+    record["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in query) else "operations"
+    record["per_shape"] = rows
+    return record
+
+
+def field_shapes(view) -> list:
+    """(name, spec, P, F, T) of the field_interp checks: the r4 segment's
+    grids and vectors (segment 0 of the model), and a reference-capacity
+    grid (L16/F2, T = 2^19, base 32, finest 2048; levels 0-3 dense)."""
+    seg = segment_grid_config(view.model_config, view.model_config.segment_sizes[0])
+    grid, capacity = seg.grid, HashGridConfig()
+    return [
+        ("grids", fli.grid_spec(grid), 4 * grid.n_levels, grid.n_features_per_level, grid.table_size),
+        ("vectors", fli.VECTOR_SPEC, 4, grid.feature_dim, seg.vectors_finest_resolution),
+        ("capacity", fli.grid_spec(capacity), 4 * capacity.n_levels, capacity.n_features_per_level,
+         capacity.table_size),
+    ]
+
+
+def fresh_model(device, view):
+    """Phase 5's fresh model: initialised on the CPU from seed 0, the same
+    start on any machine."""
+    model = HumanRFModel(view.model_config)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+def train_config(view):
+    return dataclasses.replace(view.pipeline_config, **TRAIN_CONFIG)
+
+
+def capture_real_xyzt(device, view, pool) -> torch.Tensor:
+    """The (N, 4) sample coordinates of the largest field query of phase 5's
+    step 0 (its fresh model, its first batch and key), through the kernels."""
+    model, cfg = fresh_model(device, view), train_config(view)
+    batch = sample_batch(cfg, pool.pixel_rgba, torch.Generator(device).manual_seed(1))
+    captured = []
+    field = decomposition4d.apply_decomposition4d_fused
+
+    def capture(params, xyz, times, field_cfg):
+        captured.append(torch.cat([xyz, times], dim=-1).detach().clone())
+        return field(params, xyz, times, field_cfg)
+
+    step = make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height)
+    with mock.patch.object(decomposition4d, "apply_decomposition4d_fused", capture):
+        step(batch, pool.pool, pool.grids, pool.aabb, make_key(0, device))
+    return max(captured, key=len)
+
+
+def old_path(tables, xyzt, spec):
+    """The path the field_interp kernels replace: the eager corner math, then
+    the (idx, w) `fused_interp` kernels (differentiable in the tables)."""
+    return fi.fused_interp(tables, *fli.corner_idx_w(xyzt, spec, tables.shape[2]))
+
+
+def check_field_kernels(device, view, real_xyzt) -> dict:
+    """Each field_interp kernel against its plain version at field_shapes,
+    at uniform random and at real positions; its time beside its plain
+    version's, the old path's (taken in turns: old, new, new, old) and its
+    bound. The forward sums as its plain version does, without fma, and its
+    bit-equality is reported. The backward is held to its plain version
+    summed in fp64 (the same fp32 corner weights and cotangents): at real
+    positions an entry sums up to ~10^5 terms (a segment's samples share one
+    time, so the time vector's two taps take every sample), and an fp32 sum
+    of n terms in sequence, as the plain scatter_add on the card makes it,
+    moves by ~eps·√n ≈ 2e-5 of its size, more than the bar; the kernel's
+    sums are hierarchical (runs, blocks, then the table) and stay within it."""
+    rng = np.random.default_rng(0)
+    positions = {
+        "random": {name: torch.tensor(rng.uniform(0, 1, (n, 4)).astype(np.float32), device=device)
+                   for name, n in FIELD_RANDOM_N.items()},
+        "real": real_xyzt.contiguous(),
+    }
+    per_shape = {"fwd": [], "bwd": []}
+    for name, spec, P, F_, T in field_shapes(view):
+        C = 8 if spec.mode == fli.MODE_GRID else 2
+        tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
+        for where in ("random", "real"):
+            xyzt = positions[where][name] if where == "random" else positions[where]
+            N = xyzt.shape[0]
+            g = torch.tensor(rng.normal(size=(P, F_, N)).astype(np.float32), device=device)
+            paths = {
+                "fwd": (lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
+                        lambda: fi._launch_fwd(tables, *fli.corner_idx_w(xyzt, spec, T))),
+                "bwd": (lambda: fli._launch_bwd(g, xyzt, spec, T), lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
+                        lambda: fi._launch_bwd(g, *fli.corner_idx_w(xyzt, spec, T), T)),
+            }
+            # xyzt 16 B per sample, tables or g in, out or dtab out.
+            nbytes = 16 * N + 4 * P * F_ * T + 4 * P * F_ * N
+            bound_ms, bound_by = bound(nbytes, P * N * (CORNER_OPS[C] + 2 * C * F_))
+            references = {"fwd": paths["fwd"][1], "bwd": lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T)}
+            for direction, (kernel, plain, old) in paths.items():
+                out, ref = kernel(), references[direction]()
+                torch.cuda.synchronize()
+                err = float((out.double() - ref).abs().max())
+                scaled = err / float(ref.abs().max())
+                exact = bool(torch.equal(out, ref)) if direction == "fwd" else False
+                if not scaled < KERNEL_TOL:
+                    raise AssertionError(f"field_interp_{direction} kernel disagrees at {name}, {where} positions "
+                                         f"(P={P}, F={F_}, T={T}, N={N}): scaled err {scaled:.3e}")
+                plain_ms = time_ms(plain, iters=5)
+                turns = {"old": [], "new": []}
+                for which in ("old", "new", "new", "old"):
+                    turns[which].append(time_ms(kernel if which == "new" else old, iters=10))
+                ms, old_ms = np.mean(turns["new"]), np.mean(turns["old"])
+                log(f"kernel field_interp_{direction} {name} ({where} positions) P={P} F={F_} T={T} N={N}: "
+                    f"max|err| {err:.3e} (scaled {scaled:.3e}"
+                    f"{f', bit-exact {exact}' if direction == 'fwd' else ' against the fp64 sum'}), kernel "
+                    f"{', '.join(f'{t:.4f}' for t in turns['new'])} ms, old path "
+                    f"{', '.join(f'{t:.4f}' for t in turns['old'])} ms, plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
+                per_shape[direction].append({"shape": name, "positions": where, "P": P, "C": C, "F": F_, "T": T,
+                                             "N": N, "max_abs_err": err, "bit_exact": exact, "ms": float(ms),
+                                             "plain_ms": plain_ms, "old_path_ms": float(old_ms),
+                                             "bound_ms": bound_ms, "bound_by": bound_by})
+    records = {}
+    for direction, rows in per_shape.items():
+        # The record's times are at real positions, the main path's data.
+        record = summarize([r for r in rows if r["positions"] == "real"])
+        record["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        record["per_shape"] = rows
+        records[direction] = record
+    return records
+
+
+def ptxas_summary(log_text: str) -> list:
+    """`-Xptxas -v` output → one entry per kernel: its name and template
+    arguments (corners, feature chunk, staged), registers, spilled bytes."""
+    rows, name, spill = [], None, "0"
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = re.search(r"([a-z_]+_kernel)", mangled).group(1)
+            args = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
+            if args:
+                name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+            spill = "0"
+        elif name and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows.append(f"{name} {regs} regs, {spill} B spilled")
+            name = None
+    return rows
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -244,13 +473,10 @@ def held_out_roi_psnr(model, view) -> float:
     return roi_psnr(to_u8(img), view.images["gt_rgb"], view.images["gt_mask"])
 
 
-def train(device, view) -> dict:
+def train(device, view, pool) -> dict:
     """Phase 5 (see the module docstring). → the main path's launches."""
-    model = HumanRFModel(view.model_config)
-    model.init_parameters(torch.Generator().manual_seed(0))  # on the CPU: the same start on any machine
-    model.to(device)
-    pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
-    cfg = dataclasses.replace(view.pipeline_config, **TRAIN_CONFIG)
+    model = fresh_model(device, view)
+    cfg = train_config(view)
     log(f"train: fresh model, {sum(p.numel() for p in model.parameters())} parameters; {cfg}; "
         f"pool of {len(pool.camera_names)} images at frames {sorted(set(pool.pool.frame_numbers.tolist()))}")
     generator = torch.Generator(device).manual_seed(1)
@@ -264,7 +490,7 @@ def train(device, view) -> dict:
     runs = {}
     for which in ("kernel", "plain"):
         if which == "plain":
-            with mock.patch.object(fused_field, "fused_interp", fi.PlainFusedInterp.apply):
+            with mock.patch.object(fused_field, "field_interp", fli.PlainFieldInterp.apply):
                 loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
         else:
             loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
@@ -292,22 +518,23 @@ def train(device, view) -> dict:
     losses, mses, supervised, per_step_launches = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    fli.reset_launches()
     fi.reset_launches()
     start = None
     for i in range(TRAIN_STEPS):
         if i == WARM_STEPS:
             torch.cuda.synchronize()
             start = time.perf_counter()
-        before = dict(fi.launches)
+        before = dict(fli.launches)
         b = sample_batch(cfg, pool.pixel_rgba, generator)
         loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
-        per_step_launches.append({d: fi.launches[d] - before[d] for d in before})
+        per_step_launches.append({d: fli.launches[d] - before[d] for d in before})
         losses.append(loss)
         mses.append(aux["mse"])
         supervised.append(aux["num_rays_supervised"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = dict(fi.launches)
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
     peak = torch.cuda.max_memory_allocated(device)
 
     losses, mses = torch.stack(losses).cpu(), torch.stack(mses).cpu()
@@ -316,7 +543,7 @@ def train(device, view) -> dict:
     ms_per_step = 1e3 * seconds / warm
     log(f"train: {TRAIN_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, "
         f"mse {float(mses[:5].mean()):.5f} (first 5) → {float(mses[-20:].mean()):.5f} (last 20); "
-        f"skipped updates {int(optimizer.skipped)}; kernel launches {launches}")
+        f"skipped updates {int(optimizer.skipped)}; field_interp launches {launches}, fused_interp {old_launches}")
     log(f"train: {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included), "
         f"{float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised rays/s "
         f"({float(supervised.float().mean()):.0f} supervised rays per step), "
@@ -325,7 +552,9 @@ def train(device, view) -> dict:
     expected = {"fwd": 2 * 2, "bwd": 2 * 2}
     bad = [i for i, n in enumerate(per_step_launches) if n != expected]
     if bad or launches != {d: n * TRAIN_STEPS for d, n in expected.items()}:
-        raise AssertionError(f"training launched fused_interp {launches}; steps {bad[:5]} differ from {expected} per step")
+        raise AssertionError(f"training launched field_interp {launches}; steps {bad[:5]} differ from {expected} per step")
+    if old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"training launched the old fused_interp kernels {old_launches}")
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss at steps {torch.nonzero(~torch.isfinite(losses)).flatten().tolist()}")
     if int(optimizer.skipped) != 0:
@@ -337,13 +566,46 @@ def train(device, view) -> dict:
     log(f"train: one profiled warm step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms of device time "
         f"in {prof['wall_ms']:.1f} ms profiled wall; device busy {100 * prof['device_ms'] / ms_per_step:.1f}% "
         f"of a {ms_per_step:.2f} ms warm step; top: {prof['top']}")
+    old_vs_new_windows(step, cfg, pool, generator, key, device)
 
     roi_after = held_out_roi_psnr(model, view)
-    log(f"held-out {view.camera_name} frame {view.frame_number} after {TRAIN_STEPS + 1} steps (one profiled): "
+    steps_run = TRAIN_STEPS + 1 + 4 * (AB_WARM_STEPS + AB_STEPS + 1)
+    log(f"held-out {view.camera_name} frame {view.frame_number} after {steps_run} steps: "
         f"ROI-PSNR {roi_after:.3f} dB (before {roi_before:.3f} dB)")
     if not roi_after > roi_before:
         raise AssertionError("training did not raise the held-out view's ROI-PSNR")
     return launches
+
+
+def old_vs_new_windows(step, cfg, pool, generator, key, device) -> None:
+    """Training windows of the old path (eager corner math plus the (idx, w)
+    kernels) and the new one in turns, old, new, new, old: ms per step, peak
+    memory, and one profiled step's kernel count and busy share each."""
+    results = {"old": [], "new": []}
+    for turn, which in enumerate(("old", "new", "new", "old")):
+        patch = mock.patch.object(fused_field, "field_interp", old_path) if which == "old" else contextlib.nullcontext()
+        with patch:
+            for i in range(AB_WARM_STEPS):
+                step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
+                     fold_in(key, torch.tensor(10_000 + 100 * turn + i, device=device)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            for i in range(AB_STEPS):
+                step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
+                     fold_in(key, torch.tensor(10_050 + 100 * turn + i, device=device)))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / AB_STEPS
+            peak = torch.cuda.max_memory_allocated(device)
+            prof = profile_step(step, sample_batch(cfg, pool.pixel_rgba, generator), pool, key, device)
+        results[which].append((ms, peak, prof))
+        log(f"train A/B ({which} path): {ms:.2f} ms per step over {AB_STEPS}, peak memory {peak / 2**30:.3f} GiB; "
+            f"profiled step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms device, busy "
+            f"{100 * prof['device_ms'] / ms:.1f}%; top: {prof['top']}")
+    for which, rows in results.items():
+        log(f"train A/B ({which} path) mean: {np.mean([r[0] for r in rows]):.2f} ms per step, "
+            f"peak {max(r[1] for r in rows) / 2**30:.3f} GiB, {np.mean([r[2]['kernels'] for r in rows]):.0f} kernels "
+            f"per profiled step")
 
 
 def profile_step(step, batch, pool, key, device) -> dict:
@@ -409,18 +671,19 @@ def cli_phase(device) -> dict:
         flags = r4_flags(scene, ws, CLI_STEPS, half) + [
             "--training.checkpoint", "latest", "--evaluate", "true", "--evaluation.frame_numbers", "0"]
         torch.cuda.synchronize()
+        fli.reset_launches()
         fi.reset_launches()
         t0 = time.perf_counter()
         cli.main(early)
         result = cli.main(flags)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(fi.launches)
+        launches, old_launches = dict(fli.launches), dict(fi.launches)
         stats = result["train"]
         blocks = validation_blocks(ws)
         means = {step: float(np.mean(v)) for step, v in blocks.items()}
         log(f"cli: {EARLY_STEPS} steps, then resumed to {CLI_STEPS} + 3 validations + test render + evaluation "
-            f"in {wall:.1f} s wall; kernel launches {launches}; validation PSNR per block {blocks}; "
+            f"in {wall:.1f} s wall; field_interp launches {launches}, fused_interp {old_launches}; validation PSNR per block {blocks}; "
             f"evaluation {result['averages']}")
         log(f"cli: trainer scale ({stats['steps']} steps timed): {stats['ms_per_step']:.2f} ms per step, "
             f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised rays/s, "
@@ -443,7 +706,9 @@ def cli_phase(device) -> dict:
         if stats["skipped_nonfinite"] != 0:
             raise AssertionError(f"{stats['skipped_nonfinite']} updates skipped as non-finite")
         if not (launches["fwd"] > 0 and launches["bwd"] > 0):
-            raise AssertionError(f"the CLI run launched fused_interp {launches}")
+            raise AssertionError(f"the CLI run launched field_interp {launches}")
+        if old_launches != {"fwd": 0, "bwd": 0}:
+            raise AssertionError(f"the CLI run launched the old fused_interp kernels {old_launches}")
 
         resumed = cli.main(r4_flags(scene, ws, CLI_STEPS + RESUME_STEPS, CLI_STEPS // 2)
                            + ["--training.checkpoint", "latest"])["train"]
@@ -467,16 +732,26 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # Phase 2: build.
-    built = load_library("fused_interp")
-    log(f"build: {built.path.name} in {built.build_seconds:.2f} s")
-    log(built.ptxas_log.strip())
+    # Phase 2: build, both libraries side by side.
+    with ThreadPoolExecutor(2) as pool:
+        built = dict(zip(("field_interp", "fused_interp"), pool.map(load_library, ("field_interp", "fused_interp"))))
+    for name, lib in built.items():
+        log(f"build: {lib.path.name} in {lib.build_seconds:.2f} s; per kernel, from -Xptxas -v (shared memory is "
+            f"dynamic, set at launch): " + "; ".join(ptxas_summary(lib.ptxas_log)))
 
-    # Phase 3: the kernels against their plain versions.
-    kernels = check_kernels(device)
+    # Phase 3: the kernels against their plain versions, random and real positions.
+    view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
+    train_pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
+    old_kernels = check_kernels(device)
+    real_xyzt = capture_real_xyzt(device, view, train_pool)
+    log(f"real positions: {real_xyzt.shape[0]} samples of phase 5's step-0 field query (segment with the most)")
+    new_kernels = check_field_kernels(device, view, real_xyzt)
+    for direction, record in new_kernels.items():
+        log(f"field_interp_{direction} at real positions, one field query (grids + vectors): "
+            f"{record['ms']:.4f} ms against the old path's {record['old_path_ms']:.4f} ms "
+            f"({record['old_path_ms'] / record['ms']:.2f}×), bound {record['bound_ms']:.4f} ms")
 
     # Phase 4: the render.
-    view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
     params, _, step, _, _ = load_checkpoint(RUN_DIR / "best.ckpt")
     model = HumanRFModel(view.model_config, device=device)
     model.load_state_dict(convert_params(params))
@@ -491,27 +766,33 @@ def main() -> int:
         f"{sum(p.numel() for p in model.parameters())} parameters; view {view.camera_name} frame {frame}, "
         f"{width}x{height}, {num_batches} batches of {view.rays_batch_size} rays")
 
+    fli.reset_launches()
     fi.reset_launches()
     img, first_s = timed_render(model, view)
-    launches = dict(fi.launches)
-    log(f"render (kernel, first): {first_s:.3f} s, {num_pixels / first_s:.0f} rays/s, kernel launches {launches}")
-    if launches != {"fwd": expected_launches, "bwd": 0}:
-        raise AssertionError(f"the render launched fused_interp {launches}, expected {expected_launches} forward, 0 backward")
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    log(f"render (kernel, first): {first_s:.3f} s, {num_pixels / first_s:.0f} rays/s, field_interp launches "
+        f"{launches}, fused_interp {old_launches}")
+    if launches != {"fwd": expected_launches, "bwd": 0} or old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"the render launched field_interp {launches} and fused_interp {old_launches}, "
+                             f"expected {expected_launches} field_interp forward and nothing else")
 
-    # Warm renders in turns, plain, kernel, kernel, plain; the plain ones swap
-    # the field's kernel call for its plain version.
-    times = {"kernel": [], "plain": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        if which == "plain":
-            with mock.patch.object(fused_field, "fused_interp", fi.fused_interp_plain):
-                img_plain, seconds = timed_render(model, view)
+    # Warm renders in turns: plain (the field's kernel call swapped for its
+    # plain version), old (eager corners plus the (idx, w) kernel), new.
+    times = {"plain": [], "old": [], "new": []}
+    swaps = {"plain": fli.field_interp_plain, "old": old_path}
+    for which in ("plain", "old", "new", "new", "old", "plain"):
+        if which in swaps:
+            with mock.patch.object(fused_field, "field_interp", swaps[which]):
+                out, seconds = timed_render(model, view)
+            if which == "plain":
+                img_plain = out
         else:
             _, seconds = timed_render(model, view)
         times[which].append(seconds)
     for which, runs in times.items():
         mean = sum(runs) / len(runs)
         log(f"render ({which}): " + ", ".join(f"{t:.3f}" for t in runs)
-            + f" s; mean {mean:.3f} s, {num_pixels / mean:.0f} rays/s")
+            + f" s; mean {mean:.3f} s, {1e3 * mean / num_batches:.1f} ms per batch, {num_pixels / mean:.0f} rays/s")
 
     img_np = img.cpu().numpy()
     gt, mask = view.images["gt_rgb"], view.images["gt_mask"]
@@ -531,21 +812,33 @@ def main() -> int:
         raise AssertionError(f"port ROI-PSNR {port_roi:.3f} dB is more than {ROI_PSNR_SLACK} dB below JAX's {jax_roi:.3f}")
 
     # Phase 5: training.
-    train_launches = train(device, view)
+    train_launches = train(device, view, train_pool)
 
     # Phase 6: the CLI.
     cli_launches = cli_phase(device)
 
+    by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches}
     records = [
+        {
+            "name": f"field_interp_{direction}",
+            "route": "cuda",
+            "source": "humanrf_torch/csrc/field_interp.cu",
+            "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
+            "launches": cli_launches[direction],
+            "launches_by_phase": {phase: counts[direction] for phase, counts in by_phase.items()},
+            "library_ms": None,  # no one PyTorch call computes the corners and the lookup
+            **new_kernels[direction],
+        }
+        for direction, line in (("fwd", 87), ("bwd", 97))
+    ] + [
         {
             "name": f"fused_interp_{direction}",
             "route": "cuda",
             "source": "humanrf_torch/csrc/fused_interp.cu",
             "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
-            "launches": cli_launches[direction],
-            "launches_by_phase": {"render": launches[direction], "train_step": train_launches[direction],
-                                  "cli": cli_launches[direction]},
-            **kernels[direction],
+            "launches": 0,  # the earlier design: off the main path, launched by phase 3 only
+            "launches_by_phase": {phase: 0 for phase in by_phase},
+            **old_kernels[direction],
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
     ]

@@ -3,7 +3,7 @@
 Counterpart of `humanrf_tpu/models/decomposition4d.py`. The JAX package has
 three lookup backends (gather, onehot, fused) because a TPU has no fast
 gather; the port has one, `models/fused_field.py::apply_decomposition4d_fused`
-on the CUDA `fused_interp` kernel, which takes any table size.
+on the CUDA `field_interp` kernels, which take any table size.
 
     out = f_xyz ⊙ v_t + f_xyt ⊙ v_z + f_yzt ⊙ v_x + f_xzt ⊙ v_y
 """

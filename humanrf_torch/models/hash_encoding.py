@@ -2,7 +2,7 @@
 
 Counterpart of `humanrf_tpu/models/hash_encoding.py`: only the configuration
 and the corner/hash constants; the lookups themselves live in
-`models/fused_field.py` on top of `ops/fused_interp.py`.
+`models/fused_field.py` on top of `ops/field_interp.py`.
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -46,8 +46,11 @@ class BuiltLibrary:
     ptxas_log: str
 
 
-_LOADED: Dict[str, BuiltLibrary] = {}
-_LOCK = threading.Lock()  # loader threads may ask for the codec at once
+_LOADED: Dict[Tuple[str, Tuple[str, ...]], BuiltLibrary] = {}
+# One lock per library, so that loader threads asking for the codec at once
+# build it once, while different libraries build side by side.
+_LOCKS: Dict[Tuple[str, Tuple[str, ...]], threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -80,26 +83,30 @@ def _route(name: str):
     return CSRC_DIR / f"{name}.c", lambda: [find_cc(), *CC_FLAGS]
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src, _ = _route(name)
-    flags = NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS
+    flags = (*(NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS), *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def load_library(name: str) -> BuiltLibrary:
+def load_library(name: str, defines: Tuple[str, ...] = ()) -> BuiltLibrary:
     """Compile `csrc/<name>.cu` (nvcc) or `csrc/<name>.c` (cc) if needed and
-    return the loaded library."""
-    with _LOCK:
-        if name in _LOADED:
-            return _LOADED[name]
+    return the loaded library. `defines` (`"NAME=value"`, for measuring a
+    variant of a kernel) are passed to the compiler as `-D` flags."""
+    key = (name, tuple(defines))
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(key, threading.Lock())
+    with lock:
+        if key in _LOADED:
+            return _LOADED[key]
         src, compiler = _route(name)
-        out = library_path(name)
+        out = library_path(name, key[1])
         build_seconds, log = 0.0, ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [*compiler(), "-o", str(tmp), str(src)]
+            cmd = [*compiler(), *(f"-D{d}" for d in key[1]), "-o", str(tmp), str(src)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             build_seconds = time.perf_counter() - t0
@@ -108,5 +115,5 @@ def load_library(name: str) -> BuiltLibrary:
                 raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}) for {src.name}:\n{log}")
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         built = BuiltLibrary(ctypes.CDLL(str(out)), out, build_seconds, log)
-        _LOADED[name] = built
+        _LOADED[key] = built
         return built

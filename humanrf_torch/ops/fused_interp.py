@@ -68,11 +68,12 @@ def fused_interp_plain(tables: torch.Tensor, idx: torch.Tensor, w: torch.Tensor)
 
 def fused_interp_bwd_plain(g: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, table_size: int) -> torch.Tensor:
     """The backward's contract in PyTorch: `scatter_add_` of g·w into a zeroed
-    fp32 (P, F, T) tensor, one corner at a time. An out-of-table corner adds
-    0 at index 0, which leaves the sum as it is."""
+    (P, F, T) tensor of g's type (fp32 on the main path; fp64 sums a
+    reference), one corner at a time. An out-of-table corner adds 0 at index
+    0, which leaves the sum as it is."""
     P, F, N = g.shape
     idx, w = _in_table(idx, w, table_size)
-    dtab = torch.zeros((P, F, table_size), dtype=torch.float32, device=g.device)
+    dtab = torch.zeros((P, F, table_size), dtype=g.dtype, device=g.device)
     for c in range(idx.shape[1]):
         dtab.scatter_add_(2, idx[:, c, None, :].expand(P, F, N), g * w[:, c, None, :])
     return dtab

@@ -70,7 +70,7 @@ def check_ported(config) -> None:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, Queue 1: {item})")
     if config.tpu.field_backend != "gather":
         print(f"[INFO] --tpu.field_backend {config.tpu.field_backend}: the port has one field path, "
-              "the gather contract through the fused_interp kernels")
+              "the gather contract through the field_interp kernels")
     if config.tpu.steps_per_dispatch != 1:
         print(f"[INFO] --tpu.steps_per_dispatch {config.tpu.steps_per_dispatch}: the port dispatches one "
               "step at a time (the K-step scan is a TPU workaround); the loop keeps K = 1's semantics")
