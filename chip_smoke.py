@@ -15,7 +15,11 @@ compute the field's corners from the sample coordinates themselves:
   from the baked pool of the scene's train cameras at frames 0 and 25;
 - the CLI, `python -m humanrf_torch.run`, on the r4 scene written by the
   port: the loader's pool, training with validation and checkpoints, a
-  resume, the test render and the evaluation.
+  resume, the test render and the evaluation;
+- dense sampling (the reference's sampler, the CLI's default): best.ckpt's
+  view rendered through it, the dense step at the paper's field width
+  (`configs/example_humanrf.py`: L16/F2, T = 2^17 per segment) and the CLI
+  with the paper's field and sampler on the r4 scene.
 
 The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
 math ("the old path"), is off the main path; phases 3-5 time it beside the
@@ -63,13 +67,33 @@ Phases, each of which raises on failure:
    directions and none of `fused_interp` counted over these runs; then a
    resume from `latest` for RESUME_STEPS more steps. Prints ms per step,
    nominal and supervised rays/s, the host fetch share and the pool's
-   replacement rate.
+   replacement rate;
+7. dense sampling:
+   (a) best.ckpt's 748² view through the dense sampler at the r4 run's
+   settings (R4_DENSE, scaled to the 16,384-ray batches): launches counted
+   (forward only, no `fused_interp`), a finite image, kernel render vs
+   plain render ≥ 50 dB, and the baked 128² patch (`torch_dense_inputs.npz`,
+   16 batches of 1,024 rays at the baked settings) ≥ DENSE_PATCH_PSNR_MIN
+   from the JAX package's dense render of it; prints s per view, ms per
+   batch, the sampler's counts per view and the ROI-PSNR beside phase 4's;
+   (b) the dense step (DENSE_STEP_CONFIG) on a fresh model with the paper's
+   field, fed from phase 5's pool: each field_interp kernel against its
+   plain version at step 0's render-pass and prune-pass queries (bars as
+   phase 3's; time, bound and share of it), a step-0 kernel-vs-plain A/B
+   (loss within 1e-5, gradient cosine ≥ 0.9999), DENSE_STEPS timed steps
+   (ms per step, rays/s, supervised rays/s, launches, peak memory, one
+   profiled step's busy share; no skipped update; mse falling to ≤ ½), and
+   the sampler's counts over DENSE_STATS_STEPS more batches;
+   (c) phase 6's CLI check on the same scene with PAPER_DENSE_FLAGS after
+   the r4 flags, resumed to DENSE_CLI_STEPS.
 
 The last three lines of output are the kernel table as JSON (the four
 kernels: `field_interp` forward and backward, with `launches` counted over
-phase 6, the CLI, and each phase's counts beside them; the earlier
-`fused_interp` design, launched by phase 3 only), the card's name and power
-limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
+phase 7(c), the dense CLI, each phase's counts beside them, their phase-3
+times at the r4 shapes and their phase-7(b) times at the dense ones under
+"dense"; the earlier `fused_interp` design, launched by phase 3 only), the
+card's name and power limit from nvidia-smi, and `{"ok": true, "device":
+{...}}`.
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
@@ -97,17 +121,18 @@ from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.core.synthetic import make_cameras, render_cameras
 from humanrf_torch.models import decomposition4d, fused_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
-from humanrf_torch.models.humanrf import HumanRFModel, segment_grid_config
+from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops.cuda_build import load_library
-from humanrf_torch.r4 import NUM_FRAMES, R4_SCENE, r4_flags, write_scene
+from humanrf_torch.r4 import NUM_FRAMES, PAPER_DENSE_FLAGS, R4_SCENE, r4_flags, write_scene
 from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
 from humanrf_torch.train.checkpoint import load_checkpoint
+from humanrf_torch.train import pipeline
 from humanrf_torch.train.pipeline import make_train_step
-from humanrf_torch.train.trainer import make_optimizer, render_image, sample_batch
+from humanrf_torch.train.trainer import make_optimizer, render_image, render_pipeline_config, sample_batch
 from humanrf_torch.utils.rngs import fold_in, make_key
-from humanrf_torch.view_inputs import load_train_inputs, load_view_inputs
+from humanrf_torch.view_inputs import load_dense_inputs, load_train_inputs, load_view_inputs
 
 REPO = Path(__file__).resolve().parent
 RUN_DIR = REPO / "runs_evidence" / "r4_full_schedule_748"
@@ -159,9 +184,24 @@ MSE_DROP = 0.5             # mean mse of the last 20 steps ≤ this × that of t
 AB_WARM_STEPS = 2          # phase 5's old/new windows: steps before each timed window
 AB_STEPS = 10              # phase 5's old/new windows: timed steps each
 
-EARLY_STEPS = 20           # phase 6: the first CLI run, validated and saved at its end
+EARLY_STEPS = 20           # phases 6 and 7(c): the first CLI run, validated and saved at its end
 CLI_STEPS = 600            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
-RESUME_STEPS = 20          # phase 6: steps of the resumed run
+RESUME_STEPS = 20          # phases 6 and 7(c): steps of the resumed run
+
+# Phase 7(a): the r4 run's dense settings (runs_evidence/r4_full_schedule_748/
+# config.yaml: 512 lattice points per ray, samples_max_batch_size 65,536 and
+# candidate_budget 0, i.e. 2 × 65,536, per rays_initial_batch_size 1,024),
+# scaled to each render batch as the trainer scales them.
+R4_DENSE = dict(num_rays=1024, samples_per_ray=512, candidate_budget=131_072, sample_budget=65_536)
+DENSE_PATCH_PSNR_MIN = 40.0  # dB, the port's dense render of the baked patch vs the JAX package's
+# Phase 7(b): the paper's dense step (configs/example_humanrf.py with the
+# CLI's defaults): 8,192 rays, 1,024 lattice points per ray, 640,000 samples
+# and 2 × 640,000 candidates per step, the visibility prune on.
+DENSE_STEP_CONFIG = dict(sampling="dense", num_rays=8192, candidate_rays_factor=1, samples_per_ray=1024,
+                         candidate_budget=1_280_000, sample_budget=640_000, bce_loss_weight=1e-3, huber_delta=0.01)
+DENSE_STEPS = 120          # phase 7(b): timed steps (after WARM_STEPS) of a fresh paper-width model
+DENSE_STATS_STEPS = 10     # phase 7(b): batches through the trained model's sampler for the counts
+DENSE_CLI_STEPS = 300      # phase 7(c): resumed to this step, validated and saved every DENSE_CLI_STEPS / 2
 # dB, a written q98 JPEG decoded back against the rendered image. JPEG's own
 # loss on this texture is ~44 dB (Cam001 frame 0: 44.14 dB on the CPU, the
 # bytes cv2 writes); a wrong colour conversion or upsampling falls far below.
@@ -304,28 +344,68 @@ def train_config(view):
     return dataclasses.replace(view.pipeline_config, **TRAIN_CONFIG)
 
 
-def capture_real_xyzt(device, view, pool) -> torch.Tensor:
-    """The (N, 4) sample coordinates of the largest field query of phase 5's
-    step 0 (its fresh model, its first batch and key), through the kernels."""
-    model, cfg = fresh_model(device, view), train_config(view)
-    batch = sample_batch(cfg, pool.pixel_rgba, torch.Generator(device).manual_seed(1))
-    captured = []
+def capture_queries(step, batch, pool, key) -> dict:
+    """The (N, 4) sample coordinates of the largest field query of each pass
+    of one training step: "render" (with autograd) and, under dense
+    sampling, "prune" (without)."""
+    captured = {"prune": [], "render": []}
     field = decomposition4d.apply_decomposition4d_fused
 
     def capture(params, xyz, times, field_cfg):
-        captured.append(torch.cat([xyz, times], dim=-1).detach().clone())
+        captured["render" if torch.is_grad_enabled() else "prune"].append(torch.cat([xyz, times], dim=-1).detach().clone())
         return field(params, xyz, times, field_cfg)
 
-    step = make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height)
     with mock.patch.object(decomposition4d, "apply_decomposition4d_fused", capture):
-        step(batch, pool.pool, pool.grids, pool.aabb, make_key(0, device))
-    return max(captured, key=len)
+        step(batch, pool.pool, pool.grids, pool.aabb, key)
+    return {k: max(v, key=len).contiguous() for k, v in captured.items() if v}
+
+
+def capture_real_xyzt(device, view, pool) -> torch.Tensor:
+    """The largest field query of phase 5's step 0 (its fresh model, its
+    first batch and key), through the kernels."""
+    model, cfg = fresh_model(device, view), train_config(view)
+    batch = sample_batch(cfg, pool.pixel_rgba, torch.Generator(device).manual_seed(1))
+    step = make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height)
+    return capture_queries(step, batch, pool, make_key(0, device))["render"]
 
 
 def old_path(tables, xyzt, spec):
     """The path the field_interp kernels replace: the eager corner math, then
     the (idx, w) `fused_interp` kernels (differentiable in the tables)."""
     return fi.fused_interp(tables, *fli.corner_idx_w(xyzt, spec, tables.shape[2]))
+
+
+def field_check(direction: str, dims: dict, kernel, plain, reference, old=None) -> dict:
+    """One field_interp kernel call against `reference` (its plain version,
+    the backward's summed in fp64) at `dims` (shape, positions, P, C, F, T,
+    N); raises past KERNEL_TOL. Its time beside its plain version's, the old
+    path's when given (in turns: old, new, new, old) and its bound → the row."""
+    out, ref = kernel(), reference()
+    torch.cuda.synchronize()
+    err = float((out.double() - ref).abs().max())
+    scaled = err / float(ref.abs().max())
+    exact = bool(torch.equal(out, ref)) if direction == "fwd" else False
+    P, C, F_, T, N = (dims[k] for k in ("P", "C", "F", "T", "N"))
+    where = f"{dims['shape']} ({dims['positions']} positions) P={P} F={F_} T={T} N={N}"
+    if not scaled < KERNEL_TOL:
+        raise AssertionError(f"field_interp_{direction} kernel disagrees at {where}: scaled err {scaled:.3e}")
+    plain_ms = time_ms(plain, iters=5)
+    turns = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old") if old is not None else ("new",):
+        turns[which].append(time_ms(kernel if which == "new" else old, iters=10))
+    ms = float(np.mean(turns["new"]))
+    # xyzt 16 B per sample, tables or g in, out or dtab out.
+    bound_ms, bound_by = bound(16 * N + 4 * P * F_ * T + 4 * P * F_ * N, P * N * (CORNER_OPS[C] + 2 * C * F_))
+    log(f"kernel field_interp_{direction} {where}: max|err| {err:.3e} (scaled {scaled:.3e}"
+        f"{f', bit-exact {exact}' if direction == 'fwd' else ' against the fp64 sum'}), kernel "
+        f"{', '.join(f'{t:.4f}' for t in turns['new'])} ms"
+        + (f", old path {', '.join(f'{t:.4f}' for t in turns['old'])} ms" if old is not None else "")
+        + f", plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
+    row = {**dims, "max_abs_err": err, "bit_exact": exact, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if old is not None:
+        row["old_path_ms"] = float(np.mean(turns["old"]))
+    return row
 
 
 def check_field_kernels(device, view, real_xyzt) -> dict:
@@ -354,40 +434,15 @@ def check_field_kernels(device, view, real_xyzt) -> dict:
             xyzt = positions[where][name] if where == "random" else positions[where]
             N = xyzt.shape[0]
             g = torch.tensor(rng.normal(size=(P, F_, N)).astype(np.float32), device=device)
-            paths = {
-                "fwd": (lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
-                        lambda: fi._launch_fwd(tables, *fli.corner_idx_w(xyzt, spec, T))),
-                "bwd": (lambda: fli._launch_bwd(g, xyzt, spec, T), lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
-                        lambda: fi._launch_bwd(g, *fli.corner_idx_w(xyzt, spec, T), T)),
-            }
-            # xyzt 16 B per sample, tables or g in, out or dtab out.
-            nbytes = 16 * N + 4 * P * F_ * T + 4 * P * F_ * N
-            bound_ms, bound_by = bound(nbytes, P * N * (CORNER_OPS[C] + 2 * C * F_))
-            references = {"fwd": paths["fwd"][1], "bwd": lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T)}
-            for direction, (kernel, plain, old) in paths.items():
-                out, ref = kernel(), references[direction]()
-                torch.cuda.synchronize()
-                err = float((out.double() - ref).abs().max())
-                scaled = err / float(ref.abs().max())
-                exact = bool(torch.equal(out, ref)) if direction == "fwd" else False
-                if not scaled < KERNEL_TOL:
-                    raise AssertionError(f"field_interp_{direction} kernel disagrees at {name}, {where} positions "
-                                         f"(P={P}, F={F_}, T={T}, N={N}): scaled err {scaled:.3e}")
-                plain_ms = time_ms(plain, iters=5)
-                turns = {"old": [], "new": []}
-                for which in ("old", "new", "new", "old"):
-                    turns[which].append(time_ms(kernel if which == "new" else old, iters=10))
-                ms, old_ms = np.mean(turns["new"]), np.mean(turns["old"])
-                log(f"kernel field_interp_{direction} {name} ({where} positions) P={P} F={F_} T={T} N={N}: "
-                    f"max|err| {err:.3e} (scaled {scaled:.3e}"
-                    f"{f', bit-exact {exact}' if direction == 'fwd' else ' against the fp64 sum'}), kernel "
-                    f"{', '.join(f'{t:.4f}' for t in turns['new'])} ms, old path "
-                    f"{', '.join(f'{t:.4f}' for t in turns['old'])} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
-                per_shape[direction].append({"shape": name, "positions": where, "P": P, "C": C, "F": F_, "T": T,
-                                             "N": N, "max_abs_err": err, "bit_exact": exact, "ms": float(ms),
-                                             "plain_ms": plain_ms, "old_path_ms": float(old_ms),
-                                             "bound_ms": bound_ms, "bound_by": bound_by})
+            dims = {"shape": name, "positions": where, "P": P, "C": C, "F": F_, "T": T, "N": N}
+            per_shape["fwd"].append(field_check(
+                "fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
+                lambda: fli.field_interp_plain(tables, xyzt, spec),
+                old=lambda: fi._launch_fwd(tables, *fli.corner_idx_w(xyzt, spec, T))))
+            per_shape["bwd"].append(field_check(
+                "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T), lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
+                lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T),
+                old=lambda: fi._launch_bwd(g, *fli.corner_idx_w(xyzt, spec, T), T)))
     records = {}
     for direction, rows in per_shape.items():
         # The record's times are at real positions, the main path's data.
@@ -645,77 +700,337 @@ def validation_blocks(ws: Path) -> dict:
     return blocks
 
 
-def cli_phase(device) -> dict:
-    """Phase 6 (see the module docstring). → the CLI run's launches."""
-    with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
-        scene, ws = Path(tmp) / "scene", Path(tmp) / "workspace"
-        seconds = write_scene(scene, device)
-        data_dir = scene / "SynthActor" / "Sequence1" / "1x"
-        cam = make_cameras(R4_SCENE)[0]
-        rendered, _ = render_cameras(
-            R4_SCENE, torch.tensor(cam.inverse_kr()[None].astype(np.float32), device=device),
-            torch.tensor(cam.translation[None].astype(np.float32), device=device),
-            torch.tensor(np.asarray(R4_SCENE.center_start, dtype=np.float32), device=device), 0.0, cam.height, cam.width)
-        decoded = image_io.imread(data_dir / "rgbs" / cam.name / f"{cam.name}_rgb000000.jpg")[..., ::-1]
-        jpeg_psnr = psnr(decoded / 255.0, rendered[0].cpu().numpy() / 255.0)
-        sizes = compute_adaptive_segment_sizes(VolumetricDataset(data_dir), list(range(NUM_FRAMES)))
-        log(f"cli: r4 scene ({R4_SCENE.num_cameras} cameras × {NUM_FRAMES} frames, {cam.width}x{cam.height}) "
-            f"written in {seconds:.1f} s; {cam.name} frame 0 JPEG vs render {jpeg_psnr:.2f} dB; segments {sizes}")
-        if not jpeg_psnr >= JPEG_PSNR_MIN:
-            raise AssertionError(f"a written JPEG decodes {jpeg_psnr:.2f} dB from its render (< {JPEG_PSNR_MIN})")
-        if sizes != [25, 25]:
-            raise AssertionError(f"adaptive partitioning of the r4 scene gave {sizes}, not [25, 25]")
+def write_r4_scene(device, root: Path) -> Path:
+    """The r4 scene written by the port under `root` (its time; one JPEG
+    decoded back against its render; adaptive partitioning) → the scene root."""
+    scene = root / "scene"
+    seconds = write_scene(scene, device)
+    data_dir = scene / "SynthActor" / "Sequence1" / "1x"
+    cam = make_cameras(R4_SCENE)[0]
+    rendered, _ = render_cameras(
+        R4_SCENE, torch.tensor(cam.inverse_kr()[None].astype(np.float32), device=device),
+        torch.tensor(cam.translation[None].astype(np.float32), device=device),
+        torch.tensor(np.asarray(R4_SCENE.center_start, dtype=np.float32), device=device), 0.0, cam.height, cam.width)
+    decoded = image_io.imread(data_dir / "rgbs" / cam.name / f"{cam.name}_rgb000000.jpg")[..., ::-1]
+    jpeg_psnr = psnr(decoded / 255.0, rendered[0].cpu().numpy() / 255.0)
+    sizes = compute_adaptive_segment_sizes(VolumetricDataset(data_dir), list(range(NUM_FRAMES)))
+    log(f"cli: r4 scene ({R4_SCENE.num_cameras} cameras × {NUM_FRAMES} frames, {cam.width}x{cam.height}) "
+        f"written in {seconds:.1f} s; {cam.name} frame 0 JPEG vs render {jpeg_psnr:.2f} dB; segments {sizes}")
+    if not jpeg_psnr >= JPEG_PSNR_MIN:
+        raise AssertionError(f"a written JPEG decodes {jpeg_psnr:.2f} dB from its render (< {JPEG_PSNR_MIN})")
+    if sizes != [25, 25]:
+        raise AssertionError(f"adaptive partitioning of the r4 scene gave {sizes}, not [25, 25]")
+    return scene
 
-        half = CLI_STEPS // 2
-        early = r4_flags(scene, ws, EARLY_STEPS, EARLY_STEPS)
-        flags = r4_flags(scene, ws, CLI_STEPS, half) + [
-            "--training.checkpoint", "latest", "--evaluate", "true", "--evaluation.frame_numbers", "0"]
-        torch.cuda.synchronize()
-        fli.reset_launches()
-        fi.reset_launches()
-        t0 = time.perf_counter()
-        cli.main(early)
-        result = cli.main(flags)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, old_launches = dict(fli.launches), dict(fi.launches)
-        stats = result["train"]
-        blocks = validation_blocks(ws)
-        means = {step: float(np.mean(v)) for step, v in blocks.items()}
-        log(f"cli: {EARLY_STEPS} steps, then resumed to {CLI_STEPS} + 3 validations + test render + evaluation "
-            f"in {wall:.1f} s wall; field_interp launches {launches}, fused_interp {old_launches}; validation PSNR per block {blocks}; "
-            f"evaluation {result['averages']}")
-        log(f"cli: trainer scale ({stats['steps']} steps timed): {stats['ms_per_step']:.2f} ms per step, "
-            f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised rays/s, "
-            f"host fetch {100 * stats['fetch_share']:.1f}% of the train time, "
-            f"{stats['images_replaced_per_step']:.2f} pool images replaced per step")
-        if sorted(blocks) != [EARLY_STEPS, half, CLI_STEPS] or any(
-                len(v) != 3 or not np.isfinite(v).all() for v in blocks.values()):
-            raise AssertionError(f"expected three validation blocks of 3 finite images, got {blocks}")
-        if not min(means[half], means[CLI_STEPS]) > means[EARLY_STEPS]:
-            raise AssertionError(f"validation PSNR did not rise: {means}")
-        if stats["start_step"] != EARLY_STEPS:
-            raise AssertionError(f"the second run did not resume from step {EARLY_STEPS}: {stats}")
-        ckpts = sorted(p.name for p in (ws / "checkpoints").glob("*.ckpt"))
-        if "best.ckpt" not in ckpts or len([c for c in ckpts if c.startswith("step_")]) > 2:
-            raise AssertionError(f"checkpoints: {ckpts}")
-        results = ws / "results"
-        if not (list((results / "test_frames").glob("*.png")) and (results / "metrics.csv").exists()
-                and (results / "averages.csv").exists()):
-            raise AssertionError("the evaluate phase wrote no test frame or CSV")
-        if stats["skipped_nonfinite"] != 0:
-            raise AssertionError(f"{stats['skipped_nonfinite']} updates skipped as non-finite")
-        if not (launches["fwd"] > 0 and launches["bwd"] > 0):
-            raise AssertionError(f"the CLI run launched field_interp {launches}")
-        if old_launches != {"fwd": 0, "bwd": 0}:
-            raise AssertionError(f"the CLI run launched the old fused_interp kernels {old_launches}")
 
-        resumed = cli.main(r4_flags(scene, ws, CLI_STEPS + RESUME_STEPS, CLI_STEPS // 2)
-                           + ["--training.checkpoint", "latest"])["train"]
-        log(f"cli: resumed from step {resumed['start_step']} to {resumed['end_step']}")
-        if (resumed["start_step"], resumed["end_step"]) != (CLI_STEPS, CLI_STEPS + RESUME_STEPS + 1):
-            raise AssertionError(f"the resume ran steps {resumed['start_step']}..{resumed['end_step']}")
+def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict:
+    """Phases 6 and 7(c) (see the module docstring): `flags(steps, every)`
+    is the run's command line. EARLY_STEPS steps validated and saved, then
+    resumed to `total_steps` with validation and saves every half, the test
+    frame rendered and evaluated, then RESUME_STEPS more. → the launches of
+    the first two runs."""
+    half = total_steps // 2
+    evaluate = ["--training.checkpoint", "latest", "--evaluate", "true", "--evaluation.frame_numbers", "0"]
+    torch.cuda.synchronize()
+    fli.reset_launches()
+    fi.reset_launches()
+    t0 = time.perf_counter()
+    cli.main(flags(EARLY_STEPS, EARLY_STEPS))
+    result = cli.main(flags(total_steps, half) + evaluate)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    stats = result["train"]
+    blocks = validation_blocks(ws)
+    means = {step: float(np.mean(v)) for step, v in blocks.items()}
+    log(f"{name}: {EARLY_STEPS} steps, then resumed to {total_steps} + 3 validations + test render + evaluation "
+        f"in {wall:.1f} s wall; field_interp launches {launches}, fused_interp {old_launches}; validation PSNR per "
+        f"block {blocks}; evaluation {result['averages']}")
+    log(f"{name}: trainer scale ({stats['steps']} steps timed): {stats['ms_per_step']:.2f} ms per step, "
+        f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised rays/s, "
+        f"host fetch {100 * stats['fetch_share']:.1f}% of the train time, "
+        f"{stats['images_replaced_per_step']:.2f} pool images replaced per step")
+    if sorted(blocks) != [EARLY_STEPS, half, total_steps] or any(
+            len(v) != 3 or not np.isfinite(v).all() for v in blocks.values()):
+        raise AssertionError(f"expected three validation blocks of 3 finite images, got {blocks}")
+    if not min(means[half], means[total_steps]) > means[EARLY_STEPS]:
+        raise AssertionError(f"validation PSNR did not rise: {means}")
+    if stats["start_step"] != EARLY_STEPS:
+        raise AssertionError(f"the second run did not resume from step {EARLY_STEPS}: {stats}")
+    ckpts = sorted(p.name for p in (ws / "checkpoints").glob("*.ckpt"))
+    if "best.ckpt" not in ckpts or len([c for c in ckpts if c.startswith("step_")]) > 2:
+        raise AssertionError(f"checkpoints: {ckpts}")
+    results = ws / "results"
+    if not (list((results / "test_frames").glob("*.png")) and (results / "metrics.csv").exists()
+            and (results / "averages.csv").exists()):
+        raise AssertionError("the evaluate phase wrote no test frame or CSV")
+    if stats["skipped_nonfinite"] != 0:
+        raise AssertionError(f"{stats['skipped_nonfinite']} updates skipped as non-finite")
+    if not (launches["fwd"] > 0 and launches["bwd"] > 0):
+        raise AssertionError(f"the CLI run launched field_interp {launches}")
+    if old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"the CLI run launched the old fused_interp kernels {old_launches}")
+
+    resumed = cli.main(flags(total_steps + RESUME_STEPS, half) + ["--training.checkpoint", "latest"])["train"]
+    log(f"{name}: resumed from step {resumed['start_step']} to {resumed['end_step']}")
+    if (resumed["start_step"], resumed["end_step"]) != (total_steps, total_steps + RESUME_STEPS + 1):
+        raise AssertionError(f"the resume ran steps {resumed['start_step']}..{resumed['end_step']}")
     return launches
+
+
+# ------------------------------------------------------------------ phase 7
+
+
+def sampler_counts(rays, candidates, pruned) -> dict:
+    """One batch's dense-sampler counts: valid rays, candidates after the
+    occupancy filter and samples after the prune (in all and the most on
+    one ray), and the valid rays whose samples fit the candidate budget and
+    both budgets."""
+    counts = {"valid": int(rays.valid.sum()),
+              "fit_candidates": int((rays.valid & candidates.ray_included).sum()),
+              "fit": int((rays.valid & pruned.ray_included).sum())}
+    for key, st in (("candidates", candidates), ("pruned", pruned)):
+        n = int(st.num_valid)
+        counts[key] = n
+        counts[f"max_{key}"] = int(torch.bincount(st.ray[:n].long()).max()) if n else 0
+    return counts
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {k: (max if k.startswith("max_") else sum)((total.get(k, 0), v)) for k, v in counts.items()}
+
+
+def describe_counts(c: dict) -> str:
+    valid = max(c["valid"], 1)
+    return (f"{c['valid']} valid rays; per valid ray {c['candidates'] / valid:.1f} candidates after the occupancy "
+            f"filter (max {c['max_candidates']}), {c['pruned'] / valid:.1f} samples after the prune (max "
+            f"{c['max_pruned']}); {100 * c['fit_candidates'] / valid:.2f}% of valid rays fit the candidate budget, "
+            f"{100 * c['fit'] / valid:.2f}% both budgets")
+
+
+def dense_view_counts(model, pcfg, view) -> dict:
+    """`sampler_counts` summed over the batches of a 748² view."""
+    inputs = view.inputs
+    width, height = inputs.width, inputs.height
+    cfg = render_pipeline_config(pcfg, view.rays_batch_size)
+    device = inputs.aabb.device
+    n = view.rays_batch_size
+    total = {}
+    with torch.no_grad():
+        for start in range(0, width * height, n):
+            pixel_idx = torch.arange(start, start + n, device=device).clamp(max=width * height - 1).int()
+            batch = pipeline.HostBatch(torch.full((n,), inputs.buffer_index, dtype=torch.int32, device=device),
+                                       pixel_idx, torch.zeros((n, 4), device=device),
+                                       torch.ones(n, dtype=torch.bool, device=device))
+            rays = pipeline.build_rays(cfg, batch, inputs.pool, inputs.grids, inputs.aabb, width, height)
+            candidates = pipeline.build_samples(cfg, rays, inputs.pool, inputs.grids, batch.buffer_idx)
+            _, pruned = pipeline.prune_and_render(cfg, model, rays, candidates, 0.0)
+            total = add_counts(total, sampler_counts(rays, candidates, pruned))
+    return total
+
+
+def dense_render(device, view, model, proposal_roi: float) -> dict:
+    """Phase 7(a): best.ckpt's test view through the dense sampler at the r4
+    run's settings, against its plain render and the JAX package's baked
+    dense render of a patch. → the render's launches."""
+    pcfg = dataclasses.replace(view.pipeline_config, sampling="dense", **R4_DENSE)
+    width, height = view.inputs.width, view.inputs.height
+    num_batches = -(-width * height // view.rays_batch_size)
+    fli.reset_launches()
+    fi.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_image(model, pcfg, view.inputs, view.rays_batch_size)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    times = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        patch = (mock.patch.object(fused_field, "field_interp", fli.field_interp_plain) if which == "plain"
+                 else contextlib.nullcontext())
+        with patch:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render_image(model, pcfg, view.inputs, view.rays_batch_size)
+            torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+        if which == "plain":
+            img_plain = out
+    counts = dense_view_counts(model, pcfg, view)
+    img_np = img.cpu().numpy()
+    vs_plain = psnr(np.clip(img_np, 0, 1), np.clip(img_plain.cpu().numpy(), 0, 1))
+    roi = roi_psnr(to_u8(img), view.images["gt_rgb"], view.images["gt_mask"])
+    kernel_s = float(np.mean(times["kernel"]))
+    log(f"dense render ({pcfg.samples_per_ray} lattice points per ray, budgets {R4_DENSE['candidate_budget']} / "
+        f"{R4_DENSE['sample_budget']} per {R4_DENSE['num_rays']} rays, scaled to {view.rays_batch_size}-ray batches): "
+        f"first {first_s:.3f} s; kernel {', '.join(f'{t:.3f}' for t in times['kernel'])} s "
+        f"({1e3 * kernel_s / num_batches:.1f} ms per batch), plain {', '.join(f'{t:.3f}' for t in times['plain'])} s; "
+        f"field_interp launches {launches}, fused_interp {old_launches}")
+    log(f"dense render: per view {describe_counts(counts)}; PSNR(kernel, plain) = {vs_plain:.2f} dB; "
+        f"ROI-PSNR vs ground truth {roi:.3f} dB (phase 4's proposal render {proposal_roi:.3f} dB)")
+    if img_np.shape != view.images["gt_rgb"].shape or not np.isfinite(img_np).all():
+        raise AssertionError(f"the dense render is not a finite image of the view's shape: {img_np.shape}")
+    if not vs_plain >= RENDER_PSNR_MIN:
+        raise AssertionError(f"dense kernel render differs from the plain render: {vs_plain:.2f} dB < {RENDER_PSNR_MIN}")
+    if launches["fwd"] == 0 or launches["bwd"] != 0 or old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"the dense render launched field_interp {launches} and fused_interp {old_launches}")
+
+    # The baked patch, batch by batch at the baked settings.
+    dense = load_dense_inputs(RUN_DIR / "torch_dense_inputs.npz", device)
+    render_fn = pipeline.make_render_fn(dense.pipeline_config, model, width, height)
+    colors = []
+    for pixel_idx in dense.pixel_idx:
+        n = pixel_idx.shape[0]
+        batch = pipeline.HostBatch(torch.full((n,), view.inputs.buffer_index, dtype=torch.int32, device=device),
+                                   pixel_idx, torch.zeros((n, 4), device=device),
+                                   torch.ones(n, dtype=torch.bool, device=device))
+        out, _ = render_fn(batch, view.inputs.pool, view.inputs.grids, view.inputs.aabb, 0.0)
+        colors.append(out.color.cpu().numpy())
+    vs_jax = psnr(np.stack(colors), dense.jax_color)
+    log(f"dense render of the baked {len(colors)}×{dense.pixel_idx.shape[1]}-ray patch: PSNR(port, JAX) = {vs_jax:.2f} dB")
+    if not vs_jax >= DENSE_PATCH_PSNR_MIN:
+        raise AssertionError(f"the dense patch is {vs_jax:.2f} dB from the JAX render (< {DENSE_PATCH_PSNR_MIN})")
+    return launches
+
+
+def paper_model(device):
+    """Phase 7(b)'s fresh model: example_humanrf's field (L16/F2, log2
+    hashmap 19, so T = 2^17 per 25-frame segment, coarsest 32, finest 2048,
+    camera embedding 2), no proposal, initialised on the CPU from seed 0."""
+    model = HumanRFModel(HumanRFConfig(sorted_frame_numbers=tuple(range(NUM_FRAMES)), segment_sizes=(25, 25),
+                                       camera_embedding_dim=2))
+    model.init_parameters(torch.Generator().manual_seed(0))
+    return model.to(device)
+
+
+def check_dense_kernels(device, model, queries) -> dict:
+    """Each field_interp kernel against its plain version at the dense step's
+    shapes and real positions: the grids (P = 64, F = 2, T = 2^17) and the
+    vectors (P = 4, F = 32, R = 2048) at the render pass's query (forward and
+    backward) and the prune pass's (forward; it has no backward). Bars and
+    references as phase 3's."""
+    seg = model.segment_grid_configs[0]
+    shapes = [("grids", fli.grid_spec(seg.grid), 4 * seg.grid.n_levels, seg.grid.n_features_per_level,
+               seg.grid.table_size),
+              ("vectors", fli.VECTOR_SPEC, 4, seg.feature_dim, seg.vectors_finest_resolution)]
+    rng = np.random.default_rng(1)
+    rows = {"fwd": [], "bwd": []}
+    for name, spec, P, F_, T in shapes:
+        tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
+        for where, xyzt in queries.items():
+            N = xyzt.shape[0]
+            dims = {"shape": name, "positions": where, "P": P, "C": 8 if spec.mode == fli.MODE_GRID else 2,
+                    "F": F_, "T": T, "N": N}
+            rows["fwd"].append(field_check(
+                "fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
+                lambda: fli.field_interp_plain(tables, xyzt, spec)))
+            if where == "render":
+                g = torch.tensor(rng.normal(size=(P, F_, N)).astype(np.float32), device=device)
+                rows["bwd"].append(field_check(
+                    "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T),
+                    lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
+                    lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T)))
+    # A record per direction: one field query (grids + vectors) of the render pass.
+    return {d: summarize([r for r in rs if r["positions"] == "render"]) | {"per_shape": rs} for d, rs in rows.items()}
+
+
+def dense_train(device, pool) -> tuple:
+    """Phase 7(b): the dense step at the paper's field width (see the module
+    docstring). → (its launches, the kernels' dense records)."""
+    model = paper_model(device)
+    cfg = pipeline.PipelineConfig(**DENSE_STEP_CONFIG)
+    log(f"dense step: fresh paper-width model, {sum(p.numel() for p in model.parameters())} parameters, "
+        f"T = {model.segment_grid_configs[0].grid.table_size} per segment; {cfg}")
+    generator = torch.Generator(device).manual_seed(2)
+    key = make_key(0, device)
+    width, height = pool.width, pool.height
+
+    batch = sample_batch(cfg, pool.pixel_rgba, generator)
+    grads_step = make_train_step(cfg, model, _GradientsOnly(model), width, height)
+    queries = capture_queries(grads_step, batch, pool, key)
+    log(f"dense step-0 queries: render pass {queries['render'].shape[0]} samples, prune pass "
+        f"{queries['prune'].shape[0]} (the segment with the most of each)")
+    records = check_dense_kernels(device, model, queries)
+    del queries
+
+    runs = {}
+    for which in ("kernel", "plain"):
+        patch = (mock.patch.object(fused_field, "field_interp", fli.PlainFieldInterp.apply) if which == "plain"
+                 else contextlib.nullcontext())
+        with patch:
+            loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
+        runs[which] = (float(loss), {n: p.grad.clone() for n, p in model.named_parameters()})
+    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cosines = {n: cosine(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = min(cosines, key=cosines.get)
+    log(f"dense step-0 A/B: loss kernel {loss_k:.7f}, plain {loss_p:.7f} (rel {rel:.2e}); "
+        f"gradient cosine min {cosines[worst]:.7f} ({worst})")
+    if not rel <= STEP0_LOSS_REL:
+        raise AssertionError(f"dense step-0 loss through the kernels differs from the plain run by {rel:.2e} relative")
+    if not cosines[worst] >= STEP0_GRAD_COSINE:
+        raise AssertionError(f"dense step-0 gradient of {worst} has cosine {cosines[worst]:.7f} to the plain run's")
+    del runs, grads_k, grads_p
+    model.zero_grad(set_to_none=True)
+
+    optimizer = make_optimizer(model.named_parameters(), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
+    step = make_train_step(cfg, model, optimizer, width, height)
+    losses, mses, supervised, per_step = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    fli.reset_launches()
+    fi.reset_launches()
+    start = None
+    for i in range(DENSE_STEPS):
+        if i == WARM_STEPS:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        before = dict(fli.launches)
+        b = sample_batch(cfg, pool.pixel_rgba, generator)
+        loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
+        per_step.append({d: fli.launches[d] - before[d] for d in before})
+        losses.append(loss)
+        mses.append(aux["mse"])
+        supervised.append(aux["num_rays_supervised"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    peak = torch.cuda.max_memory_allocated(device)
+    losses, mses, supervised = torch.stack(losses).cpu(), torch.stack(mses).cpu(), torch.stack(supervised).cpu()
+    warm = DENSE_STEPS - WARM_STEPS
+    ms_per_step = 1e3 * seconds / warm
+
+    counts = {}
+    with torch.no_grad():
+        for i in range(DENSE_STATS_STEPS):
+            b = sample_batch(cfg, pool.pixel_rgba, generator)
+            rays = pipeline.build_rays(cfg, b, pool.pool, pool.grids, pool.aabb, width, height)
+            candidates = pipeline.build_samples(cfg, rays, pool.pool, pool.grids, b.buffer_idx)
+            _, pruned = pipeline.prune_and_render(cfg, model, rays, candidates, 0.0,
+                                                  fold_in(key, torch.tensor(50_000 + i, device=device)))
+            counts = add_counts(counts, sampler_counts(rays, candidates, pruned))
+    prof = profile_step(step, sample_batch(cfg, pool.pixel_rgba, generator), pool, key, device)
+
+    log(f"dense step: {DENSE_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, mse "
+        f"{float(mses[:5].mean()):.5f} (first 5) → {float(mses[-20:].mean()):.5f} (last 20); skipped updates "
+        f"{int(optimizer.skipped)}; field_interp launches {launches} ({per_step[-1]} in the last step), fused_interp {old_launches}")
+    log(f"dense step: {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included), "
+        f"{cfg.num_rays * warm / seconds:.0f} rays/s, {float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised rays/s "
+        f"({float(supervised.float().mean()):.0f} supervised rays per step), peak memory {peak / 2**30:.2f} GiB")
+    log(f"dense step: {DENSE_STATS_STEPS} more batches through the trained model's sampler (no update): "
+        f"{describe_counts(counts)}")
+    log(f"dense step: one profiled warm step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms of device time "
+        f"in {prof['wall_ms']:.1f} ms profiled wall; device busy {100 * prof['device_ms'] / ms_per_step:.1f}% "
+        f"of a {ms_per_step:.2f} ms warm step; top: {prof['top']}")
+    if old_launches != {"fwd": 0, "bwd": 0} or launches["fwd"] == 0 or launches["bwd"] == 0:
+        raise AssertionError(f"the dense step launched field_interp {launches} and fused_interp {old_launches}")
+    if not torch.isfinite(losses).all():
+        raise AssertionError("non-finite dense training loss")
+    if int(optimizer.skipped) != 0:
+        raise AssertionError(f"{int(optimizer.skipped)} dense updates skipped as non-finite")
+    if not float(mses[-20:].mean()) <= MSE_DROP * float(mses[:5].mean()):
+        raise AssertionError("dense training mse did not fall to half its start")
+    return launches, records
 
 
 def main() -> int:
@@ -814,20 +1129,34 @@ def main() -> int:
     # Phase 5: training.
     train_launches = train(device, view, train_pool)
 
-    # Phase 6: the CLI.
-    cli_launches = cli_phase(device)
+    with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
+        scene = write_r4_scene(device, Path(tmp))
+        # Phase 6: the CLI.
+        ws = Path(tmp) / "workspace"
+        cli_launches = cli_phase("cli", scene, ws, lambda steps, every: r4_flags(scene, ws, steps, every), CLI_STEPS)
 
-    by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches}
+        # Phase 7: dense sampling.
+        dense_render_launches = dense_render(device, view, model, port_roi)
+        dense_step_launches, dense_records = dense_train(device, train_pool)
+        dense_ws = Path(tmp) / "dense_workspace"
+        dense_cli_launches = cli_phase(
+            "dense cli", scene, dense_ws,
+            lambda steps, every: r4_flags(scene, dense_ws, steps, every) + PAPER_DENSE_FLAGS,
+            DENSE_CLI_STEPS)
+
+    by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches,
+                "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches}
     records = [
         {
             "name": f"field_interp_{direction}",
             "route": "cuda",
             "source": "humanrf_torch/csrc/field_interp.cu",
             "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
-            "launches": cli_launches[direction],
+            "launches": dense_cli_launches[direction],
             "launches_by_phase": {phase: counts[direction] for phase, counts in by_phase.items()},
             "library_ms": None,  # no one PyTorch call computes the corners and the lookup
             **new_kernels[direction],
+            "dense": dense_records[direction],
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
     ] + [

@@ -207,6 +207,8 @@ def _run(name: str, first: torch.Tensor, xyzt: torch.Tensor, out: torch.Tensor, 
 def _launch_fwd(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
     P, F, T = tables.shape
     out = torch.empty((P, F, xyzt.shape[0]), dtype=torch.float32, device=tables.device)
+    if xyzt.shape[0] == 0:
+        return out  # nothing to launch
     _run("field_interp_fwd", tables.contiguous(), xyzt.contiguous(), out, spec, F, T)
     launches["fwd"] += 1
     return out
@@ -217,6 +219,8 @@ def _launch_bwd(g: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, table_size
     if g.dtype != torch.float32 or N != xyzt.shape[0] or g.device != xyzt.device:
         raise ValueError(f"expected g (P,F,N) float32 beside xyzt {tuple(xyzt.shape)}, got {tuple(g.shape)} {g.dtype}")
     dtab = torch.zeros((P, F, table_size), dtype=torch.float32, device=g.device)
+    if N == 0:
+        return dtab  # nothing to launch
     _run("field_interp_bwd", g.contiguous(), xyzt.contiguous(), dtab, spec, F, table_size)
     launches["bwd"] += 1
     return dtab

@@ -14,7 +14,8 @@ step, 16,384-ray validation batches, a 48-image pool of ≤ 8 frames.
 
 writes the scene under <dir>/scene (unless it is there), then trains and
 validates into <dir>/workspace; flags after `--` go to the CLI after the r4
-ones, so they override them.
+ones, so they override them (`PAPER_DENSE_FLAGS` gives the paper's field and
+dense sampler).
 """
 from __future__ import annotations
 
@@ -72,6 +73,24 @@ def r4_flags(scene_root: Path, workspace: Path, steps: int, every: int, device: 
         "--dataset.max_buffer_size", "48",
         "--dataset.max_num_frames_per_batch", "8",
     ]
+
+
+# The paper's field and sampler (`configs/example_humanrf.py`), given after
+# `r4_flags` to override its own: L16/F2 grids with log2 hashmap 19 (T = 2^17
+# per 25-frame segment), coarsest 32, finest 2048, dense sampling with 1,024
+# lattice points per ray and 640,000 samples per step, one candidate pixel
+# per ray slot.
+PAPER_DENSE_FLAGS = [
+    "--model.log2_hashmap_size", "19",
+    "--model.n_levels", "16",
+    "--model.n_features_per_level", "2",
+    "--model.coarsest_resolution", "32",
+    "--model.finest_resolution", "2048",
+    "--tpu.sampling", "dense",
+    "--tpu.samples_per_ray", "1024",
+    "--training.samples_max_batch_size", "640000",
+    "--tpu.candidate_rays_factor", "1",
+]
 
 
 def write_scene(root: Path, device) -> float:

@@ -15,8 +15,7 @@ the CUDA kernels' plain versions stand in. Flags whose feature is not ported
 raise `NotImplementedError` naming their ROADMAP.md item.
 
 Usage:
-    python -m humanrf_torch.run --config example_synthetic --dataset.path <synth_root> --workspace ws \
-        --tpu.sampling proposal --device cuda
+    python -m humanrf_torch.run --config example_synthetic --dataset.path <synth_root> --workspace ws --device cuda
 """
 from __future__ import annotations
 
@@ -56,7 +55,6 @@ def check_ported(config) -> None:
     """Raise for a flag whose feature the port does not have yet; print one
     line for the flags whose choice the port's single path makes moot."""
     unported = [
-        (config.tpu.sampling != "proposal", f"--tpu.sampling {config.tpu.sampling}", "dense sampling and prune_and_render"),
         (config.dataset.filter_light_bloom, "--dataset.filter_light_bloom true", "filter_light_bloom"),
         (config.tpu.num_devices != 1, f"--tpu.num_devices {config.tpu.num_devices}", "multi-GPU"),
         (config.tpu.param_sharding == "fsdp", "--tpu.param_sharding fsdp", "multi-GPU"),
@@ -77,8 +75,14 @@ def check_ported(config) -> None:
 
 
 def build_pipeline_config(config) -> PipelineConfig:
+    candidate = config.tpu.candidate_budget or 2 * config.training.samples_max_batch_size
     return PipelineConfig(
         num_rays=config.training.rays_initial_batch_size,
+        samples_per_ray=config.tpu.samples_per_ray,
+        candidate_budget=candidate,
+        sample_budget=config.training.samples_max_batch_size,
+        use_visibility_prune=config.tpu.use_visibility_prune,
+        sampling=config.tpu.sampling,
         bce_loss_weight=config.training.bce_loss_weight,
         march_grid_factor=config.tpu.march_grid_factor,
         proposal_samples_per_ray=config.tpu.proposal_samples_per_ray,
@@ -211,7 +215,7 @@ def main(argv=None) -> dict:
             n_hidden_layers_color=config.model.n_hidden_layers_color,
             sh_degree=config.model.sh_degree,
             camera_embedding_dim=config.model.camera_embedding_dim,
-            proposal_rank=config.tpu.proposal_rank,
+            proposal_rank=config.tpu.proposal_rank if config.tpu.sampling == "proposal" else 0,
             proposal_resolution=config.tpu.proposal_resolution,
         ),
         device=device,

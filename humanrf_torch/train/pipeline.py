@@ -1,15 +1,24 @@
-"""The pipeline: pixels → rays → proposal samples → field → composite → loss.
+"""The pipeline: pixels → rays → samples → field → composite → loss.
 
-Counterpart of `humanrf_tpu/train/pipeline.py` with `sampling = "proposal"`
-(dense sampling is not ported): `build_rays`, `compact_rays`,
-`proposal_render`, `training_loss`, `make_train_step` and `make_render_fn`.
+Counterpart of `humanrf_tpu/train/pipeline.py`, with both of its samplers
+(`PipelineConfig.sampling`): `build_rays`, `compact_rays`, and then
+
+- "dense", the reference's pipeline: a lattice of candidates every
+  `render_step_size` along the ray, the occupancy filter, a compacted flat
+  buffer of `candidate_budget` slots (`build_samples`), the visibility prune
+  into `sample_budget` slots and the render over the flat buffer
+  (`prune_and_render`); rays whose samples overflow a budget are left out of
+  the loss;
+- "proposal": a cheap CP proposal field shapes a per-ray PDF and the field is
+  queried on a static (R, K) lattice (`proposal_render`);
+
+then `training_loss`, `make_train_step` and `make_render_fn`.
 
 A training step keys all its noise by global ray id (`utils/rngs.py`), as the
-JAX step does: the coarse, mid and fine stratified offsets and the random
-background, so a ray draws the same noise wherever compaction moves it, and
-the same as the JAX package's step under the same key. A render has no
-noise: coarse bins sit at their centres and the inverse-CDF draw at interval
-midpoints, so it is deterministic.
+JAX step does: the dense jitter (by ray id and lattice slot), the proposal's
+stratified offsets and the random background, so a ray draws the same noise
+wherever compaction moves it, and the same as the JAX package's step under
+the same key. A render has no noise, so it is deterministic.
 """
 from __future__ import annotations
 
@@ -21,19 +30,33 @@ import torch
 from humanrf_torch.models.humanrf import HumanRFModel
 from humanrf_torch.ops.occupancy import coarsen_grid, occupancy_ray_minmax, sample_occupancy
 from humanrf_torch.ops.rays import aabb_intersect, pixel_to_ray
-from humanrf_torch.ops.render import RenderOutput, composite_grid, render_weights_grid
+from humanrf_torch.ops.render import RenderOutput, composite_grid, prune_samples, render, render_weights_grid
 from humanrf_torch.ops.resample import proposal_distillation_per_ray, sample_intervals, stratified_bins, weights_to_cdf
+from humanrf_torch.ops.sampling import SampleSet, generate_samples
 from humanrf_torch.train.losses import bce_loss, huber_loss, masked_mean
 from humanrf_torch.utils.rngs import split, uniform_per_id
 
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """Sampling and loss settings. A render's batch size is the batch's own
-    length; a training step takes `num_rays × candidate_rays_factor`
-    candidate rays and supervises `num_rays`."""
+    """Sampling and loss settings, with the JAX package's names and defaults.
+    A render's batch size is the batch's own length; a training step takes
+    `num_rays × candidate_rays_factor` candidate rays and supervises
+    `num_rays`."""
 
     num_rays: int = 8192
+    # --- dense sampling -------------------------------------------------------
+    # Candidate lattice points per ray (the longest kept span / step).
+    samples_per_ray: int = 1024
+    # Slots after the occupancy filter (they feed the no-grad prune pass).
+    candidate_budget: int = 1 << 20
+    # Slots after the visibility prune (they feed the differentiable render);
+    # the reference's training.samples_max_batch_size.
+    sample_budget: int = 640_000
+    render_step_size: float = 4e-4
+    use_visibility_prune: bool = True
+    # "dense" (the reference's sampler) or "proposal".
+    sampling: str = "dense"
     bce_loss_weight: Optional[float] = 1e-3
     huber_delta: float = 0.01
     # tmin/tmax march on a conservatively max-pooled grid (factor× coarser).
@@ -121,6 +144,56 @@ def _slot_ids(ray_ids: torch.Tensor, num_slots: int) -> torch.Tensor:
     """(R,) ray ids → (R·num_slots,) ids `ray_id·num_slots + slot`."""
     slots = torch.arange(num_slots, dtype=torch.int64, device=ray_ids.device)
     return (ray_ids.long()[:, None] * num_slots + slots[None, :]).reshape(-1)
+
+
+def build_samples(cfg: PipelineConfig, rays: RayData, pool: PoolArrays, grids, buffer_idx) -> SampleSet:
+    """Dense sampling's candidates: each ray's lattice over [tmin, tmax],
+    occupancy-filtered, compacted into `candidate_budget` slots."""
+    return generate_samples(
+        rays.tmin, rays.tmax, rays.valid, rays.origins, rays.directions,
+        step_size=cfg.render_step_size, samples_per_ray=cfg.samples_per_ray, budget=cfg.candidate_budget,
+        grids=grids, grid_ids=pool.grid_slots[buffer_idx.long()],
+    )
+
+
+def prune_and_render(
+    cfg: PipelineConfig,
+    model: HumanRFModel,
+    rays: RayData,
+    samples: SampleSet,
+    background_rgb,
+    rng: Optional[torch.Tensor] = None,
+    ray_ids: Optional[torch.Tensor] = None,
+):
+    """`prune_samples` + `render` (`volume_rendering.py:42-150`) on the flat
+    buffers → (RenderOutput, the rendered SampleSet).
+
+    With a key `rng` this is the training render: every sample distance is
+    jittered by U[0, step) (`volume_rendering.py:63-64`), drawn per (global
+    ray id, lattice slot), and camera embeddings are on. The prune pass's
+    density query runs without autograd (JAX: `stop_gradient`), so no
+    activation of its up to `candidate_budget` samples is kept.
+    """
+    num_rays = rays.origins.shape[0]
+    if rng is not None:
+        if ray_ids is None:
+            ray_ids = torch.arange(num_rays, device=rays.origins.device)
+        ray_idx = samples.ray.long().clamp(0, num_rays - 1)
+        lattice = torch.round((samples.t - rays.tmin[ray_idx]) / cfg.render_step_size).long()
+        u = uniform_per_id(rng, ray_ids.long()[ray_idx] * cfg.samples_per_ray + lattice)
+        samples = samples._replace(t=samples.t + u * cfg.render_step_size)
+    if cfg.use_visibility_prune:
+        with torch.no_grad():
+            samples = prune_samples(
+                lambda p, f: model.density(p, f)[0], samples, rays.origins, rays.directions, rays.frame_numbers,
+                num_rays, cfg.sample_budget, cfg.render_step_size, cfg.samples_per_ray,
+            )
+    out = render(
+        lambda p, d, f, c: model(p, d, f, c, is_training=rng is not None),
+        samples, rays.origins, rays.directions, rays.frame_numbers, rays.camera_numbers,
+        num_rays, background_rgb, cfg.render_step_size, cfg.samples_per_ray,
+    )
+    return out, samples
 
 
 def proposal_render(
@@ -220,11 +293,14 @@ def training_loss(
     grids,
     buffer_idx,
     ray_ids: Optional[torch.Tensor] = None,
+    samples: Optional[SampleSet] = None,
 ):
-    """Random-background compositing, Huber + BCE + distillation, each a
-    mean over the valid rays (trainer.py:229-248 of the reference).
-    → (loss, aux) with aux `photometric`, `mask_loss`, `proposal_loss`,
-    `mse`, `num_samples` and `num_rays_supervised`."""
+    """Random-background compositing, Huber + BCE (+ distillation under
+    proposal sampling), each a mean over the supervised rays (trainer.py:
+    229-248 of the reference): the valid rays, and under dense sampling only
+    those whose samples fit the budgets (`samples` are `build_samples`'s).
+    → (loss, aux) with aux `photometric`, `mask_loss`, `proposal_loss`
+    (proposal only), `mse`, `num_samples` and `num_rays_supervised`."""
     if ray_ids is None:
         ray_ids = torch.arange(cfg.num_rays, device=rgba.device)
     rng_bg, rng_jitter = split(rng)
@@ -232,8 +308,14 @@ def training_loss(
     background = uniform_per_id(rng_bg, ray_ids, num=3)
     gt_rgb = rgba[:, 0:3] * gt_mask + background * (1.0 - gt_mask)
 
-    out, proposal_aux = proposal_render(cfg, model, rays, pool, grids, buffer_idx, background, rng_jitter, ray_ids)
-    loss_mask = rays.valid
+    if cfg.sampling == "proposal":
+        out, proposal_aux = proposal_render(cfg, model, rays, pool, grids, buffer_idx, background, rng_jitter, ray_ids)
+        loss_mask = rays.valid
+        num_samples = proposal_aux["num_samples"]
+    else:
+        out, pruned = prune_and_render(cfg, model, rays, samples, background, rng_jitter, ray_ids)
+        loss_mask = rays.valid & pruned.ray_included
+        num_samples = pruned.num_valid
 
     photometric = masked_mean(huber_loss(out.color, gt_rgb, cfg.huber_delta), loss_mask)
     total = photometric
@@ -242,12 +324,13 @@ def training_loss(
         mask_l = masked_mean(bce_loss(out.weights_sum, gt_mask), loss_mask) * cfg.bce_loss_weight
         total = total + mask_l
         aux["mask_loss"] = mask_l
-    prop_l = masked_mean(proposal_aux["proposal_loss_per_ray"][:, None], loss_mask)
-    total = total + cfg.proposal_loss_weight * prop_l
-    aux["proposal_loss"] = prop_l
+    if cfg.sampling == "proposal":
+        prop_l = masked_mean(proposal_aux["proposal_loss_per_ray"][:, None], loss_mask)
+        total = total + cfg.proposal_loss_weight * prop_l
+        aux["proposal_loss"] = prop_l
 
     aux["mse"] = masked_mean((out.color - gt_rgb) ** 2, loss_mask)
-    aux["num_samples"] = proposal_aux["num_samples"]
+    aux["num_samples"] = num_samples
     aux["num_rays_supervised"] = loss_mask.sum()
     return total, aux
 
@@ -270,9 +353,12 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
         if cfg.candidate_rays_factor > 1:
             ray_ids = torch.arange(cfg.num_rays * cfg.candidate_rays_factor, device=rays.origins.device)
             rays, batch, ray_ids = compact_rays(rays, batch, ray_ids, cfg.num_rays)
+        samples = None
+        if cfg.sampling != "proposal":
+            samples = build_samples(cfg, rays, pool, grids, batch.buffer_idx)
         optimizer.zero_grad()
         loss, aux = training_loss(
-            cfg, model, rays, batch.rgba, rng, pool, grids, batch.buffer_idx, ray_ids=ray_ids
+            cfg, model, rays, batch.rgba, rng, pool, grids, batch.buffer_idx, ray_ids=ray_ids, samples=samples
         )
         loss.backward()
         optimizer.step()
@@ -283,13 +369,18 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
 
 def make_render_fn(cfg: PipelineConfig, model: HumanRFModel, width: int, height: int):
     """Returns render_rays(batch, pool, grids, aabb, background_rgb) →
-    (RenderOutput, ray_valid) for validation/test image assembly, with
-    proposal sampling."""
+    (RenderOutput, ray_valid) for validation/test image assembly. Under
+    dense sampling the budgets are the batch's (see
+    `trainer.render_pipeline_config`)."""
 
     @torch.no_grad()
     def fn(batch: HostBatch, pool: PoolArrays, grids, aabb, background_rgb):
         rays = build_rays(cfg, batch, pool, grids, aabb, width, height)
-        out, _ = proposal_render(cfg, model, rays, pool, grids, batch.buffer_idx, background_rgb)
+        if cfg.sampling == "proposal":
+            out, _ = proposal_render(cfg, model, rays, pool, grids, batch.buffer_idx, background_rgb)
+        else:
+            samples = build_samples(cfg, rays, pool, grids, batch.buffer_idx)
+            out, _ = prune_and_render(cfg, model, rays, samples, background_rgb)
         valid = rays.valid[:, None]
         color = torch.where(valid, out.color, torch.as_tensor(background_rgb, dtype=out.color.dtype, device=out.color.device))
         wsum = torch.where(valid, out.weights_sum, 0.0)

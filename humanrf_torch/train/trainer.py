@@ -12,6 +12,8 @@ Counterpart of `humanrf_tpu/train/trainer.py`:
   resumed checkpoints in the JAX package's format;
 - `sample_batch`: a training batch drawn from a baked pool of images by an
   explicit `torch.Generator` (the loader's TRAINING draw, without the loader);
+- `render_pipeline_config`: the pipeline settings of a render batch, the
+  dense budgets scaled to its size (the JAX `Trainer._get_render_fn`);
 - `render_image`: the batched pixel loop of `Trainer.test` over one image.
 
 Not ported: TensorBoard events (the trainer says so once), the K-step
@@ -19,6 +21,7 @@ dispatch scan and the HBM preflight (the port keeps K = 1's semantics).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
@@ -150,19 +153,34 @@ class ViewInputs(NamedTuple):
     buffer_index: int = 0
 
 
+def render_pipeline_config(pcfg: PipelineConfig, batch_size: int) -> PipelineConfig:
+    """`pcfg` for render batches of `batch_size` rays: the dense budgets,
+    which `pcfg` sizes for its `num_rays` training rays, keep their share per
+    ray (the sample density is the scene's), 128-aligned, so a render batch
+    truncates a ray no more often than a training batch does."""
+
+    def scale(budget: int) -> int:
+        per_ray = max(budget // max(pcfg.num_rays, 1), 1)
+        return max(128, ((per_ray * batch_size + 127) // 128) * 128)
+
+    return dataclasses.replace(pcfg, num_rays=batch_size, candidate_budget=scale(pcfg.candidate_budget),
+                               sample_budget=scale(pcfg.sample_budget))
+
+
 def render_image(model: HumanRFModel, pcfg: PipelineConfig, inputs: ViewInputs, rays_batch_size: int) -> torch.Tensor:
     """Render pool entry `inputs.buffer_index` on a black background →
     (H, W, 3) float32 colors.
 
     Pixels go in batches of `rays_batch_size`; the last batch is padded with
-    pixel 0 and its padding is dropped, as the test loader does.
+    pixel 0 and its padding is dropped, as the test loader does. `pcfg`'s
+    dense budgets are scaled to the batch (`render_pipeline_config`).
     """
     device = inputs.aabb.device
     width, height = inputs.width, inputs.height
     if not bool(inputs.pool.landscape[inputs.buffer_index]):
         width, height = height, width  # portrait image
     num_pixels = width * height
-    render_fn = make_render_fn(pcfg, model, inputs.width, inputs.height)
+    render_fn = make_render_fn(render_pipeline_config(pcfg, rays_batch_size), model, inputs.width, inputs.height)
 
     buffer_idx = torch.full((rays_batch_size,), inputs.buffer_index, dtype=torch.int32, device=device)
     rgba = torch.zeros((rays_batch_size, 4), dtype=torch.float32, device=device)
@@ -219,7 +237,9 @@ class Trainer:
         self.train_step_fn = None
         if self.optimizer is not None:
             self.train_step_fn = make_train_step(self.pcfg, model, self.optimizer, width, height)
-        self.render_fn = make_render_fn(self.pcfg, model, width, height)
+        # Validation and test loaders have their own ray batch sizes; a render
+        # function per batch size, with the budgets scaled to it.
+        self._render_fns: Dict[int, Callable] = {}
 
         self.lpips = LpipsModel.load_or_init()
         if not self.lpips.is_pretrained:
@@ -252,6 +272,13 @@ class Trainer:
         n_params = sum(p.numel() for p in model.parameters())
         self._log_info(f"# parameters: {n_params / 1e6:.3f} million")
         self.load(checkpoint)
+
+    def _get_render_fn(self, batch_size: int):
+        if batch_size not in self._render_fns:
+            width, height = self.resolution
+            pcfg = render_pipeline_config(self.pcfg, batch_size)
+            self._render_fns[batch_size] = make_render_fn(pcfg, self.model, width, height)
+        return self._render_fns[batch_size]
 
     def _log_info(self, text: str) -> None:
         print(f"[INFO] {text}", flush=True)
@@ -361,7 +388,7 @@ class Trainer:
         partial_colors: List[torch.Tensor] = []
         partial_rgba: List[torch.Tensor] = []
         for data_idx, (batch, pool, grids, info) in enumerate(data_loader):
-            out, _ = self.render_fn(batch, pool, grids, aabb, 0.0)
+            out, _ = self._get_render_fn(batch.pixel_idx.shape[0])(batch, pool, grids, aabb, 0.0)
             partial_colors.append(out.color[: info.num_real])
             partial_rgba.append(batch.rgba[: info.num_real])
             if (data_idx + 1) % data_loader.num_batches_per_full_image != 0:

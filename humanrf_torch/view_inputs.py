@@ -1,8 +1,9 @@
 """Load baked inputs of the r4 scene: a test view (the model/pipeline
 settings and the loader state of one image, as
-`scripts/make_torch_view_inputs.py` writes them) and a training pool (the
+`scripts/make_torch_view_inputs.py` writes them), a training pool (the
 loader state and pooled images of the train cameras at two frames, as
-`scripts/make_torch_train_inputs.py` writes them).
+`scripts/make_torch_train_inputs.py` writes them) and the JAX package's
+dense render of a patch of the test view (`scripts/make_torch_dense_inputs.py`).
 """
 from __future__ import annotations
 
@@ -36,6 +37,13 @@ class TrainInputs(NamedTuple):
     height: int
     pixel_rgba: torch.Tensor   # (B, H·W, 4) uint8: (rgb·mask, mask) per pool entry
     camera_names: List[str]    # per pool entry
+
+
+class DenseInputs(NamedTuple):
+    pipeline_config: PipelineConfig  # dense sampling for one batch of the patch
+    pixel_idx: torch.Tensor          # (B, R) int32: the patch's batches of flat pixel ids
+    jax_color: np.ndarray            # (B, R, 3) float32: the JAX dense render on black
+    jax_weights_sum: np.ndarray      # (B, R) float32
 
 
 def _grids(data) -> np.ndarray:
@@ -83,6 +91,7 @@ def load_view_inputs(path, device) -> BakedView:
         proposal_resolution=tpu["proposal_resolution"],
     )
     pipeline_config = PipelineConfig(
+        sampling="proposal",  # the r4 run's sampler
         march_grid_factor=tpu["march_grid_factor"],
         proposal_samples_per_ray=tpu["proposal_samples_per_ray"],
         render_samples_per_ray=tpu["render_samples_per_ray"],
@@ -101,4 +110,17 @@ def load_view_inputs(path, device) -> BakedView:
     images = {k: data[k] for k in ("gt_rgb", "gt_mask", "jax_render")}
     return BakedView(
         model_config, pipeline_config, inputs, cfg["rays_batch_size"], images, cfg["camera_name"], cfg["frame_number"]
+    )
+
+
+def load_dense_inputs(path, device) -> DenseInputs:
+    data = np.load(Path(path))
+    cfg = json.loads(str(data["config_json"]))
+    settings = {k: cfg[k] for k in ("num_rays", "samples_per_ray", "candidate_budget", "sample_budget",
+                                    "use_visibility_prune", "march_grid_factor")}
+    return DenseInputs(
+        PipelineConfig(sampling="dense", **settings),
+        torch.as_tensor(data["pixel_idx"], device=device),
+        data["jax_color"],
+        data["jax_weights_sum"],
     )

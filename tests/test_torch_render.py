@@ -163,7 +163,7 @@ def _render_both(jax_model, jax_params, torch_model, pcfg_kwargs, pool, grids, a
     )
     jout, jvalid = jfn(jax_params, jbatch, _jax_pool(pool), jnp.asarray(_np(grids)), jnp.asarray(_np(aabb)), 0.0)
 
-    tcfg = t_pipeline.PipelineConfig(**pcfg_kwargs)
+    tcfg = t_pipeline.PipelineConfig(sampling="proposal", **pcfg_kwargs)
     tfn = t_pipeline.make_render_fn(tcfg, torch_model, width, height)
     tbatch = t_pipeline.HostBatch(
         torch.tensor(buffer_idx), torch.tensor(pixel_idx), torch.zeros((n, 4)), torch.ones(n, dtype=torch.bool)
@@ -283,7 +283,7 @@ def test_render_image_matches_one_batch_of_the_render_fn(view):
     inverse_krs = view.inputs.pool.inverse_krs * torch.tensor([scale, scale, 1.0])
     pool = _two_frame_pool(view, inverse_krs)
     inputs = ViewInputs(pool, view.inputs.grids, view.inputs.aabb, 12, 12, buffer_index=1)
-    pcfg = t_pipeline.PipelineConfig(**_small_pcfg_kwargs())
+    pcfg = t_pipeline.PipelineConfig(sampling="proposal", **_small_pcfg_kwargs())
 
     img = render_image(torch_model, pcfg, inputs, rays_batch_size=40)
 

@@ -158,7 +158,6 @@ def test_yaml_emitter_round_trips_every_scalar_kind():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tpu.sampling", "dense"],
     ["--dataset.filter_light_bloom", "true"],
     ["--tpu.num_devices", "2"],
     ["--tpu.param_sharding", "fsdp"],
@@ -167,8 +166,7 @@ def test_yaml_emitter_round_trips_every_scalar_kind():
     ["--tpu.profile_dir", "profile"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
-    base = ["--config", "example_synthetic", "--device", "cpu", "--tpu.sampling", "proposal",
-            "--workspace", str(tmp_path / "ws")]
+    base = ["--config", "example_synthetic", "--device", "cpu", "--workspace", str(tmp_path / "ws")]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_main([*base, *flags])
     assert not (tmp_path / "ws").exists()

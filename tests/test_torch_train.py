@@ -316,7 +316,7 @@ _SMALL = dict(
     camera_embedding_dim=2, proposal_rank=8, proposal_resolution=16,
 )
 _SMALL_PCFG = dict(
-    num_rays=128, candidate_rays_factor=2, proposal_samples_per_ray=16, render_samples_per_ray=8,
+    sampling="proposal", num_rays=128, candidate_rays_factor=2, proposal_samples_per_ray=16, render_samples_per_ray=8,
     proposal_uniform_bonus=0.05, march_grid_factor=2, bce_loss_weight=1e-3, huber_delta=0.01,
     proposal_loss_weight=1.0,
 )
@@ -384,7 +384,7 @@ def test_train_step_matches_jax_on_a_two_segment_model(train_inputs):
     tmodel = THumanRFModel(THumanRFConfig(**_SMALL))
     tmodel.load_state_dict(convert_params(jax.tree_util.tree_map(np.asarray, jparams)))
 
-    jcfg = j_pipeline.PipelineConfig(sampling="proposal", **_SMALL_PCFG)
+    jcfg = j_pipeline.PipelineConfig(**_SMALL_PCFG)
     tcfg = t_pipeline.PipelineConfig(**_SMALL_PCFG)
     buffer_idx, pixel_idx, rgba = _batch(train_inputs, 256, seed=8, on_actor=110)
     jbatch, tbatch, jpool = _both_batches(train_inputs, buffer_idx, pixel_idx, rgba)
@@ -436,7 +436,7 @@ def test_training_render_with_a_second_proposal_level_matches_jax(train_inputs):
     tmodel = THumanRFModel(THumanRFConfig(**_SMALL))
     tmodel.load_state_dict(convert_params(jax.tree_util.tree_map(np.asarray, jparams)))
     pcfg = dict(_SMALL_PCFG, candidate_rays_factor=1, proposal_mid_samples_per_ray=8)
-    jcfg = j_pipeline.PipelineConfig(sampling="proposal", **pcfg)
+    jcfg = j_pipeline.PipelineConfig(**pcfg)
     tcfg = t_pipeline.PipelineConfig(**pcfg)
     buffer_idx, pixel_idx, rgba = _batch(train_inputs, 128, seed=10, on_actor=80)
     jbatch, tbatch, jpool = _both_batches(train_inputs, buffer_idx, pixel_idx, rgba)
@@ -477,7 +477,7 @@ def test_train_step_loss_matches_jax_on_the_trained_checkpoint(train_inputs):
     tmodel.load_state_dict(convert_params(params))
 
     pcfg = dict(_SMALL_PCFG, num_rays=64, proposal_samples_per_ray=32, render_samples_per_ray=16)
-    jcfg = j_pipeline.PipelineConfig(sampling="proposal", **pcfg)
+    jcfg = j_pipeline.PipelineConfig(**pcfg)
     tcfg = t_pipeline.PipelineConfig(**pcfg)
     buffer_idx, pixel_idx, rgba = _batch(train_inputs, 128, seed=9, on_actor=60)
     jbatch, tbatch, jpool = _both_batches(train_inputs, buffer_idx, pixel_idx, rgba)
