@@ -19,7 +19,10 @@ compute the field's corners from the sample coordinates themselves:
 - dense sampling (the reference's sampler, the CLI's default): best.ckpt's
   view rendered through it, the dense step at the paper's field width
   (`configs/example_humanrf.py`: L16/F2, T = 2^17 per segment) and the CLI
-  with the paper's field and sampler on the r4 scene.
+  with the paper's field and sampler on the r4 scene;
+- the CLI's trajectory phases with best.ckpt, the occupancy carve of the
+  toolbox, and a CLI training run with the light-bloom filter, the
+  profiler and the TensorBoard events.
 
 The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
 math ("the old path"), is off the main path; phases 3-5 time it beside the
@@ -85,15 +88,38 @@ Phases, each of which raises on failure:
    profiled step's busy share; no skipped update; mse falling to ≤ ½), and
    the sampler's counts over DENSE_STATS_STEPS more batches;
    (c) phase 6's CLI check on the same scene with PAPER_DENSE_FLAGS after
-   the r4 flags, resumed to DENSE_CLI_STEPS.
+   the r4 flags, resumed to DENSE_CLI_STEPS;
+8. the CLI's other features, on phase 6's scene:
+   (1) the trajectory phases: `humanrf_torch.run.main` with the r4 flags,
+   `--train false --evaluate false`, `--test.checkpoint` best.ckpt, a keycam
+   path through TRAJ_KEYCAMS of TRAJ_VIEWS cameras and a calibration file
+   of TRAJ_CSV_CAMERAS copied verbatim: 50 + 50 frames %06d.png, each of
+   the scene's size with a subject coverage in COVERAGE_RANGE; the
+   calibration file's view 0 ≥ CALIB_VIEW_PSNR_MIN from the test render of
+   the same camera and frame, the keycam path's view 0 (t = 1e-5 from key
+   camera 0) ≥ KEYCAM_ENDPOINT_PSNR_MIN from key camera 0's; forward
+   launches counted, no backward; s per view, and whether ffmpeg wrote a
+   video;
+   (2) the occupancy carve of all 50 frames at CARVE_RESOLUTION³ on the card
+   (`toolbox/generate_occupancy_grids_from_masks`, threshold
+   CARVE_THRESHOLD, on a copy of the masks): frames CARVE_CHECK_FRAMES equal
+   the CPU's carve voxel for voxel, every frame's hull covers ≥
+   CARVE_CORE_MIN of its scene grid's core; ms per frame;
+   (3) BLOOM_STEPS CLI steps from a fresh workspace with
+   `--dataset.filter_light_bloom true` (discs of BLOOM_RADIUS on the subject
+   in BLOOM_CAMERAS, written into `light_annotations.csv` and restored after)
+   and `--tpu.profile_dir`: a filtered pool-pixel share > 0, no skipped
+   update, supervised rays/s beside phase 6's; the events file read back
+   with every record's CRC, holding JAX_SCALAR_TAGS and the comparison
+   images; one trace, of steps 20–24, whose `field_interp` kernels equal the
+   launches counted in its window.
 
 The last three lines of output are the kernel table as JSON (the four
 kernels: `field_interp` forward and backward, with `launches` counted over
-phase 7(c), the dense CLI, each phase's counts beside them, their phase-3
-times at the r4 shapes and their phase-7(b) times at the dense ones under
-"dense"; the earlier `fused_interp` design, launched by phase 3 only), the
-card's name and power limit from nvidia-smi, and `{"ok": true, "device":
-{...}}`.
+phase 8, each phase's counts beside them, their phase-3 times at the r4
+shapes and their phase-7(b) times at the dense ones under "dense"; the
+earlier `fused_interp` design, launched by phase 3 only), the card's name
+and power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
@@ -102,6 +128,8 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -117,7 +145,9 @@ import torch.nn.functional as F
 from humanrf_torch import run as cli
 from humanrf_torch.convert import convert_params
 from humanrf_torch.core import image_io
+from humanrf_torch.configs.args import parse_args
 from humanrf_torch.core.dataset import VolumetricDataset
+from humanrf_torch.data.loader import DataLoader
 from humanrf_torch.core.synthetic import make_cameras, render_cameras
 from humanrf_torch.models import decomposition4d, fused_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
@@ -130,8 +160,11 @@ from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
 from humanrf_torch.train.checkpoint import load_checkpoint
 from humanrf_torch.train import pipeline
 from humanrf_torch.train.pipeline import make_train_step
-from humanrf_torch.train.trainer import make_optimizer, render_image, render_pipeline_config, sample_batch
+from humanrf_torch.toolbox import generate_occupancy_grids_from_masks as occ
+from humanrf_torch.train.trainer import Trainer, make_optimizer, render_image, render_pipeline_config, sample_batch
+from humanrf_torch.utils.profiling import Trace
 from humanrf_torch.utils.rngs import fold_in, make_key
+from humanrf_torch.utils.summary import masked_crc32c
 from humanrf_torch.view_inputs import load_dense_inputs, load_train_inputs, load_view_inputs
 
 REPO = Path(__file__).resolve().parent
@@ -202,6 +235,33 @@ DENSE_STEP_CONFIG = dict(sampling="dense", num_rays=8192, candidate_rays_factor=
 DENSE_STEPS = 120          # phase 7(b): timed steps (after WARM_STEPS) of a fresh paper-width model
 DENSE_STATS_STEPS = 10     # phase 7(b): batches through the trained model's sampler for the counts
 DENSE_CLI_STEPS = 300      # phase 7(c): resumed to this step, validated and saved every DENSE_CLI_STEPS / 2
+# Phase 8.1: the trajectory phases through the CLI on the r4 scene with
+# best.ckpt: a keycam path of TRAJ_VIEWS cameras (the JAX r4 run rendered 50
+# trajectory views) and a calibration file of four of the scene's cameras,
+# rows copied verbatim, the test camera first.
+TRAJ_KEYCAMS = (0, 4, 8)
+TRAJ_VIEWS = 50
+TRAJ_CSV_CAMERAS = (11, 2, 5, 9)
+CALIB_VIEW_PSNR_MIN = 50.0      # dB: the same camera and frame as the test render, the same kernel
+# dB: key camera 0 moved by t = 1e-5 of the path (CPU rehearsal at 96²:
+# 62.49 dB; the path's next view, t = 1/49, reads 28.34 dB against it).
+KEYCAM_ENDPOINT_PSNR_MIN = 40.0
+COVERAGE_LEVEL = 8              # a pixel shows the subject when a channel is above this (black background)
+COVERAGE_RANGE = (0.03, 0.12)   # share of a view's pixels (CPU rehearsal at 96²: 0.0561–0.0617)
+# Phase 8.2: the occupancy carve of all frames; every camera must see a voxel.
+CARVE_RESOLUTION, CARVE_THRESHOLD = 128, 12
+CARVE_CHECK_FRAMES = (0, 25)
+CARVE_CORE_MIN = 0.95           # the hull's share of the scene grid's core (tests/test_exporters.py)
+# Phase 8.3: a fresh CLI run with light-bloom discs, a profiled window and the events.
+BLOOM_STEPS = 30
+BLOOM_CAMERAS = (0, 1, 2)       # train cameras of the derived split
+BLOOM_RADIUS = 40               # px
+# The JAX trainer's scalar tags (humanrf_tpu/train/trainer.py:398-415, 527)
+# that a run which validates and skips no update writes (the step-500
+# `stability/skipped_nonfinite_updates` only follows a skipped update).
+JAX_SCALAR_TAGS = {"photometric/training", "psnr/training", "mask_loss/training", "throughput/rays_per_sec",
+                   "throughput/rays_per_sec_wall", "throughput/supervised_rays_per_sec", "throughput/steps_per_sec",
+                   "throughput/host_fetch_fraction", "psnr/validation", "ssim/validation"}
 # dB, a written q98 JPEG decoded back against the rendered image. JPEG's own
 # loss on this texture is ~44 dB (Cam001 frame 0: 44.14 dB on the CPU, the
 # bytes cv2 writes); a wrong colour conversion or upsampling falls far below.
@@ -728,7 +788,7 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     is the run's command line. EARLY_STEPS steps validated and saved, then
     resumed to `total_steps` with validation and saves every half, the test
     frame rendered and evaluated, then RESUME_STEPS more. → the launches of
-    the first two runs."""
+    the first two runs, and the second run's `Trainer.run_stats`."""
     half = total_steps // 2
     evaluate = ["--training.checkpoint", "latest", "--evaluate", "true", "--evaluation.frame_numbers", "0"]
     torch.cuda.synchronize()
@@ -775,7 +835,7 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     log(f"{name}: resumed from step {resumed['start_step']} to {resumed['end_step']}")
     if (resumed["start_step"], resumed["end_step"]) != (total_steps, total_steps + RESUME_STEPS + 1):
         raise AssertionError(f"the resume ran steps {resumed['start_step']}..{resumed['end_step']}")
-    return launches
+    return launches, stats
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1033,6 +1093,286 @@ def dense_train(device, pool) -> tuple:
     return launches, records
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def read_events(path: Path) -> dict:
+    """An events file → {"scalars": {tag: [(step, value)]}, "images": {tag:
+    [step]}}, each record's length and data checked against their masked
+    CRC-32C, each `Event` decoded by hand (wall_time 1, step 2, summary 5;
+    Summary.Value tag 1, simple_value 2, image 4)."""
+
+    def varint(buf, pos):
+        shift = value = 0
+        while True:
+            byte = buf[pos]
+            pos += 1
+            value |= (byte & 0x7F) << shift
+            shift += 7
+            if not byte & 0x80:
+                return value, pos
+
+    def fields(buf):
+        pos, out = 0, []
+        while pos < len(buf):
+            key, pos = varint(buf, pos)
+            if key & 7 == 0:
+                value, pos = varint(buf, pos)
+            elif key & 7 == 2:
+                size, pos = varint(buf, pos)
+                value, pos = buf[pos : pos + size], pos + size
+            else:
+                size = {1: 8, 5: 4}[key & 7]
+                value, pos = buf[pos : pos + size], pos + size
+            out.append((key >> 3, value))
+        return out
+
+    data, pos = path.read_bytes(), 0
+    out = {"scalars": {}, "images": {}}
+    while pos < len(data):
+        (length,) = struct.unpack_from("<Q", data, pos)
+        body = data[pos + 12 : pos + 12 + length]
+        crcs = struct.unpack_from("<I", data, pos + 8) + struct.unpack_from("<I", data, pos + 12 + length)
+        if crcs != (masked_crc32c(data[pos : pos + 8]), masked_crc32c(body)):
+            raise AssertionError(f"{path.name}: a record at byte {pos} fails its CRC")
+        pos += 16 + length
+        event = dict(fields(body))
+        if 5 not in event:
+            continue
+        value = dict(fields(dict(fields(event[5]))[1]))
+        tag = value[1].decode()
+        if 2 in value:
+            out["scalars"].setdefault(tag, []).append((event.get(2, 0), struct.unpack("<f", value[2])[0]))
+        if 4 in value:
+            out["images"].setdefault(tag, []).append(event.get(2, 0))
+    return out
+
+
+def render_views(flags, sequence, out: Path) -> list:
+    """The port's test render of (camera, frame) pairs, as the evaluate phase
+    renders its test frames (`Trainer.test` over a TEST loader, the model
+    from `--test.checkpoint`) → their PNG paths."""
+    config = parse_args(flags)
+    device = cli.resolve_device(config.device)
+    data_folder = Path(config.dataset.path) / config.dataset.actor / config.dataset.sequence / f"{config.dataset.scale}x"
+    segment_sizes = cli.compute_segment_sizes(config, data_folder, tuple(config.dataset.frame_numbers))
+    loader = DataLoader(
+        dataset=VolumetricDataset(data_folder), mode=DataLoader.Mode.TEST,
+        space_pruning_mode=DataLoader.SpacePruningMode.OCCUPANCY_GRID, batch_size=config.test.rays_batch_size,
+        camera_numbers=tuple(sorted({c for c, _ in sequence})), frame_numbers=tuple(sorted({f for _, f in sequence})),
+        max_buffer_size=1, render_sequence=list(sequence), seed=config.random_seed, device=device)
+    trainer = Trainer(config=config, workspace=Path(config.workspace), checkpoint=config.test.checkpoint,
+                      model=cli.build_model(config, segment_sizes, device),
+                      pipeline_config=cli.build_pipeline_config(config), optimizer=None,
+                      resolution=loader.resolution, seed=config.random_seed)
+    try:
+        trainer.test(loader, out)
+    finally:
+        loader.shutdown()
+    paths = loader.dataset.filepaths
+    return [out / f"{paths.get_rgb_path(loader.cameras[c].name, f).stem}.png" for c, f in sequence]
+
+
+def trajectory_phase(scene: Path, tmp: Path, device) -> dict:
+    """Phase 8.1 (see the module docstring) → the field_interp launches of
+    the CLI call."""
+    data_dir = scene / "SynthActor" / "Sequence1" / "1x"
+    ws = tmp / "trajectory_workspace"
+    rows = (data_dir / "calibration.csv").read_text().splitlines()
+    csv_path = tmp / "trajectory_cameras.csv"
+    csv_path.write_text("\n".join([rows[0], *(rows[1 + c] for c in TRAJ_CSV_CAMERAS)]) + "\n")
+    flags = r4_flags(scene, ws, 1, 1, device=device.type) + [
+        "--train", "false", "--evaluate", "false", "--test.checkpoint", str(RUN_DIR / "best.ckpt"),
+        "--test.trajectory_via_keycams", *(str(c) for c in TRAJ_KEYCAMS),
+        "--test.trajectory_num_cameras", str(TRAJ_VIEWS), "--test.trajectory_via_calibration_file", str(csv_path)]
+    torch.cuda.synchronize()
+    fli.reset_launches()
+    fi.reset_launches()
+    t0 = time.perf_counter()
+    cli.main(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+
+    results = ws / "results"
+    # Both paths ping-pong their cameras against the 50 frames (`data/trajectory.py::_ping_pong_sequence`).
+    expected = {"test_keycams": max(TRAJ_VIEWS, NUM_FRAMES),
+                "test_calibration_file": max(len(TRAJ_CSV_CAMERAS), NUM_FRAMES)}
+    width = VolumetricDataset(data_dir).cameras[0].width
+    coverages = []
+    for name, count in expected.items():
+        views = sorted(p.name for p in (results / name).glob("*.png"))
+        if views != [f"{i:06d}.png" for i in range(count)]:
+            raise AssertionError(f"{name}: expected {count} frames %06d.png, found {len(views)}: {views[:3]}...")
+        for view in views:
+            img = image_io.imread(results / name / view)
+            coverage = float((img.max(axis=-1) > COVERAGE_LEVEL).mean())
+            if img.shape != (width, width, 3) or not COVERAGE_RANGE[0] <= coverage <= COVERAGE_RANGE[1]:
+                raise AssertionError(f"{name}/{view}: shape {img.shape}, subject coverage {coverage:.4f} "
+                                     f"outside {COVERAGE_RANGE}")
+            coverages.append(coverage)
+    videos = sorted(p.name for p in results.glob("video_*.mp4"))
+    total = sum(expected.values())
+    log(f"trajectory: {total} views ({expected}) through the CLI in {wall:.1f} s wall, {wall / total:.3f} s per view "
+        f"(loaders and checkpoint loads included); field_interp launches {launches}, fused_interp {old_launches}; "
+        f"subject coverage {min(coverages):.4f}–{max(coverages):.4f}; "
+        + (f"ffmpeg wrote {videos}" if videos else "no video (ffmpeg is not installed), the frames are on disk"))
+
+    # The same view through the test render: the calibration file's first
+    # camera at frame 0, and key camera 0 at frame 0 (the keycam path's
+    # first view sits at t = 1e-5 along it, with key camera 4's intrinsics).
+    reference = render_views(flags, [(TRAJ_CSV_CAMERAS[0], 0), (TRAJ_KEYCAMS[0], 0)], tmp / "trajectory_reference")
+    read = lambda path: image_io.imread(path) / 255.0
+    calib_psnr = psnr(read(results / "test_calibration_file" / "000000.png"), read(reference[0]))
+    keycam_psnr = psnr(read(results / "test_keycams" / "000000.png"), read(reference[1]))
+    log(f"trajectory: calibration-file view 0 vs the test render of Cam{TRAJ_CSV_CAMERAS[0] + 1:03d} frame 0: "
+        f"{calib_psnr:.2f} dB (bar {CALIB_VIEW_PSNR_MIN}); keycam view 0 (t = 1e-5) vs key camera "
+        f"{TRAJ_KEYCAMS[0]}'s render at frame 0: {keycam_psnr:.2f} dB (bar {KEYCAM_ENDPOINT_PSNR_MIN})")
+    if not calib_psnr >= CALIB_VIEW_PSNR_MIN:
+        raise AssertionError(f"the calibration-file view is {calib_psnr:.2f} dB from the test render")
+    if not keycam_psnr >= KEYCAM_ENDPOINT_PSNR_MIN:
+        raise AssertionError(f"the keycam path's first view is {keycam_psnr:.2f} dB from key camera 0's render")
+    if not (launches["fwd"] > 0 and launches["bwd"] == 0) or old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"the trajectory phases launched field_interp {launches}, fused_interp {old_launches}")
+    return launches
+
+
+def carve_phase(scene: Path, tmp: Path, device) -> None:
+    """Phase 8.2: the occupancy carve of every frame on the card, on a copy
+    of the scene's masks (its rgb folder linked: the tool lists cameras and
+    frames by their images)."""
+    src = scene / "SynthActor" / "Sequence1"
+    dst = tmp / "carve" / "SynthActor" / "Sequence1"
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("rgbs", "occupancy_grids", "test"))
+    (dst / "1x" / "rgbs").symlink_to(src / "1x" / "rgbs")
+    carve_seconds = []
+    real_carve = occ._carve
+
+    def timed_carve(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        grid = real_carve(*args, **kwargs)  # a host array: the device has finished
+        carve_seconds.append(time.perf_counter() - t)
+        return grid
+
+    t0 = time.perf_counter()
+    with mock.patch.object(occ, "_carve", timed_carve):
+        occ.generate_occupancy_grid_from_masks(dst / "1x", CARVE_RESOLUTION, CARVE_THRESHOLD, device=device)
+    wall = time.perf_counter() - t0
+    if len(carve_seconds) != NUM_FRAMES:
+        raise AssertionError(f"the tool carved {len(carve_seconds)} frames, not {NUM_FRAMES}")
+
+    dataset, original = VolumetricDataset(dst / "1x"), VolumetricDataset(src / "1x")
+    inputs = occ.carve_inputs(dataset)
+    for frame in CARVE_CHECK_FRAMES:
+        cpu = occ.carve_frame(dataset, inputs, frame, CARVE_THRESHOLD, CARVE_RESOLUTION, device="cpu")
+        differ = int((cpu != dataset.get_occupancy_grid(frame)).sum())
+        if differ:
+            raise AssertionError(f"frame {frame}: the card's carve differs from the CPU's in {differ} voxels")
+    coverage, volume_ratio = [], []
+    for frame in range(NUM_FRAMES):
+        sphere, hull = original.get_occupancy_grid(frame) > 0, dataset.get_occupancy_grid(frame) > 0
+        core = sphere & np.roll(sphere, 2, 0) & np.roll(sphere, -2, 0) & np.roll(sphere, 2, 2) & np.roll(sphere, -2, 2)
+        coverage.append((hull & core).sum() / max(core.sum(), 1))
+        volume_ratio.append(hull.mean() / sphere.mean())
+    log(f"carve: {NUM_FRAMES} frames at {CARVE_RESOLUTION}³, {len(inputs.camera_numbers)} cameras, threshold "
+        f"{CARVE_THRESHOLD}: {1e3 * wall / NUM_FRAMES:.1f} ms per frame with the masks' load and dilation, "
+        f"{1e3 * sum(carve_seconds) / NUM_FRAMES:.2f} ms per frame of carve; frames {CARVE_CHECK_FRAMES} equal the "
+        f"CPU's voxel for voxel; core coverage {min(coverage):.4f}–{max(coverage):.4f}, hull / scene grid volume "
+        f"{min(volume_ratio):.3f}–{max(volume_ratio):.3f}")
+    if not min(coverage) >= CARVE_CORE_MIN:
+        raise AssertionError(f"the hull covers {min(coverage):.4f} of a frame's core (< {CARVE_CORE_MIN})")
+
+
+def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
+    """Phase 8.3 (see the module docstring) → the run's field_interp launches."""
+    data_dir = scene / "SynthActor" / "Sequence1" / "1x"
+    dataset = VolumetricDataset(data_dir)
+    annotations = dataset.filepaths.get_light_annotations_path()
+    original = annotations.read_bytes()
+    rows = ["camera,x,y,r"]
+    for cam in BLOOM_CAMERAS:  # a disc on the leftmost subject pixel of the middle row, frame 0
+        mask = dataset.get_mask(cam, 0)[..., 0] > 0.5
+        ys, xs = np.nonzero(mask)
+        row = (int(ys.min()) + int(ys.max())) // 2
+        rows.append(f"{dataset.cameras[cam].name},{int(xs[ys == row].min())},{row},{BLOOM_RADIUS}")
+
+    ws, profile_dir = tmp / "bloom_workspace", tmp / "profile"
+    flags = r4_flags(scene, ws, BLOOM_STEPS, BLOOM_STEPS, device=device.type) + [
+        "--dataset.filter_light_bloom", "true", "--tpu.profile_dir", str(profile_dir)]
+    pixels = {"filtered": 0, "all": 0}
+    window = {}
+    real_light_ok, real_start, real_stop = DataLoader._light_ok, Trace.start, Trace.stop
+
+    def light_ok(self, mask, discs):
+        ok = real_light_ok(self, mask, discs)
+        pixels["filtered"] += int((~ok).sum())
+        pixels["all"] += ok.size
+        return ok
+
+    def start(self):
+        real_start(self)
+        window["start"] = dict(fli.launches)
+
+    def stop(self):
+        window["stop"] = dict(fli.launches)
+        return real_stop(self)
+
+    try:
+        annotations.write_text("\n".join(rows) + "\n")
+        with mock.patch.object(DataLoader, "_light_ok", light_ok), mock.patch.object(Trace, "start", start), \
+                mock.patch.object(Trace, "stop", stop):
+            torch.cuda.synchronize()
+            fli.reset_launches()
+            fi.reset_launches()
+            t0 = time.perf_counter()
+            stats = cli.main(flags)["train"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        annotations.write_bytes(original)
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+
+    share = pixels["filtered"] / max(pixels["all"], 1)
+    (events_file,) = (ws / "run").glob("events.out.tfevents.*")
+    events = read_events(events_file)
+    ((_, supervised),) = [e for e in events["scalars"]["throughput/supervised_rays_per_sec"] if e[0] == 20]
+    log(f"light bloom: {BLOOM_STEPS} CLI steps with discs in {len(BLOOM_CAMERAS)} train cameras in {wall:.1f} s "
+        f"wall (pool load, a profiled window and a validation included); filtered pixels {pixels['filtered']} of "
+        f"{pixels['all']} loaded ({100 * share:.3f}%); {supervised:.0f} supervised rays/s over steps 2–20 (the "
+        f"events' window; phase 6's timed windows: {cli_stats['supervised_rays_per_s']:.0f}); skipped updates "
+        f"{stats['skipped_nonfinite']}; field_interp launches {launches}, fused_interp {old_launches}")
+    if not share > 0:
+        raise AssertionError("the light-bloom filter dropped no pool pixel")
+    if stats["skipped_nonfinite"] != 0:
+        raise AssertionError(f"{stats['skipped_nonfinite']} updates skipped as non-finite")
+
+    tags = set(events["scalars"])
+    log(f"events: {events_file.name}: scalars {sorted(tags)}, images {sorted(events['images'])}")
+    if tags != JAX_SCALAR_TAGS or not events["images"]:
+        raise AssertionError(f"the events hold scalars {sorted(tags)} and images {sorted(events['images'])}, "
+                             f"not the JAX trainer's {sorted(JAX_SCALAR_TAGS)} and its comparison images")
+
+    traces = list(profile_dir.iterdir())
+    if len(traces) != 1:
+        raise AssertionError(f"expected one trace in {profile_dir}, found {traces}")
+    trace_events = json.loads(traces[0].read_text())["traceEvents"]
+    # A step's span is on the host's timeline and, as a GPU annotation, on the device's.
+    steps = sorted({int(e["name"].split()[1]) for e in trace_events if str(e.get("name")).startswith("train_step ")})
+    traced = {d: sum(e.get("cat") == "kernel" and f"field_{d}_kernel" in e.get("name", "") for e in trace_events)
+              for d in ("fwd", "bwd")}
+    in_window = {d: window["stop"][d] - window["start"][d] for d in ("fwd", "bwd")}
+    log(f"profile: {traces[0].name} ({traces[0].stat().st_size / 2**20:.1f} MiB), steps {steps}; field_interp "
+        f"kernels in the trace {traced}, launches counted in its window {in_window}")
+    if steps != list(range(20, 25)):
+        raise AssertionError(f"the trace holds steps {steps}, not 20–24")
+    if not (launches["fwd"] > 0 and launches["bwd"] > 0) or old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"the light-bloom run launched field_interp {launches}, fused_interp {old_launches}")
+    if traced != in_window or not min(traced.values()) > 0:
+        raise AssertionError(f"the trace holds field_interp kernels {traced}; its window launched {in_window}")
+    return launches
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -1133,26 +1473,33 @@ def main() -> int:
         scene = write_r4_scene(device, Path(tmp))
         # Phase 6: the CLI.
         ws = Path(tmp) / "workspace"
-        cli_launches = cli_phase("cli", scene, ws, lambda steps, every: r4_flags(scene, ws, steps, every), CLI_STEPS)
+        cli_launches, cli_stats = cli_phase("cli", scene, ws, lambda steps, every: r4_flags(scene, ws, steps, every),
+                                            CLI_STEPS)
 
         # Phase 7: dense sampling.
         dense_render_launches = dense_render(device, view, model, port_roi)
         dense_step_launches, dense_records = dense_train(device, train_pool)
         dense_ws = Path(tmp) / "dense_workspace"
-        dense_cli_launches = cli_phase(
+        dense_cli_launches, _ = cli_phase(
             "dense cli", scene, dense_ws,
             lambda steps, every: r4_flags(scene, dense_ws, steps, every) + PAPER_DENSE_FLAGS,
             DENSE_CLI_STEPS)
 
+        # Phase 8: the trajectory phases, the occupancy carve, the light-bloom CLI run.
+        trajectory_launches = trajectory_phase(scene, Path(tmp), device)
+        carve_phase(scene, Path(tmp), device)
+        bloom_launches = light_bloom_phase(scene, Path(tmp), device, cli_stats)
+
     by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches,
-                "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches}
+                "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches,
+                "trajectory": trajectory_launches, "light_bloom_cli": bloom_launches}
     records = [
         {
             "name": f"field_interp_{direction}",
             "route": "cuda",
             "source": "humanrf_torch/csrc/field_interp.cu",
             "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
-            "launches": dense_cli_launches[direction],
+            "launches": trajectory_launches[direction] + bloom_launches[direction],
             "launches_by_phase": {phase: counts[direction] for phase, counts in by_phase.items()},
             "library_ms": None,  # no one PyTorch call computes the corners and the lookup
             **new_kernels[direction],

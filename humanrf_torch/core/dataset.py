@@ -38,6 +38,7 @@ class VolumetricDatasetFilepaths:
         "rgb": ("scale", "rgbs/{camera}/{camera}_rgb{frame}.jpg"),
         "mask": ("scale", "masks/{camera}/{camera}_mask{frame}.png"),
         "aabbs": ("sequence", "aabbs.csv"),
+        "metadata": ("sequence", "scene.json"),
         "occupancy_grid": ("sequence", "occupancy_grids/occupancy_grid{frame}.npz"),
     }
 
@@ -57,6 +58,10 @@ class VolumetricDatasetFilepaths:
     @property
     def aabbs_path(self) -> Path:
         return self.path("aabbs")
+
+    @property
+    def metadata_path(self) -> Path:
+        return self.path("metadata")
 
     def get_rgb_path(self, camera_name: str, frame_number: int) -> Path:
         return self.path("rgb", camera=camera_name, frame=frame_number)
@@ -78,6 +83,17 @@ class VolumetricDataset:
         self.aabbs = read_aabbs_csv(self.filepaths.aabbs_path)
         self.crop_offsets = self._crop_cameras() if crop_center_square else None
         self._cname2cnum = {c.name: i for i, c in enumerate(self.cameras)}
+        self._fnum2aabb = {a.frame_number: a for a in self.aabbs}
+
+    def get_available_cameras_and_frames(self) -> Tuple[List[int], List[int]]:
+        """Cameras with a non-empty rgb folder, and the frames of aabbs.csv
+        whose rgb image the first of them has."""
+        cameras = [
+            cn for cn, cam in enumerate(self.cameras)
+            if any(self.filepaths.get_rgb_path(cam.name, 0).parent.glob("*"))
+        ]
+        frames = [fn for fn in self._fnum2aabb if self.filepaths.get_rgb_path(self.cameras[cameras[0]].name, fn).exists()]
+        return cameras, frames
 
     def get_scaled_cameras(self, scene_offset: np.ndarray, scene_scale: float) -> List[CameraData]:
         """Translate + scale camera positions into the canonical cube frame."""
@@ -86,10 +102,17 @@ class VolumetricDataset:
             cam.translation = (cam.translation + scene_offset) * scene_scale
         return cameras
 
-    def get_aabb(self) -> np.ndarray:
-        """Union AABB over all frames."""
-        all_aabbs = np.stack([a.aabb for a in self.aabbs], axis=0)
+    def get_aabb(self, frame_numbers: Optional[List[int]] = None) -> np.ndarray:
+        """Union AABB over the given frames (or all frames)."""
+        aabbs = self.aabbs if frame_numbers is None else [self._fnum2aabb[i] for i in frame_numbers]
+        all_aabbs = np.stack([a.aabb for a in aabbs], axis=0)
         return np.stack((all_aabbs[:, 0].min(0), all_aabbs[:, 1].max(0)), axis=0)
+
+    def get_scene_normalization(self) -> Tuple[np.ndarray, float]:
+        """(scene_offset, scene_scale) that map the union AABB into [-0.5, 0.5]
+        on its longest axis, as the loader normalizes the scene."""
+        aabb = self.get_aabb()
+        return -aabb.mean(0), float(1.0 / np.max(aabb[1] - aabb[0]))
 
     def get_occupancy_grid(self, frame_number: int) -> np.ndarray:
         return np.load(self.filepaths.get_occupancy_grid_path(frame_number))["occupancy_grid"]
@@ -105,10 +128,11 @@ class VolumetricDataset:
         rgb = image_io.imread(self.filepaths.get_rgb_path(self.cameras[camera_number].name, frame_number))
         return self._crop(camera_number, rgb / np.float32(255))
 
-    def get_mask(self, camera_number: int, frame_number: int) -> np.ndarray:
-        """(H, W, 1): the mask image's first channel, float32 in [0, 1]."""
+    def get_mask(self, camera_number: int, frame_number: int, normalize: bool = True) -> np.ndarray:
+        """(H, W, 1): the mask image's first channel, float32 in [0, 1]
+        (uint8 without `normalize`)."""
         mask = image_io.imread(self.filepaths.get_mask_path(self.cameras[camera_number].name, frame_number))[..., 0:1]
-        return self._crop(camera_number, mask / np.float32(255))
+        return self._crop(camera_number, mask / np.float32(255) if normalize else mask)
 
     def get_light_annotations(self) -> Dict[int, List[Tuple[int, int, int]]]:
         with open(self.filepaths.get_light_annotations_path()) as f:

@@ -12,7 +12,8 @@ torch, numpy and scipy only, so it carries its own codec with cv2's results:
 - `imwrite(path, img, quality=95)` → the format by suffix, as
   `cv2.imwrite(path, img, [IMWRITE_JPEG_QUALITY, quality])`: a JPEG is what
   cv2 writes (JFIF, libjpeg's tables and quality scaling, 4:2:0, islow
-  DCT); a PNG is 8-bit gray or RGB (from BGR), non-interlaced.
+  DCT); a PNG is 8-bit gray, RGB (from BGR) or RGBA (from BGRA),
+  non-interlaced.
 
 The C library (`csrc/jpeg_codec.c`) is built with the system C compiler into
 `humanrf_torch/build/` at first use (`ops/cuda_build.py`); if it cannot be
@@ -138,8 +139,8 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 def encode_png(img: np.ndarray, compression: int = 1) -> bytes:
-    """(H, W) or (H, W, 1) gray, or (H, W, 3) BGR uint8 → PNG bytes (filter
-    None, zlib at `compression`)."""
+    """(H, W) or (H, W, 1) gray, (H, W, 3) BGR or (H, W, 4) BGRA uint8 → PNG
+    bytes (filter None, zlib at `compression`)."""
     img = np.asarray(img, dtype=np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
@@ -147,8 +148,10 @@ def encode_png(img: np.ndarray, compression: int = 1) -> bytes:
         color = 0
     elif img.ndim == 3 and img.shape[2] == 3:
         img, color = img[..., ::-1], 2  # BGR → RGB
+    elif img.ndim == 3 and img.shape[2] == 4:
+        img, color = img[..., [2, 1, 0, 3]], 6  # BGRA → RGBA
     else:
-        raise ValueError(f"PNG needs a gray or 3-channel image, got shape {img.shape}")
+        raise ValueError(f"PNG needs a gray, 3- or 4-channel image, got shape {img.shape}")
     height, width = img.shape[:2]
     rows = np.ascontiguousarray(img).reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1).tobytes()
@@ -185,7 +188,7 @@ def imread(path) -> np.ndarray:
 
 def imwrite(path, img: np.ndarray, quality: int = 95) -> None:
     """`cv2.imwrite(path, img, [IMWRITE_JPEG_QUALITY, quality])` for .jpg/.jpeg
-    and .png paths; `img` is BGR or gray uint8."""
+    and .png paths; `img` is BGR, BGRA (PNG only) or gray uint8."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix in (".jpg", ".jpeg"):

@@ -11,6 +11,14 @@ the same batches:
 - TRAINING draws `batch_size` uniform (entry, pixel) pairs per batch from
   `np.random.default_rng(seed)` and gathers their rgba with numpy fancy
   indexing (·(1/255) in float32, the JAX package's `native.gather`);
+- `filter_light_bloom` drops the pixels of the subject's border (the mask
+  minus its erosion by a square of side round(80/4088 · width)) that lie in
+  a filled disc of `light_annotations.csv`: a per-entry `light_ok` beside
+  the pool's rgba, gathered into `HostBatch.ray_light_ok` for TRAINING and
+  VALIDATION batches (all True otherwise). The erosion and the discs are
+  OpenCV's bit for bit (`core/morphology.py`). With `crop_center_square`
+  the annotations are shifted by the crop offsets and applied to the
+  cropped mask, as in the JAX package;
   `deterministic` replaces one entry synchronously per batch instead of
   running the thread;
 - VALIDATION and TEST stream whole images of a render sequence in pixel
@@ -37,6 +45,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from humanrf_torch.core import morphology
 from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.ops.occupancy import dilate_grid
 from humanrf_torch.train.pipeline import HostBatch, PoolArrays
@@ -114,10 +123,6 @@ class DataLoader:
         self.filter_light_bloom = _check_and_get_arg(
             filter_light_bloom, "filter_light_bloom", [M.TRAINING, M.VALIDATION], False
         )
-        if self.filter_light_bloom:
-            raise NotImplementedError(
-                "--dataset.filter_light_bloom is not ported yet (ROADMAP.md, Queue 1: filter_light_bloom)"
-            )
         self.render_sequence = _check_and_get_arg(render_sequence, "render_sequence", [M.VALIDATION, M.TEST], None)
 
         if self.mode == M.TRAINING:
@@ -157,6 +162,11 @@ class DataLoader:
         height = min(unique_resolutions[0][0], unique_resolutions[0][1])
         self.resolution = (width, height)
 
+        self.light_annotations = None
+        if self.filter_light_bloom:
+            self.light_annotations = self.dataset.get_light_annotations()
+            self.light_annotations_border_size = round((80 / 4088) * width)
+
         # Pool sizing.
         self.buffer_size = min(max_buffer_size, self.num_camera_frame_pairs)
         if self.mode == M.TRAINING:
@@ -169,6 +179,7 @@ class DataLoader:
 
         B = self.buffer_size
         self.pixel_rgba = np.zeros((B, self.num_pixels_per_camera, 4), dtype=np.uint8)
+        self.light_ok = np.ones((B, self.num_pixels_per_camera), dtype=bool)
         self.entry_frame_numbers = np.full((B,), -1, dtype=np.int32)
         self.entry_camera_numbers = np.full((B,), -1, dtype=np.int32)
         self.entry_landscape = np.zeros((B,), dtype=bool)
@@ -367,7 +378,7 @@ class DataLoader:
         if self._shutdown.is_set():
             return
 
-        rgba = None
+        rgba = light_ok = None
         if self.mode != DataLoader.Mode.TEST:
             rgb = self.dataset.get_rgb(camera_number, frame_number)[..., [2, 1, 0]]  # BGR → RGB
             if self.use_mask:
@@ -376,6 +387,8 @@ class DataLoader:
             else:
                 mask = np.ones_like(rgb[..., 0:1])
             rgba = (np.concatenate((rgb, mask), axis=-1) * np.float32(255)).astype(np.uint8).reshape(-1, 4)
+            if self.light_annotations is not None:
+                light_ok = self._light_ok(mask[..., 0], self.light_annotations[camera_number])
 
         if self.run_replacer_thread and self.mode != DataLoader.Mode.TRAINING:
             self.empty_slots_sem.acquire()
@@ -390,6 +403,7 @@ class DataLoader:
                 grid_slot = self._queue_grid_slot(buffer_index, frame_number)
             if self.mode != DataLoader.Mode.TEST:
                 self.pixel_rgba[buffer_index] = rgba
+                self.light_ok[buffer_index] = True if light_ok is None else light_ok
             self.entry_frame_numbers[buffer_index] = frame_number
             self.entry_camera_numbers[buffer_index] = camera_number
             self.entry_landscape[buffer_index] = camera.width > camera.height
@@ -404,6 +418,14 @@ class DataLoader:
         if self.run_replacer_thread and self.mode != DataLoader.Mode.TRAINING:
             for _ in range(self.num_batches_per_full_image):
                 self.available_slots_sem.release()
+
+    def _light_ok(self, mask: np.ndarray, discs) -> np.ndarray:
+        """(H·W,) bool: False where the subject's border meets a disc (x, y, r)."""
+        person_border = mask - morphology.erode(mask, self.light_annotations_border_size)
+        light_mask = np.zeros(mask.shape, dtype=np.uint8)
+        for x, y, r in discs:
+            morphology.fill_circle(light_mask, (x, y), r, 255)
+        return ~((person_border > 0) & (light_mask > 0)).reshape(-1)
 
     # -------------------------------------------------------------- sampling
 
@@ -463,6 +485,7 @@ class DataLoader:
             with self.data_lock:
                 self._resolve_pending_grids()
                 rgba = self.pixel_rgba[buffer_idx, pixel_idx].astype(np.float32) * _INV_255
+                light_ok = self._gather_light_ok(buffer_idx, pixel_idx)
                 pool = self.pool_arrays()
                 grids = self.device_grids
             info = BatchInfo(num_real=R, width=width, height=height)
@@ -488,6 +511,7 @@ class DataLoader:
                     rgba = self.pixel_rgba[buffer_idx, pixel_idx].astype(np.float32) / 255.0
                 else:
                     rgba = np.zeros((R, 4), dtype=np.float32)
+                light_ok = self._gather_light_ok(buffer_idx, pixel_idx)
                 pool = self.pool_arrays()
                 grids = self.device_grids
             if self.run_replacer_thread and ray_end == self.num_pixels_per_camera:
@@ -499,6 +523,11 @@ class DataLoader:
             buffer_idx=torch.from_numpy(buffer_idx).to(self.device),
             pixel_idx=torch.from_numpy(pixel_idx).to(self.device),
             rgba=torch.from_numpy(rgba).to(self.device),
-            ray_light_ok=torch.ones(R, dtype=torch.bool, device=self.device),
+            ray_light_ok=torch.from_numpy(light_ok).to(self.device),
         )
         return batch, pool, grids, info
+
+    def _gather_light_ok(self, buffer_idx: np.ndarray, pixel_idx: np.ndarray) -> np.ndarray:
+        if self.filter_light_bloom:
+            return self.light_ok[buffer_idx, pixel_idx]
+        return np.ones(buffer_idx.shape[0], dtype=bool)

@@ -1,4 +1,5 @@
-"""CLI entry point: the train and evaluate phases on one GPU (or the CPU).
+"""CLI entry point: the train, trajectory and evaluate phases on one GPU (or
+the CPU).
 
 Counterpart of `humanrf_tpu/run.py`, with the same flags: `configs/args.py`
 and `configs/example_*.py` are the port's copies of the JAX package's, held
@@ -6,8 +7,11 @@ equal by `tests/test_torch_configs.py`, so the two CLIs take the same command
 lines. The workspace has the JAX
 package's layout: `config.yaml`, `derived_split.json`,
 `checkpoints/step_%08d.ckpt` and `best.ckpt`, `validation.txt`,
-`validation/*.png`, `results/test_frames/*.png`, `results/metrics.csv` and
-`results/averages.csv` (no TensorBoard `run/`).
+`validation/*.png`, TensorBoard events under `run/`, the trajectory
+phases' `results/test_keycams/%06d.png` and
+`results/test_calibration_file/%06d.png` (with `results/video_*.mp4` where
+ffmpeg exists), `results/test_frames/*.png`, `results/metrics.csv` and
+`results/averages.csv`; `--tpu.profile_dir` adds a trace of steps 20–24.
 
 `--device tpu` (the flag's default: the accelerator) and `--device cuda` run
 on `cuda:0` and raise without a GPU; `--device cpu` runs on the CPU, where
@@ -32,6 +36,10 @@ import humanrf_torch.evaluation.presets as presets
 from humanrf_torch.configs.args import parse_args, warn_pipeline_knobs
 from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.data.loader import DataLoader
+from humanrf_torch.data.trajectory import (
+    get_trajectory_dataloader_from_calibration,
+    get_trajectory_dataloader_from_keycams,
+)
 from humanrf_torch.evaluation.evaluate import evaluate
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
 from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
@@ -55,13 +63,8 @@ def check_ported(config) -> None:
     """Raise for a flag whose feature the port does not have yet; print one
     line for the flags whose choice the port's single path makes moot."""
     unported = [
-        (config.dataset.filter_light_bloom, "--dataset.filter_light_bloom true", "filter_light_bloom"),
         (config.tpu.num_devices != 1, f"--tpu.num_devices {config.tpu.num_devices}", "multi-GPU"),
         (config.tpu.param_sharding == "fsdp", "--tpu.param_sharding fsdp", "multi-GPU"),
-        (config.test.trajectory_via_keycams is not None, "--test.trajectory_via_keycams", "the trajectory phases"),
-        (config.test.trajectory_via_calibration_file is not None, "--test.trajectory_via_calibration_file",
-         "the trajectory phases"),
-        (config.tpu.profile_dir is not None, "--tpu.profile_dir", "--tpu.profile_dir"),
     ]
     for active, flag, item in unported:
         if active:
@@ -91,6 +94,31 @@ def build_pipeline_config(config) -> PipelineConfig:
         proposal_loss_weight=config.tpu.proposal_loss_weight,
         proposal_uniform_bonus=config.tpu.proposal_uniform_bonus,
         candidate_rays_factor=config.tpu.candidate_rays_factor,
+    )
+
+
+def build_model(config, segment_sizes, device) -> HumanRFModel:
+    """The HumanRF model the flags describe, over `segment_sizes`."""
+    return HumanRFModel(
+        HumanRFConfig(
+            sorted_frame_numbers=tuple(sorted(config.dataset.frame_numbers)),
+            segment_sizes=tuple(segment_sizes),
+            density_scale=config.model.density_scale,
+            n_features_per_level=config.model.n_features_per_level,
+            log2_hashmap_size=config.model.log2_hashmap_size,
+            n_levels=config.model.n_levels,
+            coarsest_resolution=config.model.coarsest_resolution,
+            finest_resolution=config.model.finest_resolution,
+            geometry_feature_dim=config.model.geometry_feature_dim,
+            n_neurons=config.model.n_neurons,
+            n_hidden_layers_density=config.model.n_hidden_layers_density,
+            n_hidden_layers_color=config.model.n_hidden_layers_color,
+            sh_degree=config.model.sh_degree,
+            camera_embedding_dim=config.model.camera_embedding_dim,
+            proposal_rank=config.tpu.proposal_rank if config.tpu.sampling == "proposal" else 0,
+            proposal_resolution=config.tpu.proposal_resolution,
+        ),
+        device=device,
     )
 
 
@@ -199,27 +227,7 @@ def main(argv=None) -> dict:
     segment_sizes = compute_segment_sizes(config, data_folder, frame_numbers)
     print(f"[INFO] segment sizes: {segment_sizes}")
 
-    model = HumanRFModel(
-        HumanRFConfig(
-            sorted_frame_numbers=tuple(sorted(frame_numbers)),
-            segment_sizes=tuple(segment_sizes),
-            density_scale=config.model.density_scale,
-            n_features_per_level=config.model.n_features_per_level,
-            log2_hashmap_size=config.model.log2_hashmap_size,
-            n_levels=config.model.n_levels,
-            coarsest_resolution=config.model.coarsest_resolution,
-            finest_resolution=config.model.finest_resolution,
-            geometry_feature_dim=config.model.geometry_feature_dim,
-            n_neurons=config.model.n_neurons,
-            n_hidden_layers_density=config.model.n_hidden_layers_density,
-            n_hidden_layers_color=config.model.n_hidden_layers_color,
-            sh_degree=config.model.sh_degree,
-            camera_embedding_dim=config.model.camera_embedding_dim,
-            proposal_rank=config.tpu.proposal_rank if config.tpu.sampling == "proposal" else 0,
-            proposal_resolution=config.tpu.proposal_resolution,
-        ),
-        device=device,
-    )
+    model = build_model(config, segment_sizes, device)
     pcfg = build_pipeline_config(config)
 
     camera_configs = presets.camera_configs
@@ -306,8 +314,36 @@ def main(argv=None) -> dict:
             validation_data_loader.shutdown()
         result["train"] = trainer.run_stats
 
+    results_folder = workspace / "results"
+    trajectory_loaders = []
+    if config.test.trajectory_via_keycams is not None:
+        trajectory_loaders.append(("test_keycams", lambda: get_trajectory_dataloader_from_keycams(
+            trajectory=config.test.trajectory_via_keycams, base_data_folder=data_folder,
+            space_pruning_mode=DataLoader.SpacePruningMode.OCCUPANCY_GRID, batch_size=config.test.rays_batch_size,
+            frame_numbers=frame_numbers, trajectory_num_cameras=config.test.trajectory_num_cameras, device=device)))
+    if config.test.trajectory_via_calibration_file is not None:
+        trajectory_loaders.append(("test_calibration_file", lambda: get_trajectory_dataloader_from_calibration(
+            calibration_path=config.test.trajectory_via_calibration_file, base_data_folder=data_folder,
+            space_pruning_mode=DataLoader.SpacePruningMode.OCCUPANCY_GRID, batch_size=config.test.rays_batch_size,
+            frame_numbers=frame_numbers, device=device)))
+    for name, make_loader in trajectory_loaders:
+        loader = make_loader()
+        trainer = Trainer(
+            config=config,
+            workspace=workspace,
+            checkpoint=config.test.checkpoint,
+            model=model,
+            pipeline_config=pcfg,
+            optimizer=None,
+            resolution=loader.resolution,
+            seed=config.random_seed,
+        )
+        try:
+            trainer.test(loader, results_folder / name, render_video=True)
+        finally:
+            loader.shutdown()
+
     if config.evaluate:
-        results_folder = workspace / "results"
         eval_frame_numbers = frame_numbers
         if config.evaluation.frame_numbers is not None:
             eval_frame_numbers = tuple(config.evaluation.frame_numbers)

@@ -7,21 +7,26 @@ Counterpart of `humanrf_tpu/train/trainer.py`:
   small class in plain torch ops;
 - `Trainer`: the train loop (step keys split from PRNGKey(seed + 1), the
   loss/throughput bookkeeping every 20 and 500 steps, the replacer paused
-  around saves and validation), `validate` (validation.txt and the
-  validation images), `test` (the test frames), and the rolling, best and
-  resumed checkpoints in the JAX package's format;
+  around saves and validation, TensorBoard events under `run/` with the
+  JAX package's tags, a `torch.profiler` trace of steps 20–24 with
+  `--tpu.profile_dir`), `validate` (validation.txt and the validation
+  images), `test` (the test frames, or numbered frames and an ffmpeg video),
+  and the rolling, best and resumed checkpoints in the JAX package's
+  format;
 - `sample_batch`: a training batch drawn from a baked pool of images by an
   explicit `torch.Generator` (the loader's TRAINING draw, without the loader);
 - `render_pipeline_config`: the pipeline settings of a render batch, the
   dense budgets scaled to its size (the JAX `Trainer._get_render_fn`);
 - `render_image`: the batched pixel loop of `Trainer.test` over one image.
 
-Not ported: TensorBoard events (the trainer says so once), the K-step
-dispatch scan and the HBM preflight (the port keeps K = 1's semantics).
+Not ported: the K-step dispatch scan and the HBM preflight (the port keeps
+K = 1's semantics).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
@@ -35,7 +40,9 @@ from humanrf_torch.evaluation.metrics import LpipsModel, bounding_rect, compute_
 from humanrf_torch.models.humanrf import HumanRFModel
 from humanrf_torch.train.checkpoint import CHECKPOINT_SUFFIX, load_checkpoint, resolve_checkpoint, save_checkpoint
 from humanrf_torch.train.pipeline import HostBatch, PipelineConfig, PoolArrays, make_render_fn, make_train_step
+from humanrf_torch.utils.profiling import Trace
 from humanrf_torch.utils.rngs import make_key, split
+from humanrf_torch.utils.summary import SummaryWriter
 
 MAX_NUM_CHECKPOINTS = 2  # rolling step checkpoints kept beside best.ckpt
 
@@ -264,6 +271,7 @@ class Trainer:
         # Throughput of the train loop over its 20-step windows after step 20
         # (pauses for validation and saves excluded): see `train`.
         self.run_stats: Dict[str, float] = {}
+        self.writer: Optional[SummaryWriter] = None
 
         self.checkpoints_dir = self.workspace / "checkpoints"
         self.checkpoints_dir.mkdir(parents=True, exist_ok=True)
@@ -289,9 +297,8 @@ class Trainer:
     # ------------------------------------------------------------------ train
 
     def train(self, training_data_loader, validation_data_loader, max_steps: int) -> None:
-        self._log_info("TensorBoard events are not written (ROADMAP.md Queue 1: the TensorBoard event writer); "
-                       "the step-500 lines and validation.txt carry the numbers")
         self._log_info("no HBM preflight: it is a TPU workaround the port does not carry")
+        self.writer = SummaryWriter(self.workspace / "run")
         loss_ema = 0.0
         aabb = training_data_loader.device_aabb
         loader_iter = iter(training_data_loader)
@@ -307,14 +314,28 @@ class Trainer:
         fetch_accum = 0.0  # host batch assembly (loader fetch under data_lock)
         pause_accum = 0.0  # validation and checkpoint pauses
         totals = {"steps": 0, "seconds": 0.0, "fetch_seconds": 0.0, "wall_seconds": 0.0, "supervised": 0}
+        # --tpu.profile_dir: one trace per run, of the five steps from the
+        # first step >= 20 (the JAX trainer's window at K = 1).
+        profile_dir = self.config.tpu.profile_dir
+        tracer, trace_stop_at = None, 0
 
         while self.step < max_steps + 1:
             self.step += 1
+            if profile_dir is not None:
+                if tracer is None and 20 <= self.step < 27:
+                    tracer = Trace(profile_dir, cuda=aabb.device.type == "cuda")
+                    tracer.start()
+                    trace_stop_at = self.step + 5
+                elif tracer is not None and self.step >= trace_stop_at:
+                    self._log_info(f"profiler trace written to {tracer.stop()}")
+                    tracer, profile_dir = None, None
             self.rng, step_rng = split(self.rng)
-            t_fetch = time.perf_counter()
-            batch, pool, grids, _ = next(loader_iter)
-            fetch_accum += time.perf_counter() - t_fetch
-            loss, aux = self.train_step_fn(batch, pool, grids, aabb, step_rng)
+            span = torch.profiler.record_function(f"train_step {self.step}") if tracer else contextlib.nullcontext()
+            with span:
+                t_fetch = time.perf_counter()
+                batch, pool, grids, _ = next(loader_iter)
+                fetch_accum += time.perf_counter() - t_fetch
+                loss, aux = self.train_step_fn(batch, pool, grids, aabb, step_rng)
             supervised_accum += aux["num_rays_supervised"]
 
             if self.step % 20 == 0 or self.step <= 1:
@@ -324,6 +345,17 @@ class Trainer:
                 train_elapsed = max(elapsed - pause_accum, 1e-9)
                 steps = self.step - last_log
                 supervised = int(supervised_accum)
+                self.writer.add_scalar("photometric/training", float(aux["photometric"]), self.step)
+                self.writer.add_scalar("psnr/training", -10 * np.log10(max(float(aux["mse"]), 1e-12)), self.step)
+                if "mask_loss" in aux:
+                    self.writer.add_scalar("mask_loss/training", float(aux["mask_loss"]), self.step)
+                if elapsed > 0:
+                    rays = self.pcfg.num_rays * steps
+                    self.writer.add_scalar("throughput/rays_per_sec", rays / train_elapsed, self.step)
+                    self.writer.add_scalar("throughput/rays_per_sec_wall", rays / elapsed, self.step)
+                    self.writer.add_scalar("throughput/supervised_rays_per_sec", supervised / train_elapsed, self.step)
+                    self.writer.add_scalar("throughput/steps_per_sec", steps / train_elapsed, self.step)
+                    self.writer.add_scalar("throughput/host_fetch_fraction", fetch_accum / elapsed, self.step)
                 if last_log >= 20:
                     totals["steps"] += steps
                     totals["seconds"] += train_elapsed
@@ -341,6 +373,9 @@ class Trainer:
                         + (f" val/ckpt {pause_accum:.0f}s" if pause_accum > 0 else "")
                         + f"] skipped_nonfinite={int(self.optimizer.skipped)}"
                     )
+                    if int(self.optimizer.skipped) > 0:
+                        self.writer.add_scalar("stability/skipped_nonfinite_updates", int(self.optimizer.skipped),
+                                               self.step)
                 supervised_accum.zero_()
                 window_start = time.time()
                 last_log = self.step
@@ -357,6 +392,11 @@ class Trainer:
                     self.save(best=True)
                 training_data_loader.continue_replacing()
                 pause_accum += time.perf_counter() - t_pause
+
+        if tracer is not None:
+            self._log_info(f"profiler trace written to {tracer.stop()}")
+        self.writer.close()
+        self.writer = None
 
         # Pool images the loader replaced per step: how fast the data cycles.
         replaced = (training_data_loader.pair_load_index - start_pairs) / max(self.step - start_step, 1)
@@ -424,6 +464,8 @@ class Trainer:
             image_io.imwrite(path_validation / f"{tag}_rgb.png", _to_u8(colors, info.width, info.height)[..., ::-1])
             comp = (np.clip(comparison, 0, 1) * 255).astype(np.uint8)
             image_io.imwrite(path_validation / f"{tag}_comparison.png", comp[..., ::-1])
+            if self.writer is not None:
+                self.writer.add_image(f"comp_{val_img_step:04d}", comp, self.step)
             desc = " ".join(f"{k}={v:.4f}" for k, v in losses_info.items() if k not in ("mask_loss", "photometric"))
             with open(log_path, "a") as f:
                 f.write(f"image_id: {val_img_step} --- {desc}\n")
@@ -433,6 +475,9 @@ class Trainer:
         self.stats["lpips_vals"].append(total_loss.get("lpips", float("inf")))
         self.stats["psnr_vals"].append(total_loss.get("psnr", 0.0))
         self.stats["ssim_vals"].append(total_loss.get("ssim", 0.0))
+        if self.writer is not None:
+            for k, v in total_loss.items():
+                self.writer.add_scalar(f"{k}/validation", v, self.step)
         self._log_info("validation: " + " ".join(f"{k}={v:.4f}" for k, v in total_loss.items()))
         self.val_step += 1
 
@@ -456,16 +501,36 @@ class Trainer:
 
     # ------------------------------------------------------------------- test
 
-    def test(self, data_loader, save_path: Path) -> None:
+    def test(self, data_loader, save_path: Path, render_video: bool = False) -> None:
         """Render the loader's render sequence into `save_path`, one PNG per
-        image named after its ground-truth file."""
+        image named after its ground-truth file; with `render_video`, named
+        %06d.png in order and encoded by ffmpeg into
+        `video_<save_path.stem>.mp4` beside `save_path` (when ffmpeg is
+        missing, a warning, and the frames stay on disk)."""
         self._log_info(f"===== Test → {save_path} =====")
         save_path = Path(save_path)
         save_path.mkdir(exist_ok=True, parents=True)
         for test_img_step, (colors, _, info) in enumerate(self._render_images(data_loader)):
-            camera_number, frame_number = data_loader.render_sequence[test_img_step]
-            filename = data_loader.dataset.filepaths.get_rgb_path(data_loader.cameras[camera_number].name, frame_number).stem
+            if render_video:
+                filename = f"{test_img_step:06d}"
+            else:
+                camera_number, frame_number = data_loader.render_sequence[test_img_step]
+                camera_name = data_loader.cameras[camera_number].name
+                filename = data_loader.dataset.filepaths.get_rgb_path(camera_name, frame_number).stem
             image_io.imwrite(save_path / f"{filename}.png", _to_u8(colors, info.width, info.height)[..., ::-1])
+        if render_video:
+            try:
+                subprocess.run(
+                    ["ffmpeg", "-r", "25", "-i", str(save_path / "%06d.png"),
+                     "-filter_complex", "pad=ceil(iw/2)*2:ceil(ih/2)*2",
+                     "-loglevel", "error", "-c:v", "libx264", "-crf", "14",
+                     "-profile:v", "baseline", "-level", "3.0",
+                     "-pix_fmt", "yuv420p", "-movflags", "faststart", "-y",
+                     str(save_path.parent / f"video_{save_path.stem}.mp4")],
+                    check=False,
+                )
+            except FileNotFoundError:
+                self._log_warning("ffmpeg not found; skipping video encode (frames are on disk)")
 
     # ------------------------------------------------------------- checkpoint
 

@@ -1,7 +1,10 @@
 """The port imports none of JAX, flax, OpenCV, PyYAML or msgpack, and nothing
 of the JAX package: it needs only numpy, scipy and torch, and keeps its own
 copies of the JAX package's framework-free flag parser, configs and camera
-presets (held equal by `test_torch_configs.py`)."""
+presets (held equal by `test_torch_configs.py`). The Blender exporter runs
+inside Blender only (it exits when `bpy` is missing), so its imports are
+read from its source."""
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -11,6 +14,13 @@ import humanrf_torch
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "cv2", "yaml", "msgpack", "humanrf_tpu")
+BLENDER_ONLY = "humanrf_torch.toolbox.export_blender"
+NEW_MODULES = {
+    "humanrf_torch.data.trajectory", "humanrf_torch.data.download_manager", "humanrf_torch.core.morphology",
+    "humanrf_torch.utils.summary", "humanrf_torch.utils.profiling", "humanrf_torch.toolbox.import_dfa",
+    "humanrf_torch.toolbox.generate_occupancy_grids_from_masks", "humanrf_torch.toolbox.export_colmap",
+    "humanrf_torch.toolbox.export_ngp", "humanrf_torch.toolbox.write_alembic", BLENDER_ONLY,
+}
 
 
 def _modules():
@@ -37,8 +47,22 @@ def test_every_module_imports_without_forbidden_packages():
     assert {"humanrf_torch.ops.fused_interp", "humanrf_torch.ops.field_interp", "humanrf_torch.ops.sampling",
             "humanrf_torch.train.trainer",
             "humanrf_torch.convert", "humanrf_torch.run", "humanrf_torch.data.loader", "humanrf_torch.configs.args"} <= set(modules)
-    result = _run(["import importlib", *(f"importlib.import_module({m!r})" for m in modules)])
-    assert result.returncode == 0, result.stderr
+    assert NEW_MODULES <= set(modules)
+    importable = [m for m in modules if m != BLENDER_ONLY]
+    result = _run(["import importlib", *(f"importlib.import_module({m!r})" for m in importable), "print('all imported')"])
+    assert result.returncode == 0 and result.stdout.strip().endswith("all imported"), result.stderr
+
+
+def test_the_blender_exporter_imports_only_blender_the_stdlib_numpy_and_the_ports_camera():
+    tree = ast.parse((REPO / "humanrf_torch" / "toolbox" / "export_blender.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {alias.name for alias in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module)
+    assert imported == {"bpy", "sys", "argparse", "math", "os", "pathlib", "numpy", "bpy_extras.image_utils",
+                        "mathutils", "humanrf_torch.core.camera"}
 
 
 def test_the_cli_parses_its_configs_without_forbidden_packages():

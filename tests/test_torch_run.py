@@ -8,10 +8,12 @@ flags. Both train with validation, save, render the test frame and evaluate.
 - The validation PSNRs after VAL_STEPS steps are within 0.5 dB. Past the
   first step the runs part by fp32 rounding (summation order, bf16 ties in
   the MLP), so this is a bound on training, not on arithmetic.
-- The workspaces hold the same files apart from TensorBoard's `run/`, and
-  `config.yaml` reads back equal (PyYAML `safe_load`).
+- The workspaces hold the same files apart from TensorBoard's `run/` (one
+  events file each, named by time and host), and `config.yaml` reads back
+  equal (PyYAML `safe_load`).
 - `--training.checkpoint latest` resumes the port's run from its last save.
-- Each flag whose feature is not ported raises.
+- Only the multi-GPU flags raise; the trajectory, light-bloom and profiler
+  flags, and `--config example_humanrf`'s, pass `check_ported`.
 """
 import functools
 from pathlib import Path
@@ -128,6 +130,9 @@ def test_workspace_layout_matches_jax(runs):
     assert "checkpoints/best.ckpt" in jax_files and "results/averages.csv" in jax_files
     # The port's resume added no step checkpoint (no save point past 60).
     assert files(runs["root"] / "torch") == jax_files
+    jax_events = list((runs["root"] / "jax" / "run").glob("events.out.tfevents.*"))
+    torch_events = list((runs["root"] / "torch" / "run").glob("events.out.tfevents.*"))
+    assert len(jax_events) == 1 and len(torch_events) in (1, 2)  # the resume writes its own file
 
 
 def test_config_yaml_reads_back_as_the_jax_one(runs):
@@ -158,15 +163,28 @@ def test_yaml_emitter_round_trips_every_scalar_kind():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dataset.filter_light_bloom", "true"],
     ["--tpu.num_devices", "2"],
     ["--tpu.param_sharding", "fsdp"],
-    ["--test.trajectory_via_keycams", "0", "1"],
-    ["--test.trajectory_via_calibration_file", "calibration.csv"],
-    ["--tpu.profile_dir", "profile"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
     base = ["--config", "example_synthetic", "--device", "cpu", "--workspace", str(tmp_path / "ws")]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_main([*base, *flags])
     assert not (tmp_path / "ws").exists()
+
+
+_SYNTHETIC = ["--config", "example_synthetic", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("argv", [
+    [*_SYNTHETIC, "--dataset.filter_light_bloom", "true"],
+    [*_SYNTHETIC, "--test.trajectory_via_keycams", "0", "1"],
+    [*_SYNTHETIC, "--test.trajectory_via_calibration_file", "calibration.csv"],
+    [*_SYNTHETIC, "--tpu.profile_dir", "profile"],
+    ["--config", "example_humanrf"],
+])
+def test_ported_flags_pass_check_ported(argv):
+    from humanrf_torch.configs.args import parse_args
+    from humanrf_torch.run import check_ported
+
+    check_ported(parse_args(argv))
