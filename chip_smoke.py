@@ -22,7 +22,9 @@ compute the field's corners from the sample coordinates themselves:
   with the paper's field and sampler on the r4 scene;
 - the CLI's trajectory phases with best.ckpt, the occupancy carve of the
   toolbox, and a CLI training run with the light-bloom filter, the
-  profiler and the TensorBoard events.
+  profiler and the TensorBoard events;
+- multi-GPU training (`humanrf_torch/parallel`): the data-parallel and
+  FSDP steps on spawned ranks, and the CLI with `--tpu.num_devices 2`.
 
 The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
 math ("the old path"), is off the main path; phases 3-5 time it beside the
@@ -112,11 +114,51 @@ Phases, each of which raises on failure:
    update, supervised rays/s beside phase 6's; the events file read back
    with every record's CRC, holding JAX_SCALAR_TAGS and the comparison
    images; one trace, of steps 20–24, whose `field_interp` kernels equal the
-   launches counted in its window.
+   launches counted in its window;
+9. multi-GPU training, every rank a spawned process (`parallel/launch.py`)
+   running `parallel/harness.py::run_steps` on inputs saved to a file. The
+   card is one, and NCCL refuses two ranks on one GPU, so ranks that share
+   cuda:0 talk over gloo through host memory, and NCCL runs at world size 1;
+   a time of the shared-card runs is a harness number, not a scaling one.
+   The parity runs (a)-(c) use fresh models of PARALLEL_DENSITY_SCALE (see
+   there).
+   (a) data-parallel, PARALLEL_RANKS ranks on cuda:0 at the r4 width
+   (16,384 slots): at candidate factor 1 the step-0 loss within
+   STEP0_LOSS_REL and the summed gradient at cosine ≥ STEP0_GRAD_COSINE
+   per parameter against one process's step on the same batch and key; at
+   factor 2 the same bars against an emulation in this process (each rank's
+   block through the single-device step with its global ray ids, the means
+   combined by supervised rays); then PARALLEL_STEPS AdamW steps after which
+   every rank's parameters are bit-equal, no update skipped; ms per step and
+   the bytes all-reduced per step;
+   (b) NCCL at world size 1 on cuda:0: the data-parallel and the FSDP step
+   for PARALLEL_STEPS AdamW steps each at the r4 width, against one process
+   run twice: the step-0 losses bit-equal, the step-0 summed gradient at
+   cosine ≥ STEP0_GRAD_COSINE per parameter, the losses of the first
+   PARALLEL_LOSS_STEPS steps within max(STEP0_LOSS_REL, 4× one process's
+   own run-to-run spread) (the backward kernel sums in fp32 atomics, so no
+   run is bit-equal to another after step 0); the parameters' distance
+   after the steps printed beside that spread; ms per step beside one
+   process's;
+   (c) FSDP, PARALLEL_RANKS ranks on cuda:0 at the paper's field width (T =
+   2^17, phase 7(b)'s dense step, budgets halved per rank): PARALLEL_STEPS
+   SGD steps against one process's, the step-0 loss within STEP0_LOSS_REL
+   and every gathered parameter within PARALLEL_RTOL / PARALLEL_ATOL
+   (tests/test_fsdp.py's bars); AdamW steps after which each rank holds 1/2
+   of the table parameters and of both moments; each rank's peak memory;
+   (d) the CLI, `humanrf_torch.run.main(..., allow_shared_device=True)`
+   with the r4 flags at candidate factor 1 and the deterministic loader on
+   phase 6's scene, data-parallel
+   and FSDP on PARALLEL_RANKS ranks: PARALLEL_CLI_STEPS steps validated and
+   saved, the workspace's files those of one process's run of the same
+   flags, one events file, the step-1 loss within STEP0_LOSS_REL of one
+   process's, then a resume in one process;
+   where the machine has ≥ 2 GPUs, (a) and (c) again over NCCL on
+   min(count, 4) ranks, one GPU each; else one line says so.
 
 The last three lines of output are the kernel table as JSON (the four
 kernels: `field_interp` forward and backward, with `launches` counted over
-phase 8, each phase's counts beside them, their phase-3 times at the r4
+phase 9, summed over its ranks, each phase's counts beside them, their phase-3 times at the r4
 shapes and their phase-7(b) times at the dense ones under "dense"; the
 earlier `fused_interp` design, launched by phase 3 only), the card's name
 and power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
@@ -155,6 +197,9 @@ from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_gr
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops.cuda_build import load_library
+from humanrf_torch.parallel import harness
+from humanrf_torch.parallel.launch import launch
+from humanrf_torch.parallel.mesh import shard_pipeline_config
 from humanrf_torch.r4 import NUM_FRAMES, PAPER_DENSE_FLAGS, R4_SCENE, r4_flags, write_scene
 from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
 from humanrf_torch.train.checkpoint import load_checkpoint
@@ -218,7 +263,7 @@ AB_WARM_STEPS = 2          # phase 5's old/new windows: steps before each timed 
 AB_STEPS = 10              # phase 5's old/new windows: timed steps each
 
 EARLY_STEPS = 20           # phases 6 and 7(c): the first CLI run, validated and saved at its end
-CLI_STEPS = 600            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
+CLI_STEPS = 300            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
 RESUME_STEPS = 20          # phases 6 and 7(c): steps of the resumed run
 
 # Phase 7(a): the r4 run's dense settings (runs_evidence/r4_full_schedule_748/
@@ -234,7 +279,7 @@ DENSE_STEP_CONFIG = dict(sampling="dense", num_rays=8192, candidate_rays_factor=
                          candidate_budget=1_280_000, sample_budget=640_000, bce_loss_weight=1e-3, huber_delta=0.01)
 DENSE_STEPS = 120          # phase 7(b): timed steps (after WARM_STEPS) of a fresh paper-width model
 DENSE_STATS_STEPS = 10     # phase 7(b): batches through the trained model's sampler for the counts
-DENSE_CLI_STEPS = 300      # phase 7(c): resumed to this step, validated and saved every DENSE_CLI_STEPS / 2
+DENSE_CLI_STEPS = 200      # phase 7(c): resumed to this step, validated and saved every DENSE_CLI_STEPS / 2
 # Phase 8.1: the trajectory phases through the CLI on the r4 scene with
 # best.ckpt: a keycam path of TRAJ_VIEWS cameras (the JAX r4 run rendered 50
 # trajectory views) and a calibration file of four of the scene's cameras,
@@ -266,6 +311,23 @@ JAX_SCALAR_TAGS = {"photometric/training", "psnr/training", "mask_loss/training"
 # loss on this texture is ~44 dB (Cam001 frame 0: 44.14 dB on the CPU, the
 # bytes cv2 writes); a wrong colour conversion or upsampling falls far below.
 JPEG_PSNR_MIN = 40.0
+# Phase 9: multi-GPU training on the one card: ranks that share cuda:0 over
+# gloo (NCCL refuses two ranks on one GPU), and NCCL at world size 1.
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 20        # steps of each 9(a)-(c) run
+PARALLEL_CLI_STEPS = 30    # 9(d): the CLI's steps, validated and saved at the end
+PARALLEL_LOSS_STEPS = 3    # 9(b): steps whose losses are held to one process's
+SGD_LR = 1e-2              # the parity runs' plain SGD (tests/test_fsdp.py's optimizer)
+PARALLEL_ADAMW = {"kind": "adamw", "lr": 1e-2, "lr_decay": 0.5, "max_steps": 50_001, "weight_decay": 0.03}
+PARALLEL_RTOL, PARALLEL_ATOL = 1e-4, 1e-6  # 9(c): tests/test_fsdp.py's bars on the parameters
+# 9(a)-(c) hold the ranks against one process on fresh models of density
+# scale 10, not 100 (tests/test_torch_train.py's choice): at 100 a fresh
+# model is opaque on every ray, where BCE's gradient (~1e10 at p = 1, ~2e7
+# one ulp below) follows the last bit of p, which a GEMM of another row count
+# may round the other way (CPU rehearsal at 100: the factor-2 emulation's
+# gradient of one table at cosine 0.33; at 10: 0.99999).
+PARALLEL_DENSITY_SCALE = 10.0
+TABLE_NAMES = ("xyz", "xyt", "yzt", "xzt")
 
 
 def log(msg: str) -> None:
@@ -392,10 +454,10 @@ def field_shapes(view) -> list:
     ]
 
 
-def fresh_model(device, view):
+def fresh_model(device, view, **overrides):
     """Phase 5's fresh model: initialised on the CPU from seed 0, the same
-    start on any machine."""
-    model = HumanRFModel(view.model_config)
+    start on any machine; `overrides` replace fields of its configuration."""
+    model = HumanRFModel(dataclasses.replace(view.model_config, **overrides))
     model.init_parameters(torch.Generator().manual_seed(0))
     return model.to(device)
 
@@ -411,9 +473,9 @@ def capture_queries(step, batch, pool, key) -> dict:
     captured = {"prune": [], "render": []}
     field = decomposition4d.apply_decomposition4d_fused
 
-    def capture(params, xyz, times, field_cfg):
+    def capture(params, xyz, times, field_cfg, tables=None):
         captured["render" if torch.is_grad_enabled() else "prune"].append(torch.cat([xyz, times], dim=-1).detach().clone())
-        return field(params, xyz, times, field_cfg)
+        return field(params, xyz, times, field_cfg, tables)
 
     with mock.patch.object(decomposition4d, "apply_decomposition4d_fused", capture):
         step(batch, pool.pool, pool.grids, pool.aabb, key)
@@ -953,12 +1015,12 @@ def dense_render(device, view, model, proposal_roi: float) -> dict:
     return launches
 
 
-def paper_model(device):
+def paper_model(device, **overrides):
     """Phase 7(b)'s fresh model: example_humanrf's field (L16/F2, log2
     hashmap 19, so T = 2^17 per 25-frame segment, coarsest 32, finest 2048,
     camera embedding 2), no proposal, initialised on the CPU from seed 0."""
     model = HumanRFModel(HumanRFConfig(sorted_frame_numbers=tuple(range(NUM_FRAMES)), segment_sizes=(25, 25),
-                                       camera_embedding_dim=2))
+                                       camera_embedding_dim=2, **overrides))
     model.init_parameters(torch.Generator().manual_seed(0))
     return model.to(device)
 
@@ -1373,6 +1435,294 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+
+def parallel_inputs(path: Path, model, cfg, optimizer: dict, batches, keys, pool) -> Path:
+    """The inputs of `harness.run_steps` on every rank: `model`'s state, `cfg`,
+    the optimizer, the global batches and keys, the pool."""
+    harness.save_inputs(path, model.config, model.state_dict(), cfg, optimizer, batches, keys, pool.pool, pool.grids,
+                        pool.aabb, pool.width, pool.height)
+    return path
+
+
+def run_ranks(num_ranks: int, jobs, shared: bool) -> float:
+    """`harness.run_jobs` over `jobs` [(inputs, out_dir, mode)] on `num_ranks`
+    spawned ranks: on cuda:0 over gloo when `shared`, else one GPU each over
+    NCCL. → wall seconds (spawn, build check, loads and steps)."""
+    t0 = time.perf_counter()
+    launch(harness.run_jobs, num_ranks, jobs, device_type="cuda", allow_shared_device=shared)
+    return time.perf_counter() - t0
+
+
+def params_of(result: dict, prefix: str = "param/") -> dict:
+    return {k[len(prefix):]: v for k, v in result.items() if k.startswith(prefix)}
+
+
+def rank_launches(results) -> dict:
+    """The field_interp launches of a run, summed over its ranks."""
+    total = sum(r["launches"] for r in results)
+    return {"fwd": int(total[0]), "bwd": int(total[1])}
+
+
+def check_launched(name: str, launches: dict) -> None:
+    if not (launches["fwd"] > 0 and launches["bwd"] > 0):
+        raise AssertionError(f"{name} launched field_interp {launches}")
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a)
+
+
+def grad_cosines(grads: dict, ref: dict) -> dict:
+    return {n: cosine(torch.from_numpy(grads[n]), torch.from_numpy(ref[n])) for n in ref}
+
+
+def check_step0(name: str, loss: float, grads: dict, ref_loss: float, ref_grads: dict) -> None:
+    """A step's loss within STEP0_LOSS_REL and its summed gradient at cosine ≥
+    STEP0_GRAD_COSINE per parameter, against a reference's."""
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    cosines = grad_cosines(grads, ref_grads)
+    worst = min(cosines, key=cosines.get)
+    log(f"{name}: step-0 loss {loss:.7f} vs {ref_loss:.7f} (rel {rel:.2e}); summed gradient cosine min "
+        f"{cosines[worst]:.7f} ({worst})")
+    if not rel <= STEP0_LOSS_REL:
+        raise AssertionError(f"{name}: step-0 loss differs by {rel:.2e} relative")
+    if set(grads) != set(ref_grads) or not cosines[worst] >= STEP0_GRAD_COSINE:
+        raise AssertionError(f"{name}: step-0 gradient of {worst} has cosine {cosines[worst]:.7f}")
+
+
+def emulate_dp(device, view, cfg, batch, key, pool, num_ranks: int) -> tuple:
+    """The data-parallel step-0 loss and summed gradient computed in this
+    process: each rank's block of `batch` through the single-device step at
+    the per-rank settings, its candidates keyed by their global ids; the
+    ranks' means combined by their supervised rays (the group's means are
+    over every rank's rays). → (loss, {name: gradient})."""
+    model = fresh_model(device, view, density_scale=PARALLEL_DENSITY_SCALE)
+    shard_cfg = shard_pipeline_config(cfg, num_ranks)
+    step = make_train_step(shard_cfg, model, _GradientsOnly(model), pool.width, pool.height)
+    n = shard_cfg.num_rays * shard_cfg.candidate_rays_factor
+    losses, grads, counts = [], [], []
+    for r in range(num_ranks):
+        block = pipeline.HostBatch(*(f[r * n:(r + 1) * n] for f in batch))
+        loss, aux = step(block, pool.pool, pool.grids, pool.aabb, key, ray_ids=r * n + torch.arange(n, device=device))
+        losses.append(float(loss))
+        counts.append(int(aux["num_rays_supervised"]))
+        grads.append({name: p.grad.double().clone() for name, p in model.named_parameters()})
+    total = sum(counts)
+    loss = sum(c * l for c, l in zip(counts, losses)) / total
+    return loss, {n: (sum(c * g[n] for c, g in zip(counts, grads)) / total).float().cpu().numpy() for n in grads[0]}
+
+
+def parallel_dp(device, view, pool, tmp: Path, num_ranks: int = PARALLEL_RANKS, shared: bool = True) -> dict:
+    """Phase 9(a) (see the module docstring) → its launches, summed over ranks."""
+    transport = "gloo, sharing cuda:0" if shared else "NCCL, one GPU each"
+    model = fresh_model(device, view, density_scale=PARALLEL_DENSITY_SCALE)
+    cfg2 = train_config(view)
+    cfg1 = dataclasses.replace(cfg2, candidate_rays_factor=1)
+    generator = torch.Generator(device).manual_seed(3)
+    keys = [fold_in(make_key(0, device), torch.tensor(i, device=device)) for i in range(PARALLEL_STEPS)]
+    batch1 = sample_batch(cfg1, pool.pixel_rgba, generator)
+    batches2 = [sample_batch(cfg2, pool.pixel_rgba, generator) for _ in range(PARALLEL_STEPS)]
+    sgd = {"kind": "sgd", "lr": SGD_LR}
+    factor1 = parallel_inputs(tmp / "dp_factor1.npz", model, cfg1, sgd, [batch1], keys[:1], pool)
+    factor2 = parallel_inputs(tmp / "dp_factor2.npz", model, cfg2, sgd, batches2[:1], keys[:1], pool)
+    steps = parallel_inputs(tmp / "dp_steps.npz", model, cfg2, PARALLEL_ADAMW, batches2, keys, pool)
+    wall = run_ranks(num_ranks, [(p, tmp / p.stem, "dp") for p in (factor1, factor2, steps)], shared)
+    log(f"9(a) data-parallel, {num_ranks} ranks over {transport}, r4 width ({cfg2.num_rays} slots, "
+        f"{cfg2.num_rays // num_ranks} per rank): launch and three runs in {wall:.1f} s wall")
+
+    ranks = harness.load_results(tmp / "dp_factor1", num_ranks)
+    single = harness.run_steps(None, device, factor1, tmp / "dp_factor1_single", "single")
+    check_step0(f"9(a) factor 1 vs one process", float(ranks[0]["losses"][0]), params_of(ranks[0], "grad0/"),
+                float(single["losses"][0]), params_of(single, "grad0/"))
+
+    ranks = harness.load_results(tmp / "dp_factor2", num_ranks)
+    emu_loss, emu_grads = emulate_dp(device, view, cfg2, batches2[0], keys[0], pool, num_ranks)
+    check_step0(f"9(a) factor 2 vs the per-rank emulation", float(ranks[0]["losses"][0]),
+                params_of(ranks[0], "grad0/"), emu_loss, emu_grads)
+
+    ranks = harness.load_results(tmp / "dp_steps", num_ranks)
+    launches = rank_launches(ranks)
+    unequal = [n for n, v in params_of(ranks[0]).items() if any(not np.array_equal(v, r[f"param/{n}"]) for r in ranks)]
+    ms = [float(r["ms_per_step"]) for r in ranks]
+    log(f"9(a) {PARALLEL_STEPS} AdamW steps: loss {float(ranks[0]['losses'][0]):.5f} → "
+        f"{float(ranks[0]['losses'][-1]):.5f}; skipped {[int(r['skipped']) for r in ranks]}; parameters unequal "
+        f"across ranks: {unequal or 'none'}; {ms[0]:.2f} ms per step (rank 0; ranks {', '.join(f'{m:.2f}' for m in ms)}; "
+        f"a harness number: {num_ranks} processes on {'one card, gloo through host memory' if shared else 'their cards'},"
+        f" not a scaling number); gradient bucket {int(ranks[0]['bucket_bytes']) / 1e6:.3f} MB all-reduced per step; "
+        f"field_interp launches {launches} over the ranks")
+    if unequal or any(int(r["skipped"]) for r in ranks):
+        raise AssertionError(f"9(a): replicas unequal after {PARALLEL_STEPS} steps ({unequal}) or updates skipped")
+    if not np.isfinite(ranks[0]["losses"]).all():
+        raise AssertionError("9(a): non-finite loss")
+    check_launched("9(a)", launches)
+    return launches
+
+
+def parallel_nccl(device, view, pool, tmp: Path) -> dict:
+    """Phase 9(b) (see the module docstring) → its launches."""
+    model = fresh_model(device, view, density_scale=PARALLEL_DENSITY_SCALE)
+    cfg = train_config(view)
+    generator = torch.Generator(device).manual_seed(4)
+    keys = [fold_in(make_key(0, device), torch.tensor(i, device=device)) for i in range(PARALLEL_STEPS)]
+    batches = [sample_batch(cfg, pool.pixel_rgba, generator) for _ in range(PARALLEL_STEPS)]
+    inputs = parallel_inputs(tmp / "nccl.npz", model, cfg, PARALLEL_ADAMW, batches, keys, pool)
+    wall = run_ranks(1, [(inputs, tmp / "nccl_dp", "dp"), (inputs, tmp / "nccl_fsdp", "fsdp")], shared=False)
+    runs = {mode: harness.load_results(tmp / f"nccl_{mode}", 1)[0] for mode in ("dp", "fsdp")}
+    singles = [harness.run_steps(None, device, inputs, tmp / f"nccl_single{i}", "single") for i in range(2)]
+    ref = params_of(singles[0])
+    # field_interp's backward sums in fp32 atomics, whose order varies from
+    # run to run, and so do the steps after step 0. The one-process run twice
+    # measures that spread; a world-1 sum is the identity, so the world-1
+    # runs' step-0 gradients are one process's and their first losses lie
+    # within a few times that spread.
+    spread = max_abs_diff(params_of(singles[1]), ref)
+    ms_single = float(singles[0]["ms_per_step"])
+    ref_losses = singles[0]["losses"][:PARALLEL_LOSS_STEPS].astype(np.float64)
+    loss_spread = np.abs(singles[1]["losses"][:PARALLEL_LOSS_STEPS] - ref_losses) / np.abs(ref_losses)
+    loss_bar = np.maximum(STEP0_LOSS_REL, 4 * loss_spread)
+    launches = {"fwd": 0, "bwd": 0}
+    for mode, result in runs.items():
+        params = params_of(result, "full/" if mode == "fsdp" else "param/")
+        diff = max_abs_diff(params, ref)
+        step0 = [float(result["losses"][0]), float(singles[0]["losses"][0]), float(singles[1]["losses"][0])]
+        loss_rel = np.abs(result["losses"][:PARALLEL_LOSS_STEPS] - ref_losses) / np.abs(ref_losses)
+        log(f"9(b) NCCL world 1, {mode}: {float(result['ms_per_step']):.2f} ms per step against one process's "
+            f"{ms_single:.2f} ms (the bucket and the collectives: {float(result['ms_per_step']) - ms_single:+.2f} ms); "
+            f"step-0 losses {step0[0]!r} vs {step0[1]!r}, {step0[2]!r}; losses of steps 0-{PARALLEL_LOSS_STEPS - 1} "
+            f"rel {', '.join(f'{x:.2e}' for x in loss_rel)} vs one process (bars "
+            f"{', '.join(f'{x:.2e}' for x in loss_bar)}; one process run twice: "
+            f"{', '.join(f'{x:.2e}' for x in loss_spread)}); max|Δ parameter| after {PARALLEL_STEPS} steps "
+            f"{diff:.3e} vs one process (one process run twice: {spread:.3e}; printed, not a gate: Adam's first "
+            f"steps move a parameter by ±lr whatever its gradient's size); skipped {int(result['skipped'])}")
+        if len(set(step0)) != 1:
+            raise AssertionError(f"9(b) {mode}: the step-0 losses are not bit-equal: {step0}")
+        check_step0(f"9(b) {mode} vs one process", step0[0], params_of(result, "grad0/"), step0[1],
+                    params_of(singles[0], "grad0/"))
+        if not (loss_rel <= loss_bar).all():
+            raise AssertionError(f"9(b) {mode}: losses of the first steps {loss_rel} from one process's, beyond "
+                                 f"{loss_bar}")
+        if int(result["skipped"]):
+            raise AssertionError(f"9(b) {mode}: updates skipped")
+        launches = {d: launches[d] + rank_launches([result])[d] for d in launches}
+        check_launched(f"9(b) {mode}", rank_launches([result]))
+    log(f"9(b): {wall:.1f} s wall for the one-rank launch; field_interp launches {launches}")
+    return launches
+
+
+def parallel_fsdp(device, pool, tmp: Path, num_ranks: int = PARALLEL_RANKS, shared: bool = True) -> dict:
+    """Phase 9(c) (see the module docstring) → its launches, summed over ranks."""
+    transport = "gloo, sharing cuda:0" if shared else "NCCL, one GPU each"
+    model = paper_model(device, density_scale=PARALLEL_DENSITY_SCALE)
+    cfg = pipeline.PipelineConfig(**DENSE_STEP_CONFIG)
+    generator = torch.Generator(device).manual_seed(5)
+    keys = [fold_in(make_key(0, device), torch.tensor(i, device=device)) for i in range(PARALLEL_STEPS)]
+    batches = [sample_batch(cfg, pool.pixel_rgba, generator) for _ in range(PARALLEL_STEPS)]
+    sgd = parallel_inputs(tmp / "fsdp_sgd.npz", model, cfg, {"kind": "sgd", "lr": SGD_LR}, batches, keys, pool)
+    adamw = parallel_inputs(tmp / "fsdp_adamw.npz", model, cfg, PARALLEL_ADAMW, batches[:5], keys[:5], pool)
+    table_bytes = sum(p.numel() * 4 for n, p in model.named_parameters() if n.rsplit(".", 1)[-1] in TABLE_NAMES)
+    del model
+    wall = run_ranks(num_ranks, [(sgd, tmp / "fsdp_sgd", "fsdp"), (adamw, tmp / "fsdp_adamw", "fsdp")], shared)
+    ranks = harness.load_results(tmp / "fsdp_sgd", num_ranks)
+    single = harness.run_steps(None, device, sgd, tmp / "fsdp_single", "single")
+    rel = abs(float(ranks[0]["losses"][0]) - float(single["losses"][0])) / abs(float(single["losses"][0]))
+    full, ref = params_of(ranks[0], "full/"), params_of(single)
+    beyond = {n: int((np.abs(full[n] - ref[n]) > PARALLEL_ATOL + PARALLEL_RTOL * np.abs(ref[n])).sum()) for n in ref}
+    beyond = {n: c for n, c in beyond.items() if c}
+    launches = rank_launches(ranks)
+    log(f"9(c) FSDP, {num_ranks} ranks over {transport}, paper width (T = 2^17, budgets "
+        f"{cfg.candidate_budget // num_ranks:,} / {cfg.sample_budget // num_ranks:,} per rank): launch and two runs in "
+        f"{wall:.1f} s wall; step-0 loss {float(ranks[0]['losses'][0]):.7f} vs one process {float(single['losses'][0]):.7f}"
+        f" (rel {rel:.2e}); after {PARALLEL_STEPS} SGD steps max|Δ| {max_abs_diff(full, ref):.3e}, entries beyond rtol "
+        f"{PARALLEL_RTOL} / atol {PARALLEL_ATOL}: {beyond or 'none'}; {float(ranks[0]['ms_per_step']):.2f} ms per step "
+        f"(rank 0; one process {float(single['ms_per_step']):.2f} ms; a harness number); field_interp launches "
+        f"{launches} over the ranks")
+    if not rel <= STEP0_LOSS_REL or beyond:
+        raise AssertionError(f"9(c): FSDP differs from one process (loss rel {rel:.2e}; {beyond})")
+
+    ranks = harness.load_results(tmp / "fsdp_adamw", num_ranks)
+    peaks = [int(r["peak_bytes"]) for r in ranks]
+    log(f"9(c) AdamW: table state per rank {int(ranks[0]['shard_bytes']) / 1e6:.1f} MB of parameters + "
+        f"{int(ranks[0]['moment_bytes']) / 1e6:.1f} MB of moments (full: {table_bytes / 1e6:.1f} + "
+        f"{2 * table_bytes / 1e6:.1f} MB); peak device memory per rank "
+        f"{', '.join(f'{b / 2**30:.2f} GiB' for b in peaks)}; skipped {[int(r['skipped']) for r in ranks]}")
+    for r in ranks:
+        if int(r["shard_bytes"]) * num_ranks != table_bytes or int(r["moment_bytes"]) * num_ranks != 2 * table_bytes:
+            raise AssertionError(f"9(c): rank {int(r['rank'])} holds {int(r['shard_bytes'])} + "
+                                 f"{int(r['moment_bytes'])} bytes of table state, not 1/{num_ranks}")
+        if int(r["skipped"]):
+            raise AssertionError("9(c): AdamW updates skipped")
+    check_launched("9(c)", launches)
+    return launches
+
+
+def workspace_files(ws: Path) -> set:
+    """A workspace's files, but for TensorBoard's events file, named by time and host."""
+    return {str(p.relative_to(ws)) for p in ws.rglob("*") if p.is_file() and p.parent.name != "run"}
+
+
+def parallel_cli(scene: Path, tmp: Path, device) -> dict:
+    """Phase 9(d) (see the module docstring) → the two-rank runs' launches."""
+    # One candidate per slot and the deterministic loader (the free-running
+    # replacer would change the pool before step 1 by the ranks' start-up
+    # time), so that step 1 is one process's; the r4 flags' own density
+    # scale, since only the forward's loss is compared.
+    def flags(ws: Path, steps: int = PARALLEL_CLI_STEPS):
+        return r4_flags(scene, ws, steps, PARALLEL_CLI_STEPS, device=device.type) + [
+            "--tpu.candidate_rays_factor", "1", "--dataset.deterministic_loader", "true"]
+
+    single_ws = tmp / "parallel_single"
+    single = cli.main(flags(single_ws))["train"]
+    launches = {"fwd": 0, "bwd": 0}
+    for name, extra in (("dp", []), ("fsdp", ["--tpu.param_sharding", "fsdp"])):
+        ws = tmp / f"parallel_{name}"
+        t0 = time.perf_counter()
+        stats = cli.main(flags(ws) + ["--tpu.num_devices", str(PARALLEL_RANKS), *extra], allow_shared_device=True)["train"]
+        wall = time.perf_counter() - t0
+        rel = abs(stats["first_loss"] - single["first_loss"]) / abs(single["first_loss"])
+        blocks = validation_blocks(ws)
+        events = list((ws / "run").glob("events.out.tfevents.*"))
+        resumed = cli.main(flags(ws, PARALLEL_CLI_STEPS + 2) + ["--training.checkpoint", "latest"])["train"]
+        log(f"9(d) CLI {name}, {PARALLEL_RANKS} ranks sharing cuda:0: {PARALLEL_CLI_STEPS} steps in {wall:.1f} s wall "
+            f"(spawn, pool load and a validation included); step-1 loss {stats['first_loss']!r} vs one process's "
+            f"{single['first_loss']!r} (rel {rel:.2e}); validation {blocks}; field_interp launches {stats['field_interp_launches']} over the ranks; resumed in one "
+            f"process from step {resumed['start_step']} to {resumed['end_step']}")
+        if workspace_files(ws) != workspace_files(single_ws) or len(events) != 1:
+            raise AssertionError(f"9(d) {name}: workspace {sorted(workspace_files(ws))} with {len(events)} events "
+                                 f"files, not one process's {sorted(workspace_files(single_ws))}")
+        if not rel <= STEP0_LOSS_REL:
+            raise AssertionError(f"9(d) {name}: step-1 loss differs from one process's by {rel:.2e}")
+        if sorted(blocks) != [PARALLEL_CLI_STEPS] or len(blocks[PARALLEL_CLI_STEPS]) != 3 or \
+                not np.isfinite(blocks[PARALLEL_CLI_STEPS]).all():
+            raise AssertionError(f"9(d) {name}: validation {blocks}")
+        if stats["skipped_nonfinite"] or (resumed["start_step"], resumed["end_step"]) != (
+                PARALLEL_CLI_STEPS, PARALLEL_CLI_STEPS + 3):
+            raise AssertionError(f"9(d) {name}: skipped updates or a wrong resume: {stats}, {resumed}")
+        check_launched(f"9(d) {name}", stats["field_interp_launches"])
+        launches = {d: launches[d] + stats["field_interp_launches"][d] for d in launches}
+    return launches
+
+
+def parallel_phase(device, view, pool, scene: Path, tmp: Path) -> dict:
+    """Phase 9 → {sub-phase: field_interp launches summed over its ranks}."""
+    t0 = time.perf_counter()
+    launches = {"parallel_dp": parallel_dp(device, view, pool, tmp),
+                "parallel_nccl": parallel_nccl(device, view, pool, tmp),
+                "parallel_fsdp": parallel_fsdp(device, pool, tmp),
+                "parallel_cli": parallel_cli(scene, tmp, device)}
+    count = torch.cuda.device_count()
+    if count >= 2:
+        ranks = min(count, 4)
+        (tmp / "gpus").mkdir()
+        launches["parallel_dp_gpus"] = parallel_dp(device, view, pool, tmp / "gpus", ranks, shared=False)
+        launches["parallel_fsdp_gpus"] = parallel_fsdp(device, pool, tmp / "gpus", ranks, shared=False)
+    else:
+        log(f"9: NCCL across GPUs not run: this machine has {count} GPU (9(a) and 9(c) run there on min(count, 4) "
+            "ranks when it has two or more)")
+    log(f"9: multi-GPU phase in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -1490,16 +1840,19 @@ def main() -> int:
         carve_phase(scene, Path(tmp), device)
         bloom_launches = light_bloom_phase(scene, Path(tmp), device, cli_stats)
 
+        # Phase 9: multi-GPU training.
+        parallel_launches = parallel_phase(device, view, train_pool, scene, Path(tmp))
+
     by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches,
                 "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches,
-                "trajectory": trajectory_launches, "light_bloom_cli": bloom_launches}
+                "trajectory": trajectory_launches, "light_bloom_cli": bloom_launches, **parallel_launches}
     records = [
         {
             "name": f"field_interp_{direction}",
             "route": "cuda",
             "source": "humanrf_torch/csrc/field_interp.cu",
             "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
-            "launches": trajectory_launches[direction] + bloom_launches[direction],
+            "launches": sum(counts[direction] for counts in parallel_launches.values()),
             "launches_by_phase": {phase: counts[direction] for phase, counts in by_phase.items()},
             "library_ms": None,  # no one PyTorch call computes the corners and the lookup
             **new_kernels[direction],

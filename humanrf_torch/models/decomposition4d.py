@@ -10,6 +10,7 @@ on the CUDA `field_interp` kernels, which take any table size.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
@@ -33,7 +34,11 @@ class Decomposition4DConfig:
 
 class Decomposition4D(nn.Module):
     """One segment's parameters in the JAX layouts: four hash tables
-    `xyz`, `xyt`, `yzt`, `xzt` of shape (L, F, T) and `vectors` (4, D, R)."""
+    `xyz`, `xyt`, `yzt`, `xzt` of shape (L, F, T) and `vectors` (4, D, R).
+
+    Under FSDP (`humanrf_torch/parallel/fsdp.py`) the four tables are this
+    rank's (L, F, T/D) shards, and a query passes the (4L, F, T) stack
+    gathered from every rank as `tables`."""
 
     def __init__(self, cfg: Decomposition4DConfig, device=None):
         super().__init__()
@@ -56,6 +61,6 @@ class Decomposition4D(nn.Module):
             table.copy_(u * 2e-4 - 1e-4)
         self.vectors.copy_(0.1 * normal(self.vectors.shape, generator))
 
-    def forward(self, xyz: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor, times: torch.Tensor, tables: Optional[torch.Tensor] = None) -> torch.Tensor:
         params = {name: getattr(self, name) for name in (*GRID_NAMES, "vectors")}
-        return apply_decomposition4d_fused(params, xyz, times, self.cfg)
+        return apply_decomposition4d_fused(params, xyz, times, self.cfg, tables)

@@ -11,7 +11,7 @@ at the end.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
@@ -26,8 +26,12 @@ from humanrf_torch.ops.field_interp import (  # noqa: F401  (corner math re-expo
 )
 
 
-def apply_decomposition4d_fused(params: Mapping[str, torch.Tensor], xyz, times, cfg) -> torch.Tensor:
-    """xyz (N, 3) in [0,1]; times (N, 1) in [0,1] → (N, L·F) fp32 features."""
+def apply_decomposition4d_fused(params: Mapping[str, torch.Tensor], xyz, times, cfg,
+                                tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """xyz (N, 3) in [0,1]; times (N, 1) in [0,1] → (N, L·F) fp32 features.
+    `tables` is the (4L, F, T) stack of the four grids when the caller has
+    it (the FSDP step gathers it once per step); else it is concatenated
+    from `params`."""
     grid_cfg = cfg.grid
     n = xyz.shape[0]
     L, F = grid_cfg.n_levels, grid_cfg.n_features_per_level
@@ -35,7 +39,8 @@ def apply_decomposition4d_fused(params: Mapping[str, torch.Tensor], xyz, times, 
 
     # A dense level's far corner can index past the table (res³ ≤ T <
     # res³ + res² + res); field_interp gives it no weight, as the TPU kernel does.
-    tables = torch.cat([params[name] for name, _ in _GRID_AXES], dim=0)  # (4L, F, T)
+    if tables is None:
+        tables = torch.cat([params[name] for name, _ in _GRID_AXES], dim=0)  # (4L, F, T)
     feats = field_interp(tables, xyzt, grid_spec(grid_cfg))  # (4L, F, N)
     f = feats.reshape(4, L * F, n)
 

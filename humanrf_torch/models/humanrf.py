@@ -22,7 +22,7 @@ loads a JAX one.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -167,8 +167,13 @@ class HumanRFModel(nn.Module):
 
     # ----------------------------------------------------------------- queries
 
-    def features(self, positions: torch.Tensor, frame_numbers: torch.Tensor) -> torch.Tensor:
-        """positions (N,3) in [-0.5,0.5]; frame_numbers (N,) → (N, L*F)."""
+    def features(self, positions: torch.Tensor, frame_numbers: torch.Tensor,
+                 tables: Optional[Mapping[int, torch.Tensor]] = None) -> torch.Tensor:
+        """positions (N,3) in [-0.5,0.5]; frame_numbers (N,) → (N, L*F).
+        `tables` maps a segment to its (4L, F, T) table stack where the
+        caller holds it (the FSDP step's gathered tables); the other segments
+        read their own parameters."""
+        tables = tables or {}
         frame_numbers = frame_numbers.long()
         times = self.frame_to_local_time[frame_numbers][:, None]
         xyzt = torch.cat([positions + 0.5, times], dim=-1)
@@ -176,7 +181,7 @@ class HumanRFModel(nn.Module):
             frame_numbers,
             xyzt,
             (positions.shape[0], self.config.total_feature_dim),
-            lambda s, x: self.segments[s](x[:, :3], x[:, 3:]),
+            lambda s, x: self.segments[s](x[:, :3], x[:, 3:], tables.get(s)),
         )
 
     def proposal_density(self, positions: torch.Tensor, frame_numbers: torch.Tensor) -> torch.Tensor:
@@ -188,9 +193,10 @@ class HumanRFModel(nn.Module):
         coords = torch.cat([positions + 0.5, times], dim=-1)
         return self._per_segment(frame_numbers, coords, (positions.shape[0],), lambda s, c: self.proposal[s](c))
 
-    def density(self, positions: torch.Tensor, frame_numbers: torch.Tensor):
+    def density(self, positions: torch.Tensor, frame_numbers: torch.Tensor,
+                tables: Optional[Mapping[int, torch.Tensor]] = None):
         """→ (density (N,), geometry_features (N, G)). humanrf.py:158-186."""
-        h = self.sigma_net(self.features(positions, frame_numbers))
+        h = self.sigma_net(self.features(positions, frame_numbers, tables))
         density = truncated_exp(h[..., 0]) * self.config.density_scale
         return density, h[..., 1:]
 
@@ -201,10 +207,12 @@ class HumanRFModel(nn.Module):
         frame_numbers: torch.Tensor,
         camera_numbers: Optional[torch.Tensor] = None,
         is_training: bool = False,
+        tables: Optional[Mapping[int, torch.Tensor]] = None,
     ):
-        """→ (density (N,), radiance (N, 3)). humanrf.py:188-208."""
+        """→ (density (N,), radiance (N, 3)). humanrf.py:188-208. `tables`
+        as in `features`."""
         cfg = self.config
-        density, geo = self.density(positions, frame_numbers)
+        density, geo = self.density(positions, frame_numbers, tables)
         color_in = [sh_encode((directions + 1.0) * 0.5, cfg.sh_degree), geo]
         if cfg.camera_embedding_dim > 0:
             if is_training:

@@ -1,5 +1,5 @@
 """CLI entry point: the train, trajectory and evaluate phases on one GPU (or
-the CPU).
+the CPU), training on several with `--tpu.num_devices`.
 
 Counterpart of `humanrf_tpu/run.py`, with the same flags: `configs/args.py`
 and `configs/example_*.py` are the port's copies of the JAX package's, held
@@ -15,8 +15,17 @@ ffmpeg exists), `results/test_frames/*.png`, `results/metrics.csv` and
 
 `--device tpu` (the flag's default: the accelerator) and `--device cuda` run
 on `cuda:0` and raise without a GPU; `--device cpu` runs on the CPU, where
-the CUDA kernels' plain versions stand in. Flags whose feature is not ported
-raise `NotImplementedError` naming their ROADMAP.md item.
+the CUDA kernels' plain versions stand in.
+
+`--tpu.num_devices N` (N > 1; 0 means every visible GPU, and 1 on the CPU)
+trains on N ranks, one process each (`parallel/launch.py`): rank r on
+`cuda:r` over NCCL, or N CPU ranks over gloo with `--device cpu`. Training
+is data-parallel, with the segment tables sharded under
+`--tpu.param_sharding fsdp` (`parallel/mesh.py`, `parallel/fsdp.py`); rank 0
+alone loads the data and writes the workspace, which has the single-process
+layout, and runs the trajectory and evaluate phases on its device after
+training, as the JAX CLI runs them unsharded. Asking for more GPUs than are
+visible raises before anything is written.
 
 Usage:
     python -m humanrf_torch.run --config example_synthetic --dataset.path <synth_root> --workspace ws --device cuda
@@ -31,6 +40,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import humanrf_torch.evaluation.presets as presets
 from humanrf_torch.configs.args import parse_args, warn_pipeline_knobs
@@ -42,6 +52,8 @@ from humanrf_torch.data.trajectory import (
 )
 from humanrf_torch.evaluation.evaluate import evaluate
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
+from humanrf_torch.parallel.collectives import broadcast_object
+from humanrf_torch.parallel.launch import launch
 from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
 from humanrf_torch.train.pipeline import PipelineConfig
 from humanrf_torch.train.trainer import Trainer, make_optimizer
@@ -59,16 +71,17 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"unknown --device {name!r} (tpu, cuda or cpu)")
 
 
+def resolve_num_devices(config) -> int:
+    """--tpu.num_devices → the number of ranks: N, or for 0 every visible GPU
+    (1 on --device cpu, or without a GPU, where the device check raises)."""
+    if config.tpu.num_devices:
+        return config.tpu.num_devices
+    return 1 if config.device == "cpu" else max(torch.cuda.device_count(), 1)
+
+
 def check_ported(config) -> None:
-    """Raise for a flag whose feature the port does not have yet; print one
-    line for the flags whose choice the port's single path makes moot."""
-    unported = [
-        (config.tpu.num_devices != 1, f"--tpu.num_devices {config.tpu.num_devices}", "multi-GPU"),
-        (config.tpu.param_sharding == "fsdp", "--tpu.param_sharding fsdp", "multi-GPU"),
-    ]
-    for active, flag, item in unported:
-        if active:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, Queue 1: {item})")
+    """Print one line for the flags whose choice the port's single path
+    makes moot. (Every flag of the JAX CLI is ported.)"""
     if config.tpu.field_backend != "gather":
         print(f"[INFO] --tpu.field_backend {config.tpu.field_backend}: the port has one field path, "
               "the gather contract through the field_interp kernels")
@@ -94,6 +107,15 @@ def build_pipeline_config(config) -> PipelineConfig:
         proposal_loss_weight=config.tpu.proposal_loss_weight,
         proposal_uniform_bonus=config.tpu.proposal_uniform_bonus,
         candidate_rays_factor=config.tpu.candidate_rays_factor,
+    )
+
+
+def optimizer_factory(config):
+    """The training optimizer the flags describe, as a function of the
+    model's named parameters."""
+    return functools.partial(
+        make_optimizer, lr=config.training.lr, lr_decay=config.training.lr_decay,
+        max_steps=config.training.max_steps, weight_decay=config.training.weight_decay,
     )
 
 
@@ -202,16 +224,32 @@ def yaml_dump(tree: dict, indent: int = 0) -> str:
 # ------------------------------------------------------------------- main
 
 
-def main(argv=None) -> dict:
+def main(argv=None, allow_shared_device: bool = False) -> dict:
     """Run the phases the flags ask for → {"segment_sizes", "train": the
     train loop's throughput (`Trainer.run_stats`) or None, "averages": the
-    evaluation's averages or None}."""
+    evaluation's averages or None}, rank 0's in a multi-rank run.
+    `allow_shared_device` puts every rank on `cuda:0` over gloo (the one-card
+    harness; not a flag)."""
     config = parse_args(argv)
     for warning in warn_pipeline_knobs(config.tpu):
         print(f"[WARNING] quality cliff: {warning}")
     check_ported(config)
-    device = resolve_device(config.device)
+    num_ranks = resolve_num_devices(config)
+    if num_ranks == 1:
+        return run(None, resolve_device(config.device), config)
+    device_type = resolve_device(config.device).type
+    print(f"[INFO] training on {num_ranks} ranks ({device_type}"
+          f"{', sharing cuda:0 over gloo' if allow_shared_device else ''}), "
+          f"--tpu.param_sharding {config.tpu.param_sharding}")
+    return launch(run, num_ranks, config, device_type=device_type, allow_shared_device=allow_shared_device)
 
+
+def run(group, device: torch.device, config) -> dict:
+    """`main`'s phases on `device`: alone with no `group`, else as one rank
+    of a multi-rank run (`parallel/launch.py` calls it; see the module
+    docstring)."""
+    is_rank0 = group is None or dist.get_rank(group) == 0
+    log = print if is_rank0 else (lambda *args: None)
     random.seed(config.random_seed)
     np.random.seed(config.random_seed)
 
@@ -220,12 +258,13 @@ def main(argv=None) -> dict:
         raise ValueError("--dataset.frame_numbers is required")
 
     workspace = Path(config.workspace)
-    workspace.mkdir(parents=True, exist_ok=True)
-    (workspace / "config.yaml").write_text(yaml_dump(dataclasses.asdict(config)) + "\n")
+    if is_rank0:
+        workspace.mkdir(parents=True, exist_ok=True)
+        (workspace / "config.yaml").write_text(yaml_dump(dataclasses.asdict(config)) + "\n")
 
     data_folder = Path(config.dataset.path) / config.dataset.actor / config.dataset.sequence / f"{config.dataset.scale}x"
     segment_sizes = compute_segment_sizes(config, data_folder, frame_numbers)
-    print(f"[INFO] segment sizes: {segment_sizes}")
+    log(f"[INFO] segment sizes: {segment_sizes}")
 
     model = build_model(config, segment_sizes, device)
     pcfg = build_pipeline_config(config)
@@ -234,28 +273,29 @@ def main(argv=None) -> dict:
     if config.tpu.synthetic_presets:
         camera_configs = derive_synthetic_presets(VolumetricDataset(data_folder))
         split = {k: list(v) for k, v in camera_configs.items()}
-        print(f"[INFO] derived synthetic camera split: {split}")
+        log(f"[INFO] derived synthetic camera split: {split}")
         # A workspace's checkpoints belong to the split they were trained
-        # under: the stamp is written when absent and never overwritten.
-        split_path = workspace / "derived_split.json"
-        have_ckpts = any((workspace / "checkpoints").glob("*.ckpt"))
-        if split_path.exists():
-            old = json.loads(split_path.read_text())
-            if old != split:
-                print(
-                    "[WARNING] this workspace's derived_split.json records a DIFFERENT camera split "
-                    f"({old}); it is kept as it is"
-                    + ("; validation/best-PSNR history is not comparable across the split change — use a "
-                       "fresh workspace unless you know what you are doing" if have_ckpts else "")
-                )
-        else:
-            if have_ckpts:
-                print(
-                    "[WARNING] resuming a workspace with no derived_split.json stamp "
-                    "(pre-split-change checkpoints?); validation history may not be "
-                    "comparable to the current camera split"
-                )
-            split_path.write_text(json.dumps(split))
+        # under: rank 0 writes the stamp when absent and never overwrites it.
+        if is_rank0:
+            split_path = workspace / "derived_split.json"
+            have_ckpts = any((workspace / "checkpoints").glob("*.ckpt"))
+            if split_path.exists():
+                old = json.loads(split_path.read_text())
+                if old != split:
+                    print(
+                        "[WARNING] this workspace's derived_split.json records a DIFFERENT camera split "
+                        f"({old}); it is kept as it is"
+                        + ("; validation/best-PSNR history is not comparable across the split change — use a "
+                           "fresh workspace unless you know what you are doing" if have_ckpts else "")
+                    )
+            else:
+                if have_ckpts:
+                    print(
+                        "[WARNING] resuming a workspace with no derived_split.json stamp "
+                        "(pre-split-change checkpoints?); validation history may not be "
+                        "comparable to the current camera split"
+                    )
+                split_path.write_text(json.dumps(split))
 
     result = {"segment_sizes": list(segment_sizes), "train": None, "averages": None}
     loader_args = dict(
@@ -263,56 +303,67 @@ def main(argv=None) -> dict:
         seed=config.random_seed, device=device,
     )
     if config.train:
-        training_data_loader = DataLoader(
-            dataset=VolumetricDataset(data_folder, config.dataset.crop_center_square),
-            mode=DataLoader.Mode.TRAINING,
-            batch_size=config.training.rays_initial_batch_size * config.tpu.candidate_rays_factor,
-            camera_numbers=camera_configs[config.training.camera_preset],
-            max_buffer_size=config.dataset.max_buffer_size,
-            max_num_frames_per_batch=config.dataset.max_num_frames_per_batch,
-            use_mask=True,
-            filter_light_bloom=config.dataset.filter_light_bloom,
-            deterministic=config.dataset.deterministic_loader,
-            **loader_args,
-        )
-        render_sequence_validation = presets.get_render_sequence(
-            coverage=config.validation.coverage,
-            camera_preset=config.validation.camera_preset,
-            frame_numbers=list(frame_numbers),
-            repeat_cameras=config.validation.repeat_cameras,
-            camera_configs_override=camera_configs,
-        )
-        validation_data_loader = DataLoader(
-            dataset=VolumetricDataset(data_folder, config.dataset.crop_center_square),
-            mode=DataLoader.Mode.VALIDATION,
-            batch_size=config.validation.rays_batch_size,
-            camera_numbers=camera_configs[config.validation.camera_preset],
-            max_buffer_size=1,
-            use_mask=True,
-            filter_light_bloom=config.dataset.filter_light_bloom,
-            render_sequence=render_sequence_validation,
-            **loader_args,
-        )
-        optimizer = functools.partial(
-            make_optimizer, lr=config.training.lr, lr_decay=config.training.lr_decay,
-            max_steps=config.training.max_steps, weight_decay=config.training.weight_decay,
-        )
+        # Rank 0 alone loads the data; the other ranks train on its batches
+        # (`parallel/feed.py`) and write nothing.
+        training_data_loader = validation_data_loader = resolution = None
+        if is_rank0:
+            training_data_loader = DataLoader(
+                dataset=VolumetricDataset(data_folder, config.dataset.crop_center_square),
+                mode=DataLoader.Mode.TRAINING,
+                batch_size=config.training.rays_initial_batch_size * config.tpu.candidate_rays_factor,
+                camera_numbers=camera_configs[config.training.camera_preset],
+                max_buffer_size=config.dataset.max_buffer_size,
+                max_num_frames_per_batch=config.dataset.max_num_frames_per_batch,
+                use_mask=True,
+                filter_light_bloom=config.dataset.filter_light_bloom,
+                deterministic=config.dataset.deterministic_loader,
+                **loader_args,
+            )
+            render_sequence_validation = presets.get_render_sequence(
+                coverage=config.validation.coverage,
+                camera_preset=config.validation.camera_preset,
+                frame_numbers=list(frame_numbers),
+                repeat_cameras=config.validation.repeat_cameras,
+                camera_configs_override=camera_configs,
+            )
+            validation_data_loader = DataLoader(
+                dataset=VolumetricDataset(data_folder, config.dataset.crop_center_square),
+                mode=DataLoader.Mode.VALIDATION,
+                batch_size=config.validation.rays_batch_size,
+                camera_numbers=camera_configs[config.validation.camera_preset],
+                max_buffer_size=1,
+                use_mask=True,
+                filter_light_bloom=config.dataset.filter_light_bloom,
+                render_sequence=render_sequence_validation,
+                **loader_args,
+            )
+            resolution = training_data_loader.resolution
+        if group is not None:
+            resolution = broadcast_object(resolution, group)
         trainer = Trainer(
             config=config,
             workspace=workspace,
             checkpoint=config.training.checkpoint,
             model=model,
             pipeline_config=pcfg,
-            optimizer=optimizer,
-            resolution=training_data_loader.resolution,
+            optimizer=optimizer_factory(config),
+            resolution=resolution,
             seed=config.random_seed,
+            group=group,
         )
         try:
             trainer.train(training_data_loader, validation_data_loader, max_steps=config.training.max_steps)
         finally:
-            training_data_loader.shutdown()
-            validation_data_loader.shutdown()
+            if is_rank0:
+                training_data_loader.shutdown()
+                validation_data_loader.shutdown()
         result["train"] = trainer.run_stats
+        if group is not None:
+            # Training may have sharded the model's tables; the later
+            # phases load their checkpoint into a model of their own.
+            model = build_model(config, segment_sizes, device)
+    if not is_rank0:
+        return result  # the later phases run in rank 0 alone
 
     results_folder = workspace / "results"
     trajectory_loaders = []

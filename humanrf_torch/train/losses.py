@@ -5,11 +5,14 @@ Counterpart of `humanrf_tpu/train/losses.py`:
 - Huber (δ = 0.01) photometric loss, `torch.nn.HuberLoss` semantics;
 - the BCE mask loss with the reference's `clamp(p, 0, 1)` + `log(x + 1e-10)`
   value and gradient, as a `torch.autograd.Function` (the JAX `custom_vjp`);
-- `masked_mean`, the mean over the rows a mask keeps (single device).
+- `masked_mean`, the mean over the rows a mask keeps, on one device or over
+  the ranks of a process group.
 """
 from __future__ import annotations
 
 import torch
+
+from humanrf_torch.parallel.collectives import all_reduce_
 
 
 def huber_loss(pred: torch.Tensor, target: torch.Tensor, delta: float = 0.01) -> torch.Tensor:
@@ -52,11 +55,35 @@ def bce_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return _BCELoss.apply(pred, target)
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+class _GroupMean(torch.autograd.Function):
+    """The value num_global / den_global, the gradient of num_local / den_global.
+
+    Summed over the ranks, the local gradients are then the gradient of the
+    mean over the whole batch: the JAX package's `psum` of numerator and
+    denominator inside `shard_map`. `den` is a count and takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, num, totals):
+        den = totals[1].clamp(min=1.0)
+        ctx.save_for_backward(den)
+        return totals[0] / den
+
+    @staticmethod
+    def backward(ctx, g):
+        (den,) = ctx.saved_tensors
+        return g / den, None
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     """Elementwise mean over the rows where `mask` is True: the static-shape
-    form of the reference's mean over a compacted ray batch."""
+    form of the reference's mean over a compacted ray batch. With a process
+    `group`, numerator and denominator are summed over its ranks, so the
+    mean is the whole batch's while each rank's gradient stays its own
+    rows' (`_GroupMean`)."""
     elems_per_row = values.numel() // values.shape[0]
     m = mask.reshape(mask.shape[0], *([1] * (values.dim() - 1))).to(values.dtype)
     num = (values * m).sum()
     den = mask.to(values.dtype).sum() * elems_per_row
-    return num / den.clamp(min=1.0)
+    if group is None:
+        return num / den.clamp(min=1.0)
+    return _GroupMean.apply(num, all_reduce_(torch.stack([num.detach(), den]), group))

@@ -164,9 +164,11 @@ def prune_and_render(
     background_rgb,
     rng: Optional[torch.Tensor] = None,
     ray_ids: Optional[torch.Tensor] = None,
+    tables=None,
 ):
     """`prune_samples` + `render` (`volume_rendering.py:42-150`) on the flat
-    buffers → (RenderOutput, the rendered SampleSet).
+    buffers → (RenderOutput, the rendered SampleSet). `tables` is passed to
+    every field query (`HumanRFModel.features`).
 
     With a key `rng` this is the training render: every sample distance is
     jittered by U[0, step) (`volume_rendering.py:63-64`), drawn per (global
@@ -185,11 +187,11 @@ def prune_and_render(
     if cfg.use_visibility_prune:
         with torch.no_grad():
             samples = prune_samples(
-                lambda p, f: model.density(p, f)[0], samples, rays.origins, rays.directions, rays.frame_numbers,
+                lambda p, f: model.density(p, f, tables)[0], samples, rays.origins, rays.directions, rays.frame_numbers,
                 num_rays, cfg.sample_budget, cfg.render_step_size, cfg.samples_per_ray,
             )
     out = render(
-        lambda p, d, f, c: model(p, d, f, c, is_training=rng is not None),
+        lambda p, d, f, c: model(p, d, f, c, is_training=rng is not None, tables=tables),
         samples, rays.origins, rays.directions, rays.frame_numbers, rays.camera_numbers,
         num_rays, background_rgb, cfg.render_step_size, cfg.samples_per_ray,
     )
@@ -206,6 +208,7 @@ def proposal_render(
     background_rgb,
     rng: Optional[torch.Tensor] = None,
     ray_ids: Optional[torch.Tensor] = None,
+    tables=None,
 ):
     """Importance-sampled rendering over a static (R, K) lattice.
 
@@ -218,7 +221,8 @@ def proposal_render(
     With a key `rng` this is the training render: stratified offsets keyed by
     `ray_ids` (default arange), camera embeddings on, and the per-ray
     distillation loss summed over the proposal levels in the aux. Without
-    one it is the deterministic render. → (RenderOutput, aux).
+    one it is the deterministic render. `tables` is passed to the field
+    query (`HumanRFModel.features`). → (RenderOutput, aux).
     """
     num_rays = rays.origins.shape[0]
     k_coarse = cfg.proposal_samples_per_ray
@@ -267,6 +271,7 @@ def proposal_render(
         rays.frame_numbers.repeat_interleave(k_fine),
         rays.camera_numbers.repeat_interleave(k_fine),
         is_training=is_training,
+        tables=tables,
     )
     density = density.reshape(num_rays, k_fine)
     radiance = radiance.reshape(num_rays, k_fine, 3)
@@ -294,13 +299,19 @@ def training_loss(
     buffer_idx,
     ray_ids: Optional[torch.Tensor] = None,
     samples: Optional[SampleSet] = None,
+    group=None,
+    tables=None,
 ):
     """Random-background compositing, Huber + BCE (+ distillation under
     proposal sampling), each a mean over the supervised rays (trainer.py:
     229-248 of the reference): the valid rays, and under dense sampling only
     those whose samples fit the budgets (`samples` are `build_samples`'s).
-    → (loss, aux) with aux `photometric`, `mask_loss`, `proposal_loss`
-    (proposal only), `mse`, `num_samples` and `num_rays_supervised`."""
+    With a process `group` (`humanrf_torch/parallel`) each mean is over the
+    rays of every rank (`masked_mean`), and `ray_ids` are this rank's rays'
+    global ids; `tables` goes to the field queries (`HumanRFModel.features`;
+    the FSDP step's gathered tables). → (loss, aux) with aux `photometric`,
+    `mask_loss`, `proposal_loss` (proposal only), `mse`, and this rank's
+    `num_samples` and `num_rays_supervised`."""
     if ray_ids is None:
         ray_ids = torch.arange(cfg.num_rays, device=rgba.device)
     rng_bg, rng_jitter = split(rng)
@@ -309,49 +320,52 @@ def training_loss(
     gt_rgb = rgba[:, 0:3] * gt_mask + background * (1.0 - gt_mask)
 
     if cfg.sampling == "proposal":
-        out, proposal_aux = proposal_render(cfg, model, rays, pool, grids, buffer_idx, background, rng_jitter, ray_ids)
+        out, proposal_aux = proposal_render(cfg, model, rays, pool, grids, buffer_idx, background, rng_jitter, ray_ids,
+                                            tables)
         loss_mask = rays.valid
         num_samples = proposal_aux["num_samples"]
     else:
-        out, pruned = prune_and_render(cfg, model, rays, samples, background, rng_jitter, ray_ids)
+        out, pruned = prune_and_render(cfg, model, rays, samples, background, rng_jitter, ray_ids, tables)
         loss_mask = rays.valid & pruned.ray_included
         num_samples = pruned.num_valid
 
-    photometric = masked_mean(huber_loss(out.color, gt_rgb, cfg.huber_delta), loss_mask)
+    photometric = masked_mean(huber_loss(out.color, gt_rgb, cfg.huber_delta), loss_mask, group)
     total = photometric
     aux = {"photometric": photometric}
     if cfg.bce_loss_weight is not None:
-        mask_l = masked_mean(bce_loss(out.weights_sum, gt_mask), loss_mask) * cfg.bce_loss_weight
+        mask_l = masked_mean(bce_loss(out.weights_sum, gt_mask), loss_mask, group) * cfg.bce_loss_weight
         total = total + mask_l
         aux["mask_loss"] = mask_l
     if cfg.sampling == "proposal":
-        prop_l = masked_mean(proposal_aux["proposal_loss_per_ray"][:, None], loss_mask)
+        prop_l = masked_mean(proposal_aux["proposal_loss_per_ray"][:, None], loss_mask, group)
         total = total + cfg.proposal_loss_weight * prop_l
         aux["proposal_loss"] = prop_l
 
-    aux["mse"] = masked_mean((out.color - gt_rgb) ** 2, loss_mask)
+    aux["mse"] = masked_mean((out.color - gt_rgb) ** 2, loss_mask, group)
     aux["num_samples"] = num_samples
     aux["num_rays_supervised"] = loss_mask.sum()
     return total, aux
 
 
 def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: int, height: int):
-    """Returns train_step(batch, pool, grids, aabb, rng) → (loss, aux).
+    """Returns train_step(batch, pool, grids, aabb, rng, ray_ids=None) → (loss, aux).
 
     `batch` carries `num_rays × candidate_rays_factor` candidate rays; after
     the occupancy march the valid ones are compacted into the `num_rays`
-    render slots. The step computes the loss, back-propagates into the
+    render slots. `ray_ids` are the candidates' ids, which key their noise
+    (default 0, 1, ...; a block of a larger batch passes its global ids).
+    The step computes the loss, back-propagates into the
     model's parameters and applies `optimizer` (`train/trainer.py::AdamW`).
     It updates the parameters and the optimizer's state in place: the
     PyTorch form of the JAX step's donated buffers. `loss` and `aux` are
     detached device tensors; nothing waits for the device.
     """
 
-    def step(batch: HostBatch, pool: PoolArrays, grids, aabb, rng: torch.Tensor):
+    def step(batch: HostBatch, pool: PoolArrays, grids, aabb, rng: torch.Tensor, ray_ids=None):
         rays = build_rays(cfg, batch, pool, grids, aabb, width, height)
-        ray_ids = None
         if cfg.candidate_rays_factor > 1:
-            ray_ids = torch.arange(cfg.num_rays * cfg.candidate_rays_factor, device=rays.origins.device)
+            if ray_ids is None:
+                ray_ids = torch.arange(cfg.num_rays * cfg.candidate_rays_factor, device=rays.origins.device)
             rays, batch, ray_ids = compact_rays(rays, batch, ray_ids, cfg.num_rays)
         samples = None
         if cfg.sampling != "proposal":

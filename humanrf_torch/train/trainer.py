@@ -19,6 +19,13 @@ Counterpart of `humanrf_tpu/train/trainer.py`:
   dense budgets scaled to its size (the JAX `Trainer._get_render_fn`);
 - `render_image`: the batched pixel loop of `Trainer.test` over one image.
 
+With a process group of several ranks (`humanrf_torch/parallel`) the
+`Trainer` trains data-parallel, or with `--tpu.param_sharding fsdp` with
+its segment tables sharded, as the JAX trainer does over its mesh: rank 0
+alone owns the training loader and broadcasts its batches (`parallel/feed.
+py`), and rank 0 alone writes the events, validation, images, checkpoints
+and trace, while the other ranks wait at a barrier.
+
 Not ported: the K-step dispatch scan and the HBM preflight (the port keeps
 K = 1's semantics).
 """
@@ -33,11 +40,17 @@ from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from humanrf_torch.convert import convert_params, export_params, load_opt_state, opt_state_to_jax
 from humanrf_torch.core import image_io
 from humanrf_torch.evaluation.metrics import LpipsModel, bounding_rect, compute_psnr, compute_ssim
 from humanrf_torch.models.humanrf import HumanRFModel
+from humanrf_torch.ops import field_interp as fli
+from humanrf_torch.parallel import fsdp
+from humanrf_torch.parallel.collectives import all_reduce_, all_true
+from humanrf_torch.parallel.feed import Feed
+from humanrf_torch.parallel.mesh import make_sharded_train_step
 from humanrf_torch.train.checkpoint import CHECKPOINT_SUFFIX, load_checkpoint, resolve_checkpoint, save_checkpoint
 from humanrf_torch.train.pipeline import HostBatch, PipelineConfig, PoolArrays, make_render_fn, make_train_step
 from humanrf_torch.utils.profiling import Trace
@@ -79,7 +92,11 @@ class AdamW:
 
     `named_params` are (name, parameter) pairs as `named_parameters()` gives
     them; the names (the model's state-dict keys) map the state onto optax's
-    tree (`convert.opt_state_to_jax`).
+    tree (`convert.opt_state_to_jax`). `group`, set by the FSDP step
+    (`parallel/fsdp.py`), is the process group over which the skip is
+    agreed: there each rank holds only its shards' gradients, and every rank
+    must apply or skip together, as `apply_if_finite` sees the whole
+    gradient.
     """
 
     b1, b2, eps = 0.9, 0.99, 1e-15
@@ -95,6 +112,7 @@ class AdamW:
         self.last_finite = torch.ones((), dtype=torch.bool, device=device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self.group = None
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -104,6 +122,8 @@ class AdamW:
     def step(self) -> None:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if self.group is not None:
+            finite = all_true(finite, self.group)
         count_inc = (self.count + 1).float()
         step_size = -self.schedule(self.count)
         bc1 = 1.0 - self.b1**count_inc
@@ -217,6 +237,11 @@ class Trainer:
     afresh from `seed` (on the CPU, then copied), then `checkpoint` is
     resolved ("latest", "best" or a path) and restored with its optimizer
     state, step, validation count and stats.
+
+    `group`, a process group of several ranks, makes this rank's trainer
+    one of a data-parallel run, table-sharded under `--tpu.param_sharding
+    fsdp` (the JAX trainer's mesh); every rank builds its trainer with the
+    same arguments, and only rank 0's `train` gets loaders.
     """
 
     def __init__(
@@ -229,6 +254,7 @@ class Trainer:
         optimizer: Optional[Callable[[Iterable], AdamW]],
         resolution,
         seed: int = 123,
+        group=None,
     ) -> None:
         self.config = config
         self.workspace = Path(workspace)
@@ -238,12 +264,29 @@ class Trainer:
         width, height = resolution
         device = model.frame_to_segment.device
 
+        self.group = group if group is not None and dist.get_world_size(group) > 1 else None
+        self.is_writer = self.group is None or dist.get_rank(self.group) == 0
         model.init_parameters(torch.Generator().manual_seed(seed))
+        self.sharding = None
+        if self.group is not None and optimizer is not None and config.tpu.param_sharding == "fsdp":
+            self.sharding = fsdp.TableSharding(model, self.group)
+            fsdp.place_params(model, self.sharding)
         self.optimizer = optimizer(model.named_parameters()) if optimizer is not None else None
         self.rng = make_key(seed + 1, device)
         self.train_step_fn = None
         if self.optimizer is not None:
-            self.train_step_fn = make_train_step(self.pcfg, model, self.optimizer, width, height)
+            if self.sharding is not None:
+                self._log_info(f"FSDP training over {self.sharding.size} ranks: the tables of segments "
+                               f"{self.sharding.segments} (and their Adam moments) sharded on the table axis, "
+                               "rays data-parallel")
+                self.train_step_fn = fsdp.make_fsdp_train_step(self.pcfg, model, self.optimizer, width, height,
+                                                               self.sharding)
+            elif self.group is not None:
+                self._log_info(f"data-parallel training over {dist.get_world_size(self.group)} ranks")
+                self.train_step_fn = make_sharded_train_step(self.pcfg, model, self.optimizer, width, height,
+                                                             self.group)
+            else:
+                self.train_step_fn = make_train_step(self.pcfg, model, self.optimizer, width, height)
         # Validation and test loaders have their own ray batch sizes; a render
         # function per batch size, with the budgets scaled to it.
         self._render_fns: Dict[int, Callable] = {}
@@ -274,7 +317,8 @@ class Trainer:
         self.writer: Optional[SummaryWriter] = None
 
         self.checkpoints_dir = self.workspace / "checkpoints"
-        self.checkpoints_dir.mkdir(parents=True, exist_ok=True)
+        if self.is_writer:
+            self.checkpoints_dir.mkdir(parents=True, exist_ok=True)
         self.best_checkpoint_path = self.checkpoints_dir / f"best{CHECKPOINT_SUFFIX}"
 
         n_params = sum(p.numel() for p in model.parameters())
@@ -289,17 +333,31 @@ class Trainer:
         return self._render_fns[batch_size]
 
     def _log_info(self, text: str) -> None:
-        print(f"[INFO] {text}", flush=True)
+        if self.is_writer:
+            print(f"[INFO] {text}", flush=True)
 
     def _log_warning(self, text: str) -> None:
-        print(f"[WARNING] {text}", flush=True)
+        if self.is_writer:
+            print(f"[WARNING] {text}", flush=True)
+
+    def _full_state(self):
+        """Under FSDP, every rank gathers the full tables and moments for the
+        body (a checkpoint, a validation, a load); else nothing to do."""
+        if self.sharding is None:
+            return contextlib.nullcontext()
+        return fsdp.full_state(self.model, self.optimizer, self.sharding)
 
     # ------------------------------------------------------------------ train
 
     def train(self, training_data_loader, validation_data_loader, max_steps: int) -> None:
+        """Train to `max_steps`. In a multi-rank run only rank 0 passes loaders
+        (the others pass None) and writes."""
         self._log_info("no HBM preflight: it is a TPU workaround the port does not carry")
-        self.writer = SummaryWriter(self.workspace / "run")
+        if self.group is not None:
+            training_data_loader = Feed(training_data_loader, self.group, self.model.frame_to_segment.device)
+        self.writer = SummaryWriter(self.workspace / "run") if self.is_writer else None
         loss_ema = 0.0
+        first_loss = None
         aabb = training_data_loader.device_aabb
         loader_iter = iter(training_data_loader)
         save_every = self.config.training.save_checkpoint_every_n_steps
@@ -308,6 +366,7 @@ class Trainer:
         window_start = time.time()
         start_step = last_log = self.step
         start_pairs = training_data_loader.pair_load_index
+        start_launches = dict(fli.launches)
         # Supervised rays (valid and budgeted, the ones the loss sees), summed
         # on the device between logs so that no step waits for the device.
         supervised_accum = torch.zeros((), dtype=torch.int64, device=aabb.device)
@@ -316,7 +375,7 @@ class Trainer:
         totals = {"steps": 0, "seconds": 0.0, "fetch_seconds": 0.0, "wall_seconds": 0.0, "supervised": 0}
         # --tpu.profile_dir: one trace per run, of the five steps from the
         # first step >= 20 (the JAX trainer's window at K = 1).
-        profile_dir = self.config.tpu.profile_dir
+        profile_dir = self.config.tpu.profile_dir if self.is_writer else None
         tracer, trace_stop_at = None, 0
 
         while self.step < max_steps + 1:
@@ -337,8 +396,10 @@ class Trainer:
                 fetch_accum += time.perf_counter() - t_fetch
                 loss, aux = self.train_step_fn(batch, pool, grids, aabb, step_rng)
             supervised_accum += aux["num_rays_supervised"]
+            if first_loss is None:
+                first_loss = float(loss)
 
-            if self.step % 20 == 0 or self.step <= 1:
+            if self.is_writer and (self.step % 20 == 0 or self.step <= 1):
                 step_loss = float(loss)
                 loss_ema = 0.95 * loss_ema + 0.05 * step_loss
                 elapsed = time.time() - window_start
@@ -385,22 +446,32 @@ class Trainer:
             if self.step % save_every == 0 or self.step % validate_every == 0:
                 t_pause = time.perf_counter()
                 training_data_loader.pause_replacing()
-                if self.step % save_every == 0:
-                    self.save(best=False)
-                if self.step % validate_every == 0:
-                    self.validate(validation_data_loader)
-                    self.save(best=True)
+                with self._full_state():
+                    if self.is_writer:
+                        if self.step % save_every == 0:
+                            self.save(best=False)
+                        if self.step % validate_every == 0:
+                            self.validate(validation_data_loader)
+                            self.save(best=True)
+                if self.group is not None:
+                    dist.barrier(self.group)
                 training_data_loader.continue_replacing()
                 pause_accum += time.perf_counter() - t_pause
 
         if tracer is not None:
             self._log_info(f"profiler trace written to {tracer.stop()}")
-        self.writer.close()
-        self.writer = None
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
 
         # Pool images the loader replaced per step: how fast the data cycles.
         replaced = (training_data_loader.pair_load_index - start_pairs) / max(self.step - start_step, 1)
-        self.run_stats = {"start_step": start_step, "end_step": self.step,
+        # The field kernels' launches over this loop, every rank's.
+        launches = torch.tensor([fli.launches[d] - start_launches[d] for d in ("fwd", "bwd")], device=aabb.device)
+        if self.group is not None:
+            all_reduce_(launches, self.group)
+        self.run_stats = {"start_step": start_step, "end_step": self.step, "first_loss": first_loss,
+                          "field_interp_launches": dict(zip(("fwd", "bwd"), launches.tolist())),
                           "skipped_nonfinite": int(self.optimizer.skipped), "images_replaced_per_step": replaced}
         if totals["steps"]:
             s = totals["seconds"]
@@ -582,9 +653,10 @@ class Trainer:
             return
         self._log_info(f"restoring checkpoint {path}")
         params, opt_state, step, val_step, stats = load_checkpoint(path)
-        self.model.load_state_dict(convert_params(params))
-        if self.optimizer is not None and opt_state is not None:
-            load_opt_state(self.optimizer, opt_state)
+        with self._full_state():  # FSDP: each rank takes its shards of the loaded tables and moments
+            self.model.load_state_dict(convert_params(params))
+            if self.optimizer is not None and opt_state is not None:
+                load_opt_state(self.optimizer, opt_state)
         self.step = step
         self.val_step = val_step
         self.stats = stats

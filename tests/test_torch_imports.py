@@ -20,6 +20,8 @@ NEW_MODULES = {
     "humanrf_torch.utils.summary", "humanrf_torch.utils.profiling", "humanrf_torch.toolbox.import_dfa",
     "humanrf_torch.toolbox.generate_occupancy_grids_from_masks", "humanrf_torch.toolbox.export_colmap",
     "humanrf_torch.toolbox.export_ngp", "humanrf_torch.toolbox.write_alembic", BLENDER_ONLY,
+    "humanrf_torch.parallel.mesh", "humanrf_torch.parallel.fsdp", "humanrf_torch.parallel.launch",
+    "humanrf_torch.parallel.collectives", "humanrf_torch.parallel.feed", "humanrf_torch.parallel.harness",
 }
 
 

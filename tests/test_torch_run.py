@@ -12,8 +12,8 @@ flags. Both train with validation, save, render the test frame and evaluate.
   events file each, named by time and host), and `config.yaml` reads back
   equal (PyYAML `safe_load`).
 - `--training.checkpoint latest` resumes the port's run from its last save.
-- Only the multi-GPU flags raise; the trajectory, light-bloom and profiler
-  flags, and `--config example_humanrf`'s, pass `check_ported`.
+- Every flag passes `check_ported`: the trajectory, light-bloom, profiler
+  and multi-GPU flags, and `--config example_humanrf`'s.
 """
 import functools
 from pathlib import Path
@@ -162,17 +162,6 @@ def test_yaml_emitter_round_trips_every_scalar_kind():
     assert back == {**tree, "a": {**tree["a"], "m": "/p q"}}
 
 
-@pytest.mark.parametrize("flags", [
-    ["--tpu.num_devices", "2"],
-    ["--tpu.param_sharding", "fsdp"],
-])
-def test_unported_flags_raise(flags, tmp_path):
-    base = ["--config", "example_synthetic", "--device", "cpu", "--workspace", str(tmp_path / "ws")]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_main([*base, *flags])
-    assert not (tmp_path / "ws").exists()
-
-
 _SYNTHETIC = ["--config", "example_synthetic", "--device", "cpu"]
 
 
@@ -182,6 +171,8 @@ _SYNTHETIC = ["--config", "example_synthetic", "--device", "cpu"]
     [*_SYNTHETIC, "--test.trajectory_via_calibration_file", "calibration.csv"],
     [*_SYNTHETIC, "--tpu.profile_dir", "profile"],
     ["--config", "example_humanrf"],
+    [*_SYNTHETIC, "--tpu.num_devices", "2"],
+    [*_SYNTHETIC, "--tpu.param_sharding", "fsdp"],
 ])
 def test_ported_flags_pass_check_ported(argv):
     from humanrf_torch.configs.args import parse_args
