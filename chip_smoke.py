@@ -24,7 +24,11 @@ compute the field's corners from the sample coordinates themselves:
   toolbox, and a CLI training run with the light-bloom filter, the
   profiler and the TensorBoard events;
 - multi-GPU training (`humanrf_torch/parallel`): the data-parallel and
-  FSDP steps on spawned ranks, and the CLI with `--tpu.num_devices 2`.
+  FSDP steps on spawned ranks, and the CLI with `--tpu.num_devices 2`;
+- the mesh tools: the subject of the r4 scene as meshes, through an
+  Alembic archive and the port's extractor, rasterized into masks and
+  depth maps by the hand-written `mesh_raster` kernels, through the mesh
+  renderer's CLI and on to the occupancy carve.
 
 The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
 math ("the old path"), is off the main path; phases 3-5 time it beside the
@@ -33,9 +37,9 @@ new kernels in the same call.
 Phases, each of which raises on failure:
 
 1. device: a CUDA Hopper card (capability 9.0) is required;
-2. build: `humanrf_torch/csrc/field_interp.cu` and `fused_interp.cu` with
-   nvcc for sm_90a, side by side (registers, shared memory and spills from
-   `-Xptxas -v`);
+2. build: `humanrf_torch/csrc/field_interp.cu`, `fused_interp.cu` and
+   `mesh_raster.cu` with nvcc for sm_90a, side by side (registers, shared
+   memory and spills from `-Xptxas -v`);
 3. kernels: each (idx, w) kernel against its plain version at KERNEL_SHAPES,
    with its time, bound and the time of `F.embedding_bag`, the one PyTorch
    call that computes the same function; each `field_interp` kernel against
@@ -154,14 +158,38 @@ Phases, each of which raises on failure:
    flags, one events file, the step-1 loss within STEP0_LOSS_REL of one
    process's, then a resume in one process;
    where the machine has ≥ 2 GPUs, (a) and (c) again over NCCL on
-   min(count, 4) ranks, one GPU each; else one line says so.
+   min(count, 4) ranks, one GPU each; else one line says so;
+10. the mesh tools on phase 6's scene (`humanrf_torch/toolbox/`
+   `mesh_renderer`, `alembic_extractor`, `mesh_io`; `ops/rasterize.py`):
+   (a) the subject of each of the 50 frames tessellated on the scene's own
+   geometry (`core/synthetic.py::subject_mesh`: ≥ MESH_MIN_TRIANGLES
+   triangles, 32 segments around each rod), written as OBJ, packed into
+   one .abc by `write_alembic.objs_to_abc` and extracted by the port's
+   extractor: every extracted mesh equals the written one (vertices within
+   rtol 1e-6, faces equal); s per frame of each step;
+   (b) all 600 views rasterized on the card (launches: one of each kernel
+   per frame), each view's mask IoU against the scene's analytic mask ≥
+   MESH_IOU_MIN (min and median printed); at MESH_AB_FRAMES, each kernel
+   against its plain version on the same inputs, and the views against the
+   plain resolve, bit for bit; kernel ms per view (CUDA events), plain ms,
+   fragments per view, the bound and its share;
+   (c) the mesh renderer's CLI for MESH_CLI_FRAMES with --mask --depth
+   into a copy of the scene: every PFM and mask reads back as the kernel's
+   view; s per view with the file writes; the carve (128³, threshold 12)
+   of those frames from the mesh's masks against the carve from the
+   scene's: occupied-voxel IoU ≥ MESH_CARVE_IOU_MIN;
+   (d) frame 0 in RIG_CAMERAS cameras (`make_cameras` of the r4 scene, the
+   ActorsHQ rig's count) at 748²: cameras RIG_CHECK_CAMERAS bit-equal to
+   the plain version; ms per view.
 
-The last three lines of output are the kernel table as JSON (the four
+The last three lines of output are the kernel table as JSON (the six
 kernels: `field_interp` forward and backward, with `launches` counted over
 phase 9, summed over its ranks, each phase's counts beside them, their phase-3 times at the r4
 shapes and their phase-7(b) times at the dense ones under "dense"; the
-earlier `fused_interp` design, launched by phase 3 only), the card's name
-and power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
+earlier `fused_interp` design, launched by phase 3 only; `mesh_project`
+and `mesh_raster`, with `launches` counted over 10(b), their times per
+view at 10(b)'s frames and 10(d)'s under "rig_ms"), the card's name and
+power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
@@ -190,12 +218,14 @@ from humanrf_torch.core import image_io
 from humanrf_torch.configs.args import parse_args
 from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.data.loader import DataLoader
-from humanrf_torch.core.synthetic import make_cameras, render_cameras
+from humanrf_torch.core.camera import write_calibration_csv
+from humanrf_torch.core.synthetic import make_cameras, render_cameras, subject_mesh
 from humanrf_torch.models import decomposition4d, fused_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
+from humanrf_torch.ops import rasterize as raster
 from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.parallel import harness
 from humanrf_torch.parallel.launch import launch
@@ -205,7 +235,9 @@ from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
 from humanrf_torch.train.checkpoint import load_checkpoint
 from humanrf_torch.train import pipeline
 from humanrf_torch.train.pipeline import make_train_step
+from humanrf_torch.toolbox import alembic_extractor, mesh_io, mesh_renderer
 from humanrf_torch.toolbox import generate_occupancy_grids_from_masks as occ
+from humanrf_torch.toolbox.write_alembic import objs_to_abc
 from humanrf_torch.train.trainer import Trainer, make_optimizer, render_image, render_pipeline_config, sample_batch
 from humanrf_torch.utils.profiling import Trace
 from humanrf_torch.utils.rngs import fold_in, make_key
@@ -328,6 +360,18 @@ PARALLEL_RTOL, PARALLEL_ATOL = 1e-4, 1e-6  # 9(c): tests/test_fsdp.py's bars on 
 # gradient of one table at cosine 0.33; at 10: 0.99999).
 PARALLEL_DENSITY_SCALE = 10.0
 TABLE_NAMES = ("xyz", "xyt", "yzt", "xzt")
+# Phase 10: the mesh tools on phase 6's scene.
+MESH_MIN_TRIANGLES = 100_000     # per frame (subject_mesh's defaults give 109,824; 32 segments per rod)
+MESH_IOU_MIN = 0.97              # per view, the mesh's mask against the scene's analytic mask
+MESH_AB_FRAMES = (0, 25, 49)     # kernel against plain, every camera, bit for bit
+MESH_CLI_FRAMES = (0, 12, 25, 37, 49)
+MESH_CARVE_IOU_MIN = 0.95        # occupied voxels, the carve of the mesh's masks against that of the scene's
+RIG_CAMERAS = 160                # the ActorsHQ rig's count
+RIG_CHECK_CAMERAS = (0, 53, 106, 159)
+# Operations per fragment (the pixel centre, w0, w1, w2, iz and 1/z) and per
+# (camera, triangle) of setup (the box, the area and 1/area), and per
+# (camera, vertex) of the projection.
+RASTER_FRAGMENT_OPS, RASTER_SETUP_OPS, PROJECT_OPS = 26, 40, 30
 
 
 def log(msg: str) -> None:
@@ -1723,6 +1767,239 @@ def parallel_phase(device, view, pool, scene: Path, tmp: Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 10
+
+
+def mesh_bytes(params: raster.CameraParams, num_vertices: int, num_faces: int, fragments: int) -> dict:
+    """Bytes each step must move for one frame in every camera: the
+    projection (vertices in, (C, V, 4) out), the raster pass (faces and
+    projections in, the depth buffer's fill and 4 B per fragment's atomic)
+    and the whole `rasterize` (vertices and faces in, the buffer's fill, the
+    resolve's read and its mask and depth written, the atomics)."""
+    C, pixels = params.floats.shape[0], params.total
+    return {"project": 12 * num_vertices + 16 * C * num_vertices,
+            "raster": 12 * num_faces + 16 * C * num_vertices + 4 * pixels + 4 * fragments,
+            "rasterize": 12 * num_vertices + 12 * num_faces + (4 + 4 + 1 + 4) * pixels + 4 * fragments}
+
+
+def mesh_extract(tmp: Path) -> list:
+    """Phase 10(a): the subject of every frame tessellated and written as
+    OBJ, packed into one .abc and extracted → the extracted meshes."""
+    written_dir, extracted_dir = tmp / "mesh_written", tmp / "mesh_extracted"
+    written_dir.mkdir()
+    t0 = time.perf_counter()
+    written = [written_dir / f"Frame{frame:06d}.obj" for frame in range(NUM_FRAMES)]
+    for frame, path in enumerate(written):
+        mesh_io.write_obj(path, *subject_mesh(R4_SCENE, frame))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    abc = objs_to_abc(written, tmp / "subject.abc", mesh_name="subject")
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if alembic_extractor.main(["--alembic", str(abc), "--output", str(extracted_dir)]) != 0:
+        raise AssertionError("the extractor failed")
+    t_extract = time.perf_counter() - t0
+    extracted = sorted(extracted_dir.glob("Frame*.obj"))
+    if [p.name for p in extracted] != [p.name for p in written]:
+        raise AssertionError(f"the extractor wrote {len(extracted)} frames, not {NUM_FRAMES}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        meshes = list(pool.map(mesh_io.load_obj, extracted))
+        sources = list(pool.map(mesh_io.load_obj, written))
+    t_load = time.perf_counter() - t0
+    for frame, ((v, f), (wv, wf)) in enumerate(zip(meshes, sources)):
+        # tests/test_alembic_extractor.py's bars: vertices within rtol 1e-6, faces equal.
+        if not (v.shape == wv.shape and np.allclose(v, wv, rtol=1e-6, atol=0) and np.array_equal(f, wf)):
+            raise AssertionError(f"frame {frame}: the extracted mesh differs from the written one")
+    triangles = min(len(f) for _, f in meshes)
+    log(f"10(a) extract: {NUM_FRAMES} frames of {triangles} triangles ({len(meshes[0][0])} vertices; sphere 128 × "
+        f"384, {R4_SCENE.num_rods} capsule rods of 32 segments); s per frame: tessellate and write OBJ "
+        f"{t_write / NUM_FRAMES:.4f}, pack into .abc (objs_to_abc) {t_pack / NUM_FRAMES:.4f}, extract "
+        f"{t_extract / NUM_FRAMES:.4f}, parse an OBJ (load_obj, 8 threads) {t_load / (2 * NUM_FRAMES):.4f}; the "
+        f"extracted meshes equal the written ones (rtol 1e-6, faces equal)")
+    if triangles < MESH_MIN_TRIANGLES:
+        raise AssertionError(f"{triangles} triangles per frame, fewer than {MESH_MIN_TRIANGLES}")
+    return meshes
+
+
+def check_mesh_kernels(v, f, cameras, kept, device) -> dict:
+    """Phase 10(b)'s A/B at one frame: each kernel against its plain version
+    on the same inputs, bit for bit, and the main run's views against the
+    plain resolve → the frame's numbers."""
+    params = raster.CameraParams.build(cameras, device)
+    proj = raster.launch_project(v, params, 1.0)
+    plain_proj = raster.project_plain(v, params, 1.0)
+    buf = raster.launch_raster(proj, f, params)
+    plain_buf, fragments = raster.depth_buffer_plain(plain_proj, f, params)
+    torch.cuda.synchronize()
+    if not torch.equal(proj.view(torch.int32), plain_proj.view(torch.int32)):
+        raise AssertionError("mesh_project differs from its plain version")
+    if not torch.equal(buf.view(torch.int32), plain_buf.view(torch.int32)):
+        differ = int((buf.view(torch.int32) != plain_buf.view(torch.int32)).sum())
+        raise AssertionError(f"mesh_raster differs from its plain version on {differ} pixels")
+    for (mask, depth), (plain_mask, plain_depth) in zip(kept, raster.resolve(plain_buf, params)):
+        if not (torch.equal(mask, plain_mask) and torch.equal(depth.view(torch.int32), plain_depth.view(torch.int32))):
+            raise AssertionError("a rendered view differs from the plain version's")
+    finite = torch.isfinite(proj) & torch.isfinite(plain_proj)
+    errors = {"project": float((proj - plain_proj)[finite].abs().max()),
+              "raster": float((buf - plain_buf)[torch.isfinite(plain_buf)].abs().max())}
+    return {"errors": errors, "fragments": int(fragments.sum()), "params": params, "proj": proj,
+            "ms": {"project": time_ms(lambda: raster.launch_project(v, params, 1.0)),
+                   "raster": time_ms(lambda: raster.launch_raster(proj, f, params)),
+                   "rasterize": time_ms(lambda: raster.rasterize(v, f, cameras))},
+            "plain_ms": {"project": time_ms(lambda: raster.project_plain(v, params, 1.0), iters=5),
+                         "raster": time_ms(lambda: raster.depth_buffer_plain(plain_proj, f, params), iters=3),
+                         "rasterize": time_ms(lambda: raster.rasterize_plain(v, f, cameras), iters=3)}}
+
+
+def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
+    """Phase 10 (see the module docstring) → the two kernels' records."""
+    t_phase = time.perf_counter()
+    data_dir = scene / "SynthActor" / "Sequence1" / "1x"
+    meshes = mesh_extract(tmp)
+    on_device = [(torch.from_numpy(v).to(device), torch.from_numpy(f).to(device)) for v, f in meshes]
+    cameras = mesh_io.read_calibration_f32(data_dir / "calibration.csv")
+
+    # (b) every frame in every camera through the kernels.
+    def truth(frame):
+        return np.stack([image_io.decode_png((data_dir / "masks" / c.name / f"{c.name}_mask{frame:06d}.png")
+                                             .read_bytes())[..., 0] > 0 for c in cameras])
+
+    with ThreadPoolExecutor(8) as pool:
+        truths = list(pool.map(truth, range(NUM_FRAMES)))
+    kept, ious = {}, []
+    torch.cuda.synchronize()
+    raster.reset_launches()
+    t0 = time.perf_counter()
+    for frame, (v, f) in enumerate(on_device):
+        views = raster.rasterize(v, f, cameras)
+        if frame in MESH_AB_FRAMES or frame in MESH_CLI_FRAMES:
+            kept[frame] = views
+        masks = torch.stack([m for m, _ in views]) > 0
+        analytic = torch.from_numpy(truths[frame]).to(device)
+        ious.append((masks & analytic).sum((1, 2)) / (masks | analytic).sum((1, 2)).clamp_min(1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    render_launches = dict(raster.launches)
+    views_total = NUM_FRAMES * len(cameras)
+    ious = torch.cat(ious).cpu().numpy()
+    log(f"10(b) render: {views_total} views ({NUM_FRAMES} frames × {len(cameras)} cameras, "
+        f"{cameras[0].width}x{cameras[0].height}) in {wall:.3f} s wall with the IoUs; launches {render_launches}; "
+        f"mask IoU against the scene's analytic masks min {ious.min():.5f}, median {np.median(ious):.5f} "
+        f"(bar {MESH_IOU_MIN}) [{smi}]")
+    if render_launches != {"project": NUM_FRAMES, "raster": NUM_FRAMES}:
+        raise AssertionError(f"the render launched {render_launches}, not one of each kernel per frame")
+    if not ious.min() >= MESH_IOU_MIN:
+        raise AssertionError(f"a view's mask IoU is {ious.min():.5f} (< {MESH_IOU_MIN})")
+
+    rows = []
+    for frame in MESH_AB_FRAMES:
+        v, f = on_device[frame]
+        row = check_mesh_kernels(v, f, cameras, kept[frame], device)
+        row["bytes"] = mesh_bytes(row["params"], v.shape[0], f.shape[0], row["fragments"])
+        row["ops"] = {"project": PROJECT_OPS * len(cameras) * v.shape[0],
+                      "raster": RASTER_SETUP_OPS * len(cameras) * f.shape[0] + RASTER_FRAGMENT_OPS * row["fragments"]}
+        row["ops"]["rasterize"] = row["ops"]["project"] + row["ops"]["raster"]
+        rows.append(row)
+    per_view = {}
+    for step in ("project", "raster", "rasterize"):
+        ms = sum(r["ms"][step] for r in rows) / (len(rows) * len(cameras))
+        plain_ms = sum(r["plain_ms"][step] for r in rows) / (len(rows) * len(cameras))
+        bound_ms, bound_by = bound(sum(r["bytes"][step] for r in rows) / (len(rows) * len(cameras)),
+                                   sum(r["ops"][step] for r in rows) / (len(rows) * len(cameras)))
+        per_view[step] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"10(b) {step} at frames {MESH_AB_FRAMES}, per view: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it [{smi}]")
+    fragments = sum(r["fragments"] for r in rows) / (len(rows) * len(cameras))
+    log(f"10(b) kernels against plain at frames {MESH_AB_FRAMES} × {len(cameras)} cameras: bit-equal (masks, "
+        f"depths, projections); {fragments:.0f} fragments per view")
+
+    # (c) the CLI for MESH_CLI_FRAMES into a copy of the scene, then the carve.
+    src = scene / "SynthActor" / "Sequence1"
+    dst = tmp / "mesh_chain" / "SynthActor" / "Sequence1"
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("rgbs", "occupancy_grids", "test"))
+    (dst / "1x" / "rgbs").symlink_to(src / "1x" / "rgbs")
+    objs = sorted(str(p) for p in (tmp / "mesh_extracted").glob("Frame*.obj"))
+    torch.cuda.synchronize()
+    raster.reset_launches()
+    t0 = time.perf_counter()
+    rc = mesh_renderer.main(["--objs", *objs, "--csv", str(dst / "1x" / "calibration.csv"), "--output",
+                             str(dst / "1x"), "--mask", "--depth", "--frames", *map(str, MESH_CLI_FRAMES),
+                             "--device", device.type])
+    torch.cuda.synchronize()
+    cli_wall = time.perf_counter() - t0
+    cli_launches = dict(raster.launches)
+    if rc != 0 or cli_launches != {"project": len(MESH_CLI_FRAMES), "raster": len(MESH_CLI_FRAMES)}:
+        raise AssertionError(f"the mesh renderer's CLI returned {rc} with launches {cli_launches}")
+    for frame in MESH_CLI_FRAMES:
+        for cam, (mask, depth) in zip(cameras, kept[frame]):
+            pfm = mesh_io.read_pfm(dst / "1x" / "depths" / cam.name / f"{cam.name}_depth{frame:06d}.pfm")
+            png = image_io.decode_png((dst / "1x" / "masks" / cam.name / f"{cam.name}_mask{frame:06d}.png")
+                                      .read_bytes())[..., 0]
+            if pfm.tobytes() != depth.cpu().numpy().tobytes() or not np.array_equal(png, mask.cpu().numpy()):
+                raise AssertionError(f"{cam.name} frame {frame}: the CLI's files differ from the kernel's views")
+    mesh_data, scene_data = VolumetricDataset(dst / "1x"), VolumetricDataset(src / "1x")
+    mesh_inputs, scene_inputs = occ.carve_inputs(mesh_data), occ.carve_inputs(scene_data)
+    carve_ious = []
+    for frame in MESH_CLI_FRAMES:
+        hull = occ.carve_frame(mesh_data, mesh_inputs, frame, CARVE_THRESHOLD, CARVE_RESOLUTION, device) > 0
+        reference = occ.carve_frame(scene_data, scene_inputs, frame, CARVE_THRESHOLD, CARVE_RESOLUTION, device) > 0
+        carve_ious.append((hull & reference).sum() / max((hull | reference).sum(), 1))
+    cli_views = len(MESH_CLI_FRAMES) * len(cameras)
+    log(f"10(c) the CLI: {cli_views} views with --mask --depth in {cli_wall:.3f} s, {cli_wall / cli_views:.4f} s "
+        f"per view with the OBJ loads and file writes; launches {cli_launches}; every PFM and mask reads back as "
+        f"the kernel's view; carve at {CARVE_RESOLUTION}³, threshold {CARVE_THRESHOLD}, of the mesh's masks "
+        f"against the scene's: occupied-voxel IoU min {min(carve_ious):.5f} (bar {MESH_CARVE_IOU_MIN}) [{smi}]")
+    if not min(carve_ious) >= MESH_CARVE_IOU_MIN:
+        raise AssertionError(f"the carve of the mesh's masks has IoU {min(carve_ious):.5f} with the scene's")
+
+    # (d) the 160-camera rig at frame 0.
+    rig_csv = tmp / "rig_calibration.csv"
+    rig_cfg = dataclasses.replace(R4_SCENE, num_cameras=RIG_CAMERAS, width=cameras[0].width,
+                                  height=cameras[0].height)
+    write_calibration_csv(make_cameras(rig_cfg), rig_csv)
+    rig = mesh_io.read_calibration_f32(rig_csv)
+    v, f = on_device[0]
+    torch.cuda.synchronize()
+    raster.reset_launches()
+    rig_views = raster.rasterize(v, f, rig)
+    torch.cuda.synchronize()
+    rig_launches = dict(raster.launches)
+    plain = raster.rasterize_plain(v, f, [rig[i] for i in RIG_CHECK_CAMERAS])
+    for i, (plain_mask, plain_depth) in zip(RIG_CHECK_CAMERAS, plain):
+        mask, depth = rig_views[i]
+        if not (torch.equal(mask, plain_mask) and torch.equal(depth.view(torch.int32), plain_depth.view(torch.int32))):
+            raise AssertionError(f"rig camera {i}: the kernel's view differs from the plain version's")
+    rig_params = raster.CameraParams.build(rig, device)
+    rig_proj = raster.launch_project(v, rig_params, 1.0)
+    rig_ms = {"project": time_ms(lambda: raster.launch_project(v, rig_params, 1.0), iters=5) / RIG_CAMERAS,
+              "raster": time_ms(lambda: raster.launch_raster(rig_proj, f, rig_params), iters=5) / RIG_CAMERAS,
+              "rasterize": time_ms(lambda: raster.rasterize(v, f, rig), iters=5) / RIG_CAMERAS}
+    log(f"10(d) rig: {RIG_CAMERAS} cameras at {rig[0].width}x{rig[0].height}, frame 0: launches {rig_launches}; "
+        f"cameras {RIG_CHECK_CAMERAS} bit-equal to the plain version; ms per view: project {rig_ms['project']:.5f}, "
+        f"raster {rig_ms['raster']:.5f}, rasterize {rig_ms['rasterize']:.5f} [{smi}]")
+    log(f"10: mesh phase in {time.perf_counter() - t_phase:.1f} s")
+    by_phase = {"mesh_render": render_launches, "mesh_cli": cli_launches, "mesh_rig": rig_launches}
+    return [
+        {
+            "name": f"mesh_{step}",
+            "route": "cuda",
+            "source": "humanrf_torch/csrc/mesh_raster.cu",
+            "replaces": "humanrf_tpu/native/mesh_renderer/main.cpp:227",
+            "launches": render_launches[step],
+            "launches_by_phase": {phase: counts[step] for phase, counts in by_phase.items()},
+            "max_abs_err": max(r["errors"][step] for r in rows),
+            **per_view[step],
+            "library_ms": None,  # no PyTorch call rasterizes
+            "per": "view, the mean over frames 0, 25 and 49 × 12 cameras",
+            "rasterize": per_view["rasterize"],
+            "fragments_per_view": fragments,
+            "rig_ms": rig_ms[step],
+        }
+        for step in ("project", "raster")
+    ]
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -1737,9 +2014,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # Phase 2: build, both libraries side by side.
-    with ThreadPoolExecutor(2) as pool:
-        built = dict(zip(("field_interp", "fused_interp"), pool.map(load_library, ("field_interp", "fused_interp"))))
+    # Phase 2: build, the three libraries side by side.
+    names = ("field_interp", "fused_interp", "mesh_raster")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(load_library, names)))
     for name, lib in built.items():
         log(f"build: {lib.path.name} in {lib.build_seconds:.2f} s; per kernel, from -Xptxas -v (shared memory is "
             f"dynamic, set at launch): " + "; ".join(ptxas_summary(lib.ptxas_log)))
@@ -1843,6 +2121,9 @@ def main() -> int:
         # Phase 9: multi-GPU training.
         parallel_launches = parallel_phase(device, view, train_pool, scene, Path(tmp))
 
+        # Phase 10: the mesh tools.
+        mesh_records = mesh_phase(scene, Path(tmp), device, smi)
+
     by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches,
                 "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches,
                 "trajectory": trajectory_launches, "light_bloom_cli": bloom_launches, **parallel_launches}
@@ -1870,7 +2151,7 @@ def main() -> int:
             **old_kernels[direction],
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
-    ]
+    ] + mesh_records
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({

@@ -207,6 +207,53 @@ def render_cameras(cfg: SyntheticSceneConfig, inv_krs: torch.Tensor, origins: to
     return torch.round(rgb * 255.0).to(torch.uint8), hit.to(torch.uint8)
 
 
+def _ring_mesh(centers: np.ndarray, thetas: np.ndarray, axis: np.ndarray, radius: float, segments: int):
+    """A closed surface of rings between two poles: ring k is the circle of
+    polar angle thetas[k] about `axis` around centers[k]; the poles sit at
+    centers[0] + r·axis and centers[-1] − r·axis. → (vertices, faces)."""
+    u = np.cross(axis, [1.0, 0.0, 0.0] if abs(axis[0]) < 0.9 else [0.0, 1.0, 0.0])
+    u /= np.linalg.norm(u)
+    v = np.cross(axis, u)
+    phi = 2 * np.pi * np.arange(segments) / segments
+    around = np.cos(phi)[:, None] * u + np.sin(phi)[:, None] * v  # (S, 3)
+    rings = centers[:, None] + radius * (np.sin(thetas)[:, None, None] * around + np.cos(thetas)[:, None, None] * axis)
+    vertices = np.concatenate([[centers[0] + radius * axis], rings.reshape(-1, 3), [centers[-1] - radius * axis]])
+    j, k = np.arange(segments), (np.arange(segments) + 1) % segments
+    last = 1 + len(thetas) * segments
+    faces = [np.stack([np.zeros(segments, int), 1 + j, 1 + k], 1)]
+    for ring in range(len(thetas) - 1):
+        a, b = 1 + ring * segments, 1 + (ring + 1) * segments
+        faces += [np.stack([a + j, b + j, a + k], 1), np.stack([a + k, b + j, b + k], 1)]
+    faces.append(np.stack([np.full(segments, last), last - segments + k, last - segments + j], 1))
+    return vertices, np.concatenate(faces)
+
+
+def subject_mesh(cfg: SyntheticSceneConfig, frame_idx: int, sphere_rings: int = 128, sphere_segments: int = 384,
+                 rod_rings: int = 8, rod_segments: int = 32):
+    """The actor of frame `frame_idx` as a triangle mesh on the analytic
+    shapes of `render_cameras`: a UV sphere, and each rod as a capsule (a
+    cylinder from p0 to p1 capped by half-spheres), `rod_rings` rings per cap.
+    The defaults give 109,824 triangles with 12 rods. → (vertices (V, 3)
+    float32, faces (F, 3) int32), the parts overlapping as the shapes do."""
+    center = _sphere_center(cfg, frame_idx)
+    parts = [_ring_mesh(np.repeat(center[None], sphere_rings - 1, 0),
+                        np.pi * np.arange(1, sphere_rings) / sphere_rings, np.array([0.0, 0.0, 1.0]),
+                        cfg.sphere_radius, sphere_segments)]
+    cap = 0.5 * np.pi * np.arange(1, rod_rings + 1) / rod_rings
+    for rod_dir in _rod_directions(cfg.num_rods) if cfg.num_rods else ():
+        p0 = center + rod_dir * cfg.sphere_radius * 0.8
+        p1 = center + rod_dir * (cfg.sphere_radius + cfg.rod_length)
+        centers = np.concatenate([np.repeat(p1[None], rod_rings, 0), np.repeat(p0[None], rod_rings, 0)])
+        parts.append(_ring_mesh(centers, np.concatenate([cap, np.pi - cap[::-1]]), rod_dir, cfg.rod_radius,
+                                rod_segments))
+    vertices, faces, base = [], [], 0
+    for v, f in parts:
+        vertices.append(v)
+        faces.append(f + base)
+        base += len(v)
+    return np.concatenate(vertices).astype(np.float32), np.concatenate(faces).astype(np.int32)
+
+
 @torch.no_grad()
 def occupancy_grid(cfg: SyntheticSceneConfig, center_scaled: np.ndarray, scene_scale: float, device) -> np.ndarray:
     """Occupancy grid over the canonical [-0.5, 0.5] cube, 255 inside the

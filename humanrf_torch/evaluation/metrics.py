@@ -11,6 +11,8 @@ Counterpart of `humanrf_tpu/evaluation/metrics.py`, with the same numbers:
   (`HUMANRF_TPU_LPIPS_WEIGHTS`, else ~/.cache/humanrf_tpu/lpips_alex.npz)
   when the file exists, and otherwise draws the same seeded random weights,
   reported as `lpips_randfeat`: a proxy, never named "lpips";
+- `lpips_convert_weights` writes that file from the pip `lpips` package's
+  pretrained AlexNet, the JAX package's converter's npz;
 - `bounding_rect` is `cv2.boundingRect` of a mask's non-zero pixels.
 """
 from __future__ import annotations
@@ -116,6 +118,28 @@ def _default_weights_path() -> Path:
     if env:
         return Path(env)
     return Path.home() / ".cache" / "humanrf_tpu" / "lpips_alex.npz"
+
+
+def lpips_convert_weights(out_path: Path | None = None) -> Path:
+    """Convert the pretrained weights of the pip `lpips` package (LPIPS-v0.1,
+    AlexNet) into the npz that `LpipsModel` reads: `conv{i}_w`, `conv{i}_b`
+    for the five convolutions in order and `lin{i}_w` for the five linear
+    heads (their 1×1 weights flattened). Needs `lpips` installed."""
+    import lpips as lpips_pkg  # optional dependency
+
+    model = lpips_pkg.LPIPS(net="alex", version="0.1")
+    arrays = {}
+    convs = [m for part in (model.net.slice1, model.net.slice2, model.net.slice3, model.net.slice4,
+                            model.net.slice5) for m in part if isinstance(m, torch.nn.Conv2d)]
+    for i, conv in enumerate(convs):
+        arrays[f"conv{i}_w"] = conv.weight.detach().numpy()
+        arrays[f"conv{i}_b"] = conv.bias.detach().numpy()
+    for i, lin in enumerate(model.lins):
+        arrays[f"lin{i}_w"] = lin.model[-1].weight.detach().numpy()[:, :, 0, 0].reshape(-1)
+    out_path = out_path or _default_weights_path()
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out_path, **arrays)
+    return out_path
 
 
 class LpipsModel:

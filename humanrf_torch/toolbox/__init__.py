@@ -1,1 +1,2 @@
-"""Offline tools: occupancy carving, dataset import and scene exporters."""
+"""Offline tools: occupancy carving, the mesh renderer and the Alembic
+extractor, dataset import and scene exporters."""

@@ -22,6 +22,8 @@ NEW_MODULES = {
     "humanrf_torch.toolbox.export_ngp", "humanrf_torch.toolbox.write_alembic", BLENDER_ONLY,
     "humanrf_torch.parallel.mesh", "humanrf_torch.parallel.fsdp", "humanrf_torch.parallel.launch",
     "humanrf_torch.parallel.collectives", "humanrf_torch.parallel.feed", "humanrf_torch.parallel.harness",
+    "humanrf_torch.ops.rasterize", "humanrf_torch.toolbox.mesh_io", "humanrf_torch.toolbox.mesh_renderer",
+    "humanrf_torch.toolbox.alembic_extractor",
 }
 
 

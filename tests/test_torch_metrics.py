@@ -6,6 +6,7 @@ random-feature LPIPS proxy runs AlexNet in fp32 in both frameworks (XLA's
 and PyTorch's CPU convolutions sum in other orders): 1e-5 relative.
 `bounding_rect` equals `cv2.boundingRect`."""
 import contextlib
+import sys
 
 import cv2
 import numpy as np
@@ -69,6 +70,66 @@ def test_lpips_reads_pretrained_weights_from_the_jax_path(tmp_path, monkeypatch)
     assert tm.is_pretrained and tm.metric_name == "lpips"
     pred, gt = _pair(70, 64, seed=5)
     assert tm(pred, gt) == pytest.approx(jm(pred, gt), rel=1e-5)
+
+
+def _stub_lpips_module():
+    """A stand-in for the pip `lpips` package: `LPIPS(net="alex")` with
+    AlexNet's `net.slice1..5` (the layers of torchvision's AlexNet features,
+    split as lpips splits them) and five `lins` whose `model[-1]` is the 1×1
+    head, all with seeded random weights."""
+    import types
+
+    from torch import nn
+
+    class NetLin(nn.Module):
+        def __init__(self, channels):
+            super().__init__()
+            self.model = nn.Sequential(nn.Dropout(), nn.Conv2d(channels, 1, 1, bias=False))
+            self.model[-1].weight.data.abs_()  # trained LPIPS heads are non-negative
+
+    class Alex(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.slice1 = nn.Sequential(nn.Conv2d(3, 64, 11, 4, 2), nn.ReLU())
+            self.slice2 = nn.Sequential(nn.MaxPool2d(3, 2), nn.Conv2d(64, 192, 5, padding=2), nn.ReLU())
+            self.slice3 = nn.Sequential(nn.MaxPool2d(3, 2), nn.Conv2d(192, 384, 3, padding=1), nn.ReLU())
+            self.slice4 = nn.Sequential(nn.Conv2d(384, 256, 3, padding=1), nn.ReLU())
+            self.slice5 = nn.Sequential(nn.Conv2d(256, 256, 3, padding=1), nn.ReLU())
+
+    class LPIPS(nn.Module):
+        def __init__(self, net="alex", version="0.1"):
+            super().__init__()
+            assert (net, version) == ("alex", "0.1")
+            self.net = Alex()
+            self.lins = nn.ModuleList(NetLin(c) for c in (64, 192, 384, 256, 256))
+
+    module = types.ModuleType("lpips")
+    module.LPIPS = LPIPS
+    return module
+
+
+def test_lpips_converter_writes_the_jax_converters_npz(tmp_path, monkeypatch):
+    """Both converters on the same (stub) pretrained model write the same
+    arrays under the same keys, and the port's metric loads the file as
+    pretrained LPIPS."""
+    stub = _stub_lpips_module()
+    monkeypatch.setitem(sys.modules, "lpips", stub)
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        model = stub.LPIPS()
+    monkeypatch.setattr(stub, "LPIPS", lambda **kw: model)  # one set of weights for both converters
+    j_path = j_metrics.lpips_convert_weights(tmp_path / "jax" / "lpips_alex.npz")
+    t_path = t_metrics.lpips_convert_weights(tmp_path / "torch" / "lpips_alex.npz")
+    j_npz, t_npz = dict(np.load(j_path)), dict(np.load(t_path))
+    expected = {f"{name}{i}_{part}" for i in range(5) for name, part in (("conv", "w"), ("conv", "b"), ("lin", "w"))}
+    assert t_npz.keys() == j_npz.keys() == expected
+    for key, value in j_npz.items():
+        assert t_npz[key].dtype == value.dtype and np.array_equal(t_npz[key], value), key
+    monkeypatch.setenv("HUMANRF_TPU_LPIPS_WEIGHTS", str(t_path))
+    tm, jm = t_metrics.LpipsModel.load_or_init(), j_metrics.LpipsModel.load_or_init()
+    assert tm.is_pretrained and tm.metric_name == "lpips"
+    pred, gt = _pair(70, 64, seed=6)
+    assert tm(pred, gt) > 0 and tm(pred, gt) == pytest.approx(jm(pred, gt), rel=1e-5)
 
 
 @pytest.mark.parametrize("case", ["blob", "corner", "empty", "full"])
