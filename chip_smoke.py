@@ -28,7 +28,11 @@ compute the field's corners from the sample coordinates themselves:
 - the mesh tools: the subject of the r4 scene as meshes, through an
   Alembic archive and the port's extractor, rasterized into masks and
   depth maps by the hand-written `mesh_raster` kernels, through the mesh
-  renderer's CLI and on to the occupancy carve.
+  renderer's CLI and on to the occupancy carve;
+- the protocol drivers (`humanrf_torch/protocol/`), each through its own
+  entry point and cut to fit: the evaluate phase of the banked best.ckpt,
+  the parallax probe, the four-segment run, the reference-capacity field
+  (T = 2^22 per level) and the throughput probe.
 
 The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
 math ("the old path"), is off the main path; phases 3-5 time it beside the
@@ -180,12 +184,37 @@ Phases, each of which raises on failure:
    scene's: occupied-voxel IoU ≥ MESH_CARVE_IOU_MIN;
    (d) frame 0 in RIG_CAMERAS cameras (`make_cameras` of the r4 scene, the
    ActorsHQ rig's count) at 748²: cameras RIG_CHECK_CAMERAS bit-equal to
-   the plain version; ms per view.
+   the plain version; ms per view;
+11. the protocol drivers, each run in this process with its CLI commands
+   in this process too (`drivers_in_process`), so that the launches are
+   counted here:
+   (a) `finish_phases --skip-trajectory` from the banked best.ckpt on phase
+   6's scene (stamped as full_schedule's cache): the 17 Cam012 frames of
+   siggraph_test coverage, each row's masked PSNR within EVAL_PSNR_SLACK of
+   the banked JAX metrics.csv row, the mean SSIM within EVAL_SSIM_SLACK of
+   the banked mean; per-frame deltas, and the PSNR of the port's renders of
+   EVAL_IMAGE_FRAMES against the banked JAX renders; the random-feature
+   LPIPS on the card within LPIPS_TOL of the CPU's;
+   (b) `parallax_probe` at PARALLAX_FRAMES, eight views: every row finite,
+   the 330° replica's masked PSNR within EVAL_PSNR_SLACK of (a)'s frame-0
+   row;
+   (c) `multiseg` at MULTISEG_SIZE², 100 frames, MULTISEG_STEPS steps and
+   one validation: segments [25, 25, 25, 25], finite losses, the mean of the
+   last 10 below that of the first 10, the checkpoint reloaded into a fresh
+   model; ms and launches per step beside phase 6's two-segment step;
+   (d) `quality_at_capacity`'s gather-ref-capacity arm (T = 2^22) at
+   CAPACITY_SIZE², CAPACITY_FRAMES frames, CAPACITY_STEPS steps without
+   validation or saves: each field_interp kernel at step 0's render query
+   against its plain version (phase 3's bars), a finite step-0 loss, no
+   skipped update; peak memory and ms per step;
+   (e) `throughput_probe`, THROUGHPUT_STEPS steps resumed from the banked
+   step_00050000.ckpt: ms per step and rays/s.
 
 The last three lines of output are the kernel table as JSON (the six
 kernels: `field_interp` forward and backward, with `launches` counted over
-phase 9, summed over its ranks, each phase's counts beside them, their phase-3 times at the r4
-shapes and their phase-7(b) times at the dense ones under "dense"; the
+phase 11, each phase's counts beside them, their phase-3 times at the r4
+shapes, their phase-7(b) times at the dense ones under "dense" and their
+11(d) times at T = 2^22 under "ref_capacity"; the
 earlier `fused_interp` design, launched by phase 3 only; `mesh_project`
 and `mesh_raster`, with `launches` counted over 10(b), their times per
 view at 10(b)'s frames and 10(d)'s under "rig_ms"), the card's name and
@@ -219,7 +248,8 @@ from humanrf_torch.configs.args import parse_args
 from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.data.loader import DataLoader
 from humanrf_torch.core.camera import write_calibration_csv
-from humanrf_torch.core.synthetic import make_cameras, render_cameras, subject_mesh
+from humanrf_torch.core.synthetic import GENERATOR_VERSION, make_cameras, render_cameras, subject_mesh
+from humanrf_torch.evaluation.metrics import LpipsModel
 from humanrf_torch.models import decomposition4d, fused_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
@@ -230,10 +260,13 @@ from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.parallel import harness
 from humanrf_torch.parallel.launch import launch
 from humanrf_torch.parallel.mesh import shard_pipeline_config
+from humanrf_torch.protocol import finish_phases, multiseg, parallax_probe, quality_at_capacity, supervisor
+from humanrf_torch.protocol import throughput_probe
 from humanrf_torch.r4 import NUM_FRAMES, PAPER_DENSE_FLAGS, R4_SCENE, r4_flags, write_scene
 from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
 from humanrf_torch.train.checkpoint import load_checkpoint
 from humanrf_torch.train import pipeline
+from humanrf_torch.train import trainer as trainer_module
 from humanrf_torch.train.pipeline import make_train_step
 from humanrf_torch.toolbox import alembic_extractor, mesh_io, mesh_renderer
 from humanrf_torch.toolbox import generate_occupancy_grids_from_masks as occ
@@ -295,7 +328,7 @@ AB_WARM_STEPS = 2          # phase 5's old/new windows: steps before each timed 
 AB_STEPS = 10              # phase 5's old/new windows: timed steps each
 
 EARLY_STEPS = 20           # phases 6 and 7(c): the first CLI run, validated and saved at its end
-CLI_STEPS = 300            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
+CLI_STEPS = 200            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
 RESUME_STEPS = 20          # phases 6 and 7(c): steps of the resumed run
 
 # Phase 7(a): the r4 run's dense settings (runs_evidence/r4_full_schedule_748/
@@ -368,6 +401,22 @@ MESH_CLI_FRAMES = (0, 12, 25, 37, 49)
 MESH_CARVE_IOU_MIN = 0.95        # occupied voxels, the carve of the mesh's masks against that of the scene's
 RIG_CAMERAS = 160                # the ActorsHQ rig's count
 RIG_CHECK_CAMERAS = (0, 53, 106, 159)
+# Phase 11: the protocol drivers (humanrf_torch/protocol/), cut to fit.
+EVAL_PSNR_SLACK = 0.5            # dB, each evaluate row's masked PSNR against the banked JAX row (phase 4's bar)
+EVAL_SSIM_SLACK = 0.01           # the evaluate phase's mean SSIM against the banked JAX mean
+EVAL_IMAGE_FRAMES = (0, 3, 6)    # the banked JAX renders eval_Cam012_rgb00000{0,3,6}.png
+PARALLAX_FRAMES = (0,)
+# 11(c) and 11(d) train 40 steps: the trainer times 20-step windows after
+# step 20, so 40 is the least run with an ms per step.
+MULTISEG_STEPS = 40
+MULTISEG_SIZE = 192
+CAPACITY_STEPS = 40
+CAPACITY_SIZE = 384
+CAPACITY_CONFIG = "gather-ref-capacity"  # L16/F2, log2 24
+CAPACITY_T = 1 << 22             # its table rows per level on one 25-frame segment
+CAPACITY_FRAMES = 25
+THROUGHPUT_STEPS = 200
+LPIPS_TOL = 1e-5                 # relative, the random-feature LPIPS on the card against the CPU
 # Operations per fragment (the pixel centre, w0, w1, w2, iz and 1/z) and per
 # (camera, triangle) of setup (the box, the area and 1/area), and per
 # (camera, vertex) of the projection.
@@ -541,11 +590,13 @@ def old_path(tables, xyzt, spec):
     return fi.fused_interp(tables, *fli.corner_idx_w(xyzt, spec, tables.shape[2]))
 
 
-def field_check(direction: str, dims: dict, kernel, plain, reference, old=None) -> dict:
+def field_check(direction: str, dims: dict, kernel, plain, reference, old=None, table_entries=None) -> dict:
     """One field_interp kernel call against `reference` (its plain version,
     the backward's summed in fp64) at `dims` (shape, positions, P, C, F, T,
     N); raises past KERNEL_TOL. Its time beside its plain version's, the old
-    path's when given (in turns: old, new, new, old) and its bound → the row."""
+    path's when given (in turns: old, new, new, old) and its bound → the row.
+    The bound reads `table_entries` table rows (default all P·T): a forward
+    whose samples touch far fewer rows than the tables hold needs only those."""
     out, ref = kernel(), reference()
     torch.cuda.synchronize()
     err = float((out.double() - ref).abs().max())
@@ -561,7 +612,8 @@ def field_check(direction: str, dims: dict, kernel, plain, reference, old=None) 
         turns[which].append(time_ms(kernel if which == "new" else old, iters=10))
     ms = float(np.mean(turns["new"]))
     # xyzt 16 B per sample, tables or g in, out or dtab out.
-    bound_ms, bound_by = bound(16 * N + 4 * P * F_ * T + 4 * P * F_ * N, P * N * (CORNER_OPS[C] + 2 * C * F_))
+    rows = P * T if table_entries is None else table_entries
+    bound_ms, bound_by = bound(16 * N + 4 * F_ * rows + 4 * P * F_ * N, P * N * (CORNER_OPS[C] + 2 * C * F_))
     log(f"kernel field_interp_{direction} {where}: max|err| {err:.3e} (scaled {scaled:.3e}"
         f"{f', bit-exact {exact}' if direction == 'fwd' else ' against the fp64 sum'}), kernel "
         f"{', '.join(f'{t:.4f}' for t in turns['new'])} ms"
@@ -886,6 +938,10 @@ def write_r4_scene(device, root: Path) -> Path:
         raise AssertionError(f"a written JPEG decodes {jpeg_psnr:.2f} dB from its render (< {JPEG_PSNR_MIN})")
     if sizes != [25, 25]:
         raise AssertionError(f"adaptive partitioning of the r4 scene gave {sizes}, not [25, 25]")
+    # R4_SCENE is full_schedule's 748² × 50-frame scene: stamped as its
+    # cache stamps it, the protocol drivers of phase 11 reuse it.
+    (scene / "scene_meta.json").write_text(json.dumps({"size": R4_SCENE.width, "frames": NUM_FRAMES,
+                                                       "generator_version": GENERATOR_VERSION}))
     return scene
 
 
@@ -2000,6 +2056,297 @@ def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
     ]
 
 
+# ------------------------------------------------------------------ phase 11
+
+
+@contextlib.contextmanager
+def drivers_in_process():
+    """The protocol drivers' supervised CLI commands run in this process
+    (`cli.main`, the command's flags), their output appended to the
+    driver's log, so that the launch counts are this process's → the list
+    of `cli.main` results, one per command, each with its flags ("argv")."""
+    results = []
+
+    def run(cmd, log, env, cwd, **kwargs):
+        if cmd[1:3] != ["-m", "humanrf_torch.run"]:
+            raise AssertionError(f"a driver ran {cmd[:3]}, not the port's CLI")
+        with open(log, "a") as out, contextlib.redirect_stdout(out):
+            results.append({**cli.main(cmd[3:]), "argv": cmd[3:]})
+        return 0, 0
+
+    with mock.patch.object(supervisor, "supervise", run):
+        yield results
+
+
+@contextlib.contextmanager
+def recorded_losses():
+    """The loss of every training step the CLI takes, kept on the device →
+    the list of losses."""
+    losses, real = [], trainer_module.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def recorded(*step_args):
+            loss, aux = step(*step_args)
+            losses.append(loss.detach())
+            return loss, aux
+
+        return recorded
+
+    with mock.patch.object(trainer_module, "make_train_step", make):
+        yield losses
+
+
+@contextlib.contextmanager
+def first_render_query():
+    """The (N, 4) coordinates of the first field query made with autograd on
+    (step 0's render pass) → a dict that holds them under "xyzt"."""
+    captured, field = {}, decomposition4d.apply_decomposition4d_fused
+
+    def capture(params, xyz, times, field_cfg, tables=None):
+        if torch.is_grad_enabled() and "xyzt" not in captured:
+            captured["xyzt"] = torch.cat([xyz, times], dim=-1).detach().clone().contiguous()
+        return field(params, xyz, times, field_cfg, tables)
+
+    with mock.patch.object(decomposition4d, "apply_decomposition4d_fused", capture):
+        yield captured
+
+
+def counted(name: str, fn, backward: bool):
+    """`fn()` with the field_interp counts set to 0 before and read after →
+    (its result, the launches); raises unless both directions (or, without
+    `backward`, the forward alone) launched and `fused_interp` did not."""
+    torch.cuda.synchronize()
+    fli.reset_launches()
+    fi.reset_launches()
+    result = fn()
+    torch.cuda.synchronize()
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    if not (launches["fwd"] > 0 and (launches["bwd"] > 0) == backward) or old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"{name} launched field_interp {launches}, fused_interp {old_launches}")
+    return result, launches
+
+
+def read_csv(path: Path) -> list:
+    lines = path.read_text().strip().splitlines()
+    keys = lines[0].split(",")
+    return [dict(zip(keys, line.split(","))) for line in lines[1:]]
+
+
+def evaluate_phase(scene: Path, tmp: Path, device) -> tuple:
+    """11(a): `finish_phases` (evaluate only) from the banked best.ckpt on
+    phase 6's scene → (Cam012 frame 0's masked PSNR, the launches)."""
+    root = tmp / "finish_phases"
+    (root / "workspace" / "checkpoints").mkdir(parents=True)
+    (root / "scene").symlink_to(scene)
+    shutil.copyfile(RUN_DIR / "best.ckpt", root / "workspace" / "checkpoints" / "best.ckpt")
+    t0 = time.perf_counter()
+    with drivers_in_process():
+        phases, launches = counted("11(a) evaluate", lambda: finish_phases.main(
+            ["--root", str(root), "--skip-trajectory", "--device", device.type]), backward=False)
+    wall = time.perf_counter() - t0
+    results = root / "workspace" / "results"
+    port = {(r["camera"], r["frame"]): r for r in read_csv(results / "metrics.csv")}
+    banked = {(r["camera"], r["frame"]): r for r in read_csv(RUN_DIR / "metrics.csv")}
+    if sorted(port) != sorted(banked):
+        raise AssertionError(f"the evaluate phase scored {sorted(port)}, the banked run {sorted(banked)}")
+    deltas = {key: float(port[key]["PSNR"]) - float(banked[key]["PSNR"]) for key in banked}
+    ssim = float(np.mean([float(r["SSIM"]) for r in port.values()]))
+    banked_ssim = float(read_csv(RUN_DIR / "averages.csv")[0]["SSIM"])
+    log(f"11(a) evaluate: {len(port)} Cam012 frames from best.ckpt in {wall:.1f} s wall "
+        f"({phases['evaluate']['wall_s']} s in finish_phases); field_interp launches {launches}; masked PSNR − "
+        "banked JAX per frame: " + ", ".join(f"{int(f)}: {d:+.3f}" for (_, f), d in
+                                            sorted(deltas.items(), key=lambda kv: int(kv[0][1])))
+        + f" dB (max |Δ| {max(abs(d) for d in deltas.values()):.3f}, bar {EVAL_PSNR_SLACK}); mean masked PSNR "
+        f"{np.mean([float(r['PSNR']) for r in port.values()]):.4f} dB (banked 19.2234); mean SSIM {ssim:.4f} "
+        f"(banked {banked_ssim:.4f}, bar ±{EVAL_SSIM_SLACK})")
+    images = {}
+    for frame in EVAL_IMAGE_FRAMES:
+        name = f"Cam012_rgb{frame:06d}.png"
+        ours, theirs = image_io.imread(results / "test_frames" / name), image_io.imread(RUN_DIR / f"eval_{name}")
+        images[frame] = psnr(ours / 255.0, theirs / 255.0)
+    log("11(a): PSNR(port render, banked JAX render): " + ", ".join(f"frame {f} {v:.2f} dB" for f, v in images.items()))
+    bad = {key: d for key, d in deltas.items() if not abs(d) <= EVAL_PSNR_SLACK}
+    if bad:
+        raise AssertionError(f"evaluate rows off the banked JAX rows by more than {EVAL_PSNR_SLACK} dB: {bad}")
+    if not abs(ssim - banked_ssim) <= EVAL_SSIM_SLACK:
+        raise AssertionError(f"mean SSIM {ssim:.4f} against the banked {banked_ssim:.4f}")
+
+    # The random-feature LPIPS on the card against the CPU, on frame 0's ROI.
+    pred = image_io.imread(results / "test_frames" / "Cam012_rgb000000.png")[..., ::-1] / 255.0
+    gt = image_io.imread(scene / "SynthActor" / "Sequence1" / "1x" / "rgbs" / "Cam012" / "Cam012_rgb000000.jpg")[..., ::-1] / 255.0
+    lpips = {where: LpipsModel.load_or_init(where) for where in (device, "cpu")}
+    on_card, on_cpu = (model(pred, gt) for model in lpips.values())
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    log(f"11(a): LPIPS ({lpips['cpu'].metric_name}) of frame 0 on the card {on_card:.8f}, on the CPU {on_cpu:.8f} "
+        f"(rel {rel:.2e}, bar {LPIPS_TOL})")
+    if not rel < LPIPS_TOL:
+        raise AssertionError(f"LPIPS on the card differs from the CPU's by {rel:.2e} relative")
+    return float(port[("12", "0")]["PSNR"]), launches
+
+
+def parallax_phase(tmp: Path, frame0_psnr: float, device) -> dict:
+    """11(b): `parallax_probe` at PARALLAX_FRAMES, eight views → the launches."""
+    root = tmp / "parallax_probe"
+    t0 = time.perf_counter()
+    rows, launches = counted("11(b) parallax", lambda: parallax_probe.main(
+        ["--frames", *map(str, PARALLAX_FRAMES), "--size", str(R4_SCENE.width), "--root", str(root),
+         "--device", device.type]), backward=False)
+    wall = time.perf_counter() - t0
+    log(f"11(b) parallax probe: {len(rows)} views in {wall:.1f} s wall (the probe scene written included); "
+        f"field_interp launches {launches}")
+    for line in parallax_probe.summary(rows):
+        log(f"11(b): {line}")
+    replica = [r for r in rows if r["azimuth_deg"] == parallax_probe.TEST_DEG and r["frame"] == 0][0]
+    log(f"11(b): the 330° replica's masked PSNR {replica['psnr_masked']:.3f} dB, 11(a)'s Cam012 frame 0 "
+        f"{frame0_psnr:.3f} dB")
+    if len(rows) != len(parallax_probe.probe_angles_deg()) * len(PARALLAX_FRAMES) or not all(
+            np.isfinite([r[k] for r in rows for k in ("psnr_roi", "psnr_masked", "ssim")])):
+        raise AssertionError(f"parallax rows are not finite or not one per view: {rows}")
+    if not abs(replica["psnr_masked"] - frame0_psnr) <= EVAL_PSNR_SLACK:
+        raise AssertionError("the test camera's replica is off 11(a)'s frame-0 row by more than "
+                             f"{EVAL_PSNR_SLACK} dB")
+    return launches
+
+
+def steps_of(stats: dict) -> int:
+    return stats["end_step"] - stats["start_step"]
+
+
+def per_step(launches: dict, steps: int) -> str:
+    return f"{launches['fwd'] / steps:.1f} forward + {launches['bwd'] / steps:.1f} backward"
+
+
+def multiseg_phase(tmp: Path, device, r4_stats: dict) -> dict:
+    """11(c): `multiseg` at MULTISEG_SIZE² over 100 frames, MULTISEG_STEPS
+    steps and one validation → the launches."""
+    root = tmp / "multiseg"
+    t0 = time.perf_counter()
+    with drivers_in_process() as runs, recorded_losses() as losses:
+        result, launches = counted("11(c) multiseg", lambda: multiseg.main(
+            ["--steps", str(MULTISEG_STEPS), "--size", str(MULTISEG_SIZE), "--validate-every", str(MULTISEG_STEPS),
+             "--root", str(root), "--device", device.type]), backward=True)
+    wall = time.perf_counter() - t0
+    stats = runs[0]["train"]
+    loss = torch.stack(losses).cpu().numpy()
+    early, late = float(loss[:10].mean()), float(loss[-10:].mean())
+    blocks = result["validation_blocks"]
+    log(f"11(c) multiseg: segments {result['segment_sizes']}, {len(loss)} steps in {wall:.1f} s wall (the 100-frame "
+        f"scene written included); loss first 10 {early:.5f}, last 10 {late:.5f}; validation {blocks}; "
+        f"{stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed), field_interp launches per step "
+        f"{per_step(stats['field_interp_launches'], steps_of(stats))} (1,024 rays from 2× candidates, Kc 16, Kf 8); "
+        f"phase 6's [25, 25] r4 step: {r4_stats['ms_per_step']:.2f} ms, "
+        f"{per_step(r4_stats['field_interp_launches'], steps_of(r4_stats))} (8,192 rays, Kc 32, Kf 16)")
+    if result["segment_sizes"] != [25, 25, 25, 25]:
+        raise AssertionError(f"the 100-frame scene partitioned into {result['segment_sizes']}")
+    if len(loss) != steps_of(stats) or not np.isfinite(loss).all() or not late < early:
+        raise AssertionError(f"multiseg losses: {loss}")
+    if len(blocks) != 1 or not np.isfinite(blocks[0]["psnr"]):
+        raise AssertionError(f"multiseg validation blocks: {blocks}")
+    # The checkpoint in a fresh model of the same flags.
+    config = parse_args(runs[0]["argv"])
+    params, _, step, _, _ = load_checkpoint(root / "ws" / "checkpoints" / f"step_{MULTISEG_STEPS:08d}.ckpt")
+    fresh = cli.build_model(config, result["segment_sizes"], device)
+    fresh.load_state_dict(convert_params(params))
+    if step != MULTISEG_STEPS or not all(torch.isfinite(p).all() for p in fresh.parameters()):
+        raise AssertionError(f"the step-{step} checkpoint did not reload into a finite model")
+    log(f"11(c): step_{MULTISEG_STEPS:08d}.ckpt reloaded into a fresh 4-segment model "
+        f"({sum(p.numel() for p in fresh.parameters())} parameters)")
+    return launches
+
+
+def capacity_phase(tmp: Path, device) -> tuple:
+    """11(d): `quality_at_capacity`'s gather-ref-capacity arm (L16/F2, log2
+    24: T = 2^22 on one 25-frame segment) at CAPACITY_SIZE² for
+    CAPACITY_STEPS steps, no validation and no save; each field_interp
+    kernel at step 0's render query against its plain version → (the
+    launches, {direction: [rows]})."""
+    root = tmp / "quality_sweep"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    never = str(10 * CAPACITY_STEPS)
+    with drivers_in_process() as runs, first_render_query() as query:
+        results, launches = counted("11(d) reference capacity", lambda: quality_at_capacity.main(
+            ["--size", str(CAPACITY_SIZE), "--frames", str(CAPACITY_FRAMES), "--steps", str(CAPACITY_STEPS),
+             "--only", CAPACITY_CONFIG, "--root", str(root), "--device", device.type,
+             "--extra", f"--training.save_checkpoint_every_n_steps {never} --validation.every_n_steps {never}"]),
+            backward=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats, segments = runs[0]["train"], runs[0]["segment_sizes"]
+    _, log2, levels, features, _ = quality_at_capacity.CONFIGS[CAPACITY_CONFIG]
+    model_cfg = HumanRFConfig(sorted_frame_numbers=tuple(range(CAPACITY_FRAMES)), segment_sizes=tuple(segments),
+                              log2_hashmap_size=log2, n_levels=levels, n_features_per_level=features,
+                              finest_resolution=2048)
+    seg = segment_grid_config(model_cfg, segments[0])
+    T = seg.grid.table_size
+    log(f"11(d) reference capacity: segments {segments}, T = 2^{T.bit_length() - 1} per level; {steps_of(stats)} "
+        f"steps in {wall:.1f} s wall (the scene written included); step-0 loss {stats['first_loss']:.6f}; "
+        f"{stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed); skipped updates "
+        f"{stats['skipped_nonfinite']}; peak memory {peak:.2f} GiB; field_interp launches per step "
+        f"{per_step(stats['field_interp_launches'], steps_of(stats))}; {results[0]}")
+    if segments != [CAPACITY_FRAMES] or T != CAPACITY_T:
+        raise AssertionError(f"the reference-capacity arm ran segments {segments} at T = {T}")
+    if not np.isfinite(stats["first_loss"]) or stats["skipped_nonfinite"] != 0:
+        raise AssertionError(f"step-0 loss {stats['first_loss']}, {stats['skipped_nonfinite']} updates skipped")
+
+    xyzt = query["xyzt"]
+    N = xyzt.shape[0]
+    gen = torch.Generator(device).manual_seed(0)
+    rows = {"fwd": [], "bwd": []}
+    for name, spec, P, F_, table in (
+            ("grids", fli.grid_spec(seg.grid), 4 * seg.grid.n_levels, seg.grid.n_features_per_level, T),
+            ("vectors", fli.VECTOR_SPEC, 4, seg.grid.feature_dim, seg.vectors_finest_resolution)):
+        C = 8 if spec.mode == fli.MODE_GRID else 2
+        tables = torch.randn((P, F_, table), generator=gen, device=device)
+        g = torch.randn((P, F_, N), generator=gen, device=device)
+        idx, _ = fli.corner_idx_w(xyzt, spec, table)
+        touched = int(torch.unique(idx.long() + torch.arange(P, device=device)[:, None, None] * table).numel())
+        dims = {"shape": name, "positions": "real", "P": P, "C": C, "F": F_, "T": table, "N": N}
+        rows["fwd"].append(field_check(
+            "fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
+            lambda: fli.field_interp_plain(tables, xyzt, spec), table_entries=touched))
+        rows["bwd"].append(field_check(
+            "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, table),
+            lambda: fli.field_interp_bwd_plain(g, xyzt, spec, table),
+            lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, table)))
+        log(f"11(d): the {name}' samples touch {touched} of {P * table} table rows")
+        del tables, g
+    return launches, rows
+
+
+def throughput_phase(scene: Path, tmp: Path, device) -> dict:
+    """11(e): `throughput_probe`, THROUGHPUT_STEPS steps resumed from the
+    banked step_00050000.ckpt on phase 6's scene → the launches."""
+    t0 = time.perf_counter()
+    with drivers_in_process() as runs:
+        result, launches = counted("11(e) throughput", lambda: throughput_probe.main(
+            ["--steps", str(THROUGHPUT_STEPS), "--root", str(tmp / "tput_probe"), "--scene-root", str(scene.parent),
+             "--device", device.type]), backward=True)
+    stats = runs[0]["train"]
+    log(f"11(e) throughput probe: resumed step {stats['start_step']} to {stats['end_step']} in "
+        f"{time.perf_counter() - t0:.1f} s wall; {stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed), "
+        f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised, host fetch "
+        f"{100 * stats['fetch_share']:.1f}%; the probe's own reading {result['ms_per_step']} ms, "
+        f"{result['rays_per_s']} rays/s")
+    if stats["start_step"] != throughput_probe.RESUME_STEP or stats["skipped_nonfinite"] != 0:
+        raise AssertionError(f"the throughput probe ran {stats}")
+    return launches
+
+
+def protocol_phase(scene: Path, tmp: Path, device, r4_stats: dict) -> tuple:
+    """Phase 11 → ({sub-phase: launches}, {direction: T = 2^22 rows})."""
+    t0 = time.perf_counter()
+    frame0_psnr, eval_launches = evaluate_phase(scene, tmp, device)
+    launches = {"evaluate": eval_launches, "parallax": parallax_phase(tmp, frame0_psnr, device),
+                "multiseg": multiseg_phase(tmp, device, r4_stats)}
+    launches["ref_capacity"], capacity_rows = capacity_phase(tmp, device)
+    launches["throughput"] = throughput_phase(scene, tmp, device)
+    log(f"11: protocol phase in {time.perf_counter() - t0:.1f} s")
+    return launches, capacity_rows
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -2124,20 +2471,25 @@ def main() -> int:
         # Phase 10: the mesh tools.
         mesh_records = mesh_phase(scene, Path(tmp), device, smi)
 
+        # Phase 11: the protocol drivers.
+        protocol_launches, capacity_rows = protocol_phase(scene, Path(tmp), device, cli_stats)
+
     by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches,
                 "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches,
-                "trajectory": trajectory_launches, "light_bloom_cli": bloom_launches, **parallel_launches}
+                "trajectory": trajectory_launches, "light_bloom_cli": bloom_launches, **parallel_launches,
+                **protocol_launches}
     records = [
         {
             "name": f"field_interp_{direction}",
             "route": "cuda",
             "source": "humanrf_torch/csrc/field_interp.cu",
             "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
-            "launches": sum(counts[direction] for counts in parallel_launches.values()),
+            "launches": sum(counts[direction] for counts in protocol_launches.values()),
             "launches_by_phase": {phase: counts[direction] for phase, counts in by_phase.items()},
             "library_ms": None,  # no one PyTorch call computes the corners and the lookup
             **new_kernels[direction],
             "dense": dense_records[direction],
+            "ref_capacity": summarize(capacity_rows[direction]),
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
     ] + [

@@ -23,6 +23,14 @@ from humanrf_torch.core.aabb import AabbData, write_aabbs_csv
 from humanrf_torch.core.camera import CameraData, write_calibration_csv
 
 
+# The JAX package's generator version (`humanrf_tpu/core/synthetic.py`),
+# stamped into a cached scene's scene_meta.json by
+# `protocol/common.py::ensure_scene`. Both generators write the same scene
+# (tests/test_torch_synthetic.py), so a cache stamped by either is valid for
+# both; bump it with the JAX package's.
+GENERATOR_VERSION = 3
+
+
 @dataclass
 class SyntheticSceneConfig:
     num_cameras: int = 8

@@ -47,12 +47,15 @@ def evaluate(
     data_folder: Path,
     result_suffix: str = ".png",
     camera_configs_override: Optional[dict] = None,
+    device="cuda",
 ) -> dict:
+    """Score the renders of the coverage's (camera, frame) pairs, write
+    metrics.csv and averages.csv → the averages. LPIPS runs on `device`."""
     cameras_frames = presets.get_render_sequence(
         coverage, camera_preset, list(frame_numbers), camera_configs_override=camera_configs_override
     )
     dataset = VolumetricDataset(data_folder)
-    lpips_model = LpipsModel.load_or_init()
+    lpips_model = LpipsModel.load_or_init(device)
 
     results = defaultdict(list)
     for camera_idx, frame_idx in cameras_frames:

@@ -143,24 +143,26 @@ def lpips_convert_weights(out_path: Path | None = None) -> Path:
 
 
 class LpipsModel:
-    """LPIPS-v0.1 (AlexNet) in torch, on the CPU."""
+    """LPIPS-v0.1 (AlexNet) in torch, on `device` (the card by default, as
+    the JAX package runs it jitted on its accelerator)."""
 
     # Below this size AlexNet's stride-4 conv and two pools leave empty
     # feature maps; smaller ROIs are edge-padded up to it.
     MIN_SIZE = 64
 
-    def __init__(self, weights: Dict[str, np.ndarray], is_pretrained: bool):
-        self.weights = {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in weights.items()}
+    def __init__(self, weights: Dict[str, np.ndarray], is_pretrained: bool, device="cuda"):
+        self.device = torch.device(device)
+        self.weights = {k: torch.tensor(np.asarray(v, dtype=np.float32), device=self.device) for k, v in weights.items()}
         self.is_pretrained = is_pretrained
         self.metric_name = "lpips" if is_pretrained else "lpips_randfeat"
 
     @classmethod
-    def load_or_init(cls) -> "LpipsModel":
+    def load_or_init(cls, device="cuda") -> "LpipsModel":
         """The pretrained weights where the JAX package looks for them, else
-        its seeded random features ('lpips_randfeat')."""
+        its seeded random features ('lpips_randfeat'), on `device`."""
         path = _default_weights_path()
         if path.exists():
-            return cls(dict(np.load(path)), is_pretrained=True)
+            return cls(dict(np.load(path)), is_pretrained=True, device=device)
         rng = np.random.default_rng(0)
         weights = {}
         in_ch = 3
@@ -170,7 +172,7 @@ class LpipsModel:
             weights[f"conv{i}_b"] = np.zeros(out_ch, dtype=np.float32)
             weights[f"lin{i}_w"] = np.abs(rng.standard_normal(out_ch)).astype(np.float32) / out_ch
             in_ch = out_ch
-        return cls(weights, is_pretrained=False)
+        return cls(weights, is_pretrained=False, device=device)
 
     @torch.no_grad()
     def __call__(self, pred: np.ndarray, gt: np.ndarray) -> float:
@@ -181,8 +183,14 @@ class LpipsModel:
             pad = ((0, max(self.MIN_SIZE - h, 0)), (0, max(self.MIN_SIZE - w, 0)), (0, 0))
             pred = np.pad(pred, pad, mode="edge")
             gt = np.pad(gt, pad, mode="edge")
-        x, y = (torch.tensor(np.asarray(a, dtype=np.float32)).permute(2, 0, 1)[None] * 2.0 - 1.0 for a in (pred, gt))
-        return float(_lpips_forward(self.weights, x, y))
+        x, y = (torch.tensor(np.asarray(a, dtype=np.float32), device=self.device).permute(2, 0, 1)[None] * 2.0 - 1.0
+                for a in (pred, gt))
+        # cuDNN convolves in TF32 by default, which moves the metric by ~6e-5
+        # relative on the card; in fp32 it is the CPU's value to ~1e-7.
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            return float(_lpips_forward(self.weights, x, y))
 
 
 def _alex_features(weights, x: torch.Tensor) -> List[torch.Tensor]:

@@ -44,6 +44,23 @@ R4_SCENE = SyntheticSceneConfig(
 )
 
 
+# The r4 model and sampler: what a command that loads an r4 checkpoint must
+# give to build the same model.
+R4_MODEL_FLAGS = [
+    "--model.log2_hashmap_size", "13",
+    "--model.n_levels", "8",
+    "--model.n_features_per_level", "4",
+    "--model.finest_resolution", "2048",
+    "--model.temporal_partitioning", "adaptive",
+    "--model.camera_embedding_dim", "2",
+    "--tpu.field_backend", "fused",
+    "--tpu.sampling", "proposal",
+    "--tpu.proposal_samples_per_ray", "32",
+    "--tpu.render_samples_per_ray", "16",
+    "--tpu.candidate_rays_factor", "2",
+]
+
+
 def r4_flags(scene_root: Path, workspace: Path, steps: int, every: int, device: str = "cuda") -> List[str]:
     """The r4 command's flags, training `steps` steps with validation and
     rolling saves every `every` steps."""
@@ -52,17 +69,7 @@ def r4_flags(scene_root: Path, workspace: Path, steps: int, every: int, device: 
         "--dataset.path", str(scene_root),
         "--workspace", str(workspace),
         "--device", device,
-        "--model.log2_hashmap_size", "13",
-        "--model.n_levels", "8",
-        "--model.n_features_per_level", "4",
-        "--model.finest_resolution", "2048",
-        "--model.temporal_partitioning", "adaptive",
-        "--model.camera_embedding_dim", "2",
-        "--tpu.field_backend", "fused",
-        "--tpu.sampling", "proposal",
-        "--tpu.proposal_samples_per_ray", "32",
-        "--tpu.render_samples_per_ray", "16",
-        "--tpu.candidate_rays_factor", "2",
+        *R4_MODEL_FLAGS,
         "--training.max_steps", str(steps),
         "--training.rays_initial_batch_size", "8192",
         "--training.save_checkpoint_every_n_steps", str(every),

@@ -436,6 +436,7 @@ def run(group, device: torch.device, config) -> dict:
             data_folder=data_folder,
             result_suffix=".png",
             camera_configs_override=camera_configs if config.tpu.synthetic_presets else None,
+            device=device,
         )
     return result
 

@@ -34,7 +34,7 @@ from humanrf_torch.core import morphology
 from humanrf_torch.core.dataset import VolumetricDataset
 
 
-def voxel_centers(res: int, device="cpu") -> torch.Tensor:
+def voxel_centers(res: int, device="cuda") -> torch.Tensor:
     """(res³, 4) float32 homogeneous voxel centres i/(res − 1) − 0.5, in
     [z][y][x]-major order (x varies fastest), built on `device`: fp64 then
     rounded once, the JAX tool's numpy values bit for bit."""
@@ -61,7 +61,7 @@ def _project(projections: torch.Tensor, vox: torch.Tensor) -> torch.Tensor:
     return (fused_pair(0, 2, x, z) + fused_pair(1, 3, y, w)).transpose(1, 2)
 
 
-def _carve(masks, projections, widths, heights, threshold, grid_resolution, device="cpu", chunk=262144):
+def _carve(masks, projections, widths, heights, threshold, grid_resolution, device="cuda", chunk=262144):
     """masks: (C, maxW·maxH) uint8, each camera's dilated mask row-major at
     its own width; projections: (C, 4, 4) world→pixel; widths, heights: (C,).
     → (res³,) uint8 grid, 255 where at least `threshold` cameras see the
@@ -138,7 +138,7 @@ def dilated_masks(dataset: VolumetricDataset, inputs: CarveInputs, frame_number:
 
 
 def carve_frame(dataset: VolumetricDataset, inputs: CarveInputs, frame_number: int, threshold: int,
-                grid_resolution: int, device="cpu") -> np.ndarray:
+                grid_resolution: int, device="cuda") -> np.ndarray:
     """One frame's (res, res, res) uint8 [z][y][x] grid, carved on `device`."""
     masks = dilated_masks(dataset, inputs, frame_number)
     grid = _carve(masks, inputs.projections, inputs.widths, inputs.heights, threshold, grid_resolution, device)
@@ -146,7 +146,7 @@ def carve_frame(dataset: VolumetricDataset, inputs: CarveInputs, frame_number: i
 
 
 def generate_occupancy_grid_from_masks(
-    data_folder: Path, grid_resolution: int, camera_coverage_threshold: int, device="cpu"
+    data_folder: Path, grid_resolution: int, camera_coverage_threshold: int, device="cuda"
 ) -> None:
     """Carve the grid of every available frame into
     `<sequence>/occupancy_grids/occupancy_grid%06d.npz` (key

@@ -291,7 +291,7 @@ class Trainer:
         # function per batch size, with the budgets scaled to it.
         self._render_fns: Dict[int, Callable] = {}
 
-        self.lpips = LpipsModel.load_or_init()
+        self.lpips = LpipsModel.load_or_init(device)
         if not self.lpips.is_pretrained:
             self._log_warning(
                 "No pretrained LPIPS weights found (set HUMANRF_TPU_LPIPS_WEIGHTS to a "
@@ -487,7 +487,9 @@ class Trainer:
                 f"{self.run_stats['ms_per_step']:.2f} ms per step, {self.run_stats['rays_per_s']:.0f} rays/s, "
                 f"{self.run_stats['supervised_rays_per_s']:.0f} supervised rays/s, "
                 f"host fetch {100 * self.run_stats['fetch_share']:.1f}% of the train time, "
-                f"{replaced:.2f} pool images replaced per step"
+                f"{replaced:.2f} pool images replaced per step; field_interp launches "
+                f"fwd {self.run_stats['field_interp_launches']['fwd']} bwd {self.run_stats['field_interp_launches']['bwd']} "
+                f"over {self.step - start_step} steps"
             )
 
     # --------------------------------------------------------------- validate

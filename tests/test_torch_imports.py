@@ -24,6 +24,9 @@ NEW_MODULES = {
     "humanrf_torch.parallel.collectives", "humanrf_torch.parallel.feed", "humanrf_torch.parallel.harness",
     "humanrf_torch.ops.rasterize", "humanrf_torch.toolbox.mesh_io", "humanrf_torch.toolbox.mesh_renderer",
     "humanrf_torch.toolbox.alembic_extractor",
+    *(f"humanrf_torch.protocol.{name}" for name in (
+        "validation_report", "common", "supervisor", "full_schedule", "finish_phases", "quality_at_capacity",
+        "multiseg", "drift_ablation", "parallax_probe", "throughput_probe", "metric_style", "bank", "chain")),
 }
 
 

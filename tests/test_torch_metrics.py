@@ -45,7 +45,7 @@ def test_psnr_and_ssim_equal_jax(shape):
 def test_lpips_randfeat_matches_jax(shape, tmp_path, monkeypatch):
     monkeypatch.setenv("HUMANRF_TPU_LPIPS_WEIGHTS", str(tmp_path / "absent.npz"))
     pred, gt = _pair(*shape, seed=3)
-    tm, jm = t_metrics.LpipsModel.load_or_init(), j_metrics.LpipsModel.load_or_init()
+    tm, jm = t_metrics.LpipsModel.load_or_init(device="cpu"), j_metrics.LpipsModel.load_or_init()
     assert not tm.is_pretrained and tm.metric_name == jm.metric_name == "lpips_randfeat"
     t_val, j_val = tm(pred, gt), jm(pred, gt, normalize=True)
     assert t_val > 0 and t_val == pytest.approx(j_val, rel=1e-5)
@@ -66,7 +66,7 @@ def test_lpips_reads_pretrained_weights_from_the_jax_path(tmp_path, monkeypatch)
     path = tmp_path / "lpips_alex.npz"
     np.savez(path, **weights)
     monkeypatch.setenv("HUMANRF_TPU_LPIPS_WEIGHTS", str(path))
-    tm, jm = t_metrics.LpipsModel.load_or_init(), j_metrics.LpipsModel.load_or_init()
+    tm, jm = t_metrics.LpipsModel.load_or_init(device="cpu"), j_metrics.LpipsModel.load_or_init()
     assert tm.is_pretrained and tm.metric_name == "lpips"
     pred, gt = _pair(70, 64, seed=5)
     assert tm(pred, gt) == pytest.approx(jm(pred, gt), rel=1e-5)
@@ -126,7 +126,7 @@ def test_lpips_converter_writes_the_jax_converters_npz(tmp_path, monkeypatch):
     for key, value in j_npz.items():
         assert t_npz[key].dtype == value.dtype and np.array_equal(t_npz[key], value), key
     monkeypatch.setenv("HUMANRF_TPU_LPIPS_WEIGHTS", str(t_path))
-    tm, jm = t_metrics.LpipsModel.load_or_init(), j_metrics.LpipsModel.load_or_init()
+    tm, jm = t_metrics.LpipsModel.load_or_init(device="cpu"), j_metrics.LpipsModel.load_or_init()
     assert tm.is_pretrained and tm.metric_name == "lpips"
     pred, gt = _pair(70, 64, seed=6)
     assert tm(pred, gt) > 0 and tm(pred, gt) == pytest.approx(jm(pred, gt), rel=1e-5)
@@ -163,11 +163,10 @@ def test_evaluate_writes_the_jax_csvs(synthetic_dataset, tmp_path, monkeypatch):
     for frame in (0, 1, 2):
         gt = cv2.imread(str(data_dir / "rgbs" / "Cam008" / f"Cam008_rgb{frame:06d}.jpg"))
         cv2.imwrite(str(results / "test_frames" / f"Cam008_rgb{frame:06d}.png"), cv2.GaussianBlur(gt, (5, 5), 1.0))
-    out = {}
-    for name, fn in (("jax", j_evaluate), ("torch", t_evaluate)):
-        out[name] = fn(results_directory=results, output_directory=tmp_path / name, coverage="siggraph_test",
-                       camera_preset="siggraph_test", frame_numbers=[0, 1, 2], data_folder=data_dir,
-                       camera_configs_override=configs)
+    args = dict(results_directory=results, coverage="siggraph_test", camera_preset="siggraph_test",
+                frame_numbers=[0, 1, 2], data_folder=data_dir, camera_configs_override=configs)
+    out = {"jax": j_evaluate(output_directory=tmp_path / "jax", **args),
+           "torch": t_evaluate(output_directory=tmp_path / "torch", device="cpu", **args)}
     assert out["torch"].keys() == out["jax"].keys() == {"PSNR", "PSNR_ROI", "SSIM"}
     for k in out["jax"]:
         assert out["torch"][k] == pytest.approx(out["jax"][k], rel=1e-12)

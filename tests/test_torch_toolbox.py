@@ -80,7 +80,7 @@ def test_voxel_centers_are_the_jax_tools(res):
     coords = np.arange(res) / (res - 1) - 0.5
     gz, gy, gx = np.meshgrid(coords, coords, coords, indexing="ij")
     expected = np.stack([gx, gy, gz, np.ones_like(gx)], axis=-1).reshape(-1, 4).astype(np.float32)
-    np.testing.assert_array_equal(t_occ.voxel_centers(res).numpy(), expected)
+    np.testing.assert_array_equal(t_occ.voxel_centers(res, device="cpu").numpy(), expected)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 32])
