@@ -171,12 +171,14 @@ Phases, each of which raises on failure:
    one .abc by `write_alembic.objs_to_abc` and extracted by the port's
    extractor: every extracted mesh equals the written one (vertices within
    rtol 1e-6, faces equal); s per frame of each step;
-   (b) all 600 views rasterized on the card (launches: one of each kernel
-   per frame), each view's mask IoU against the scene's analytic mask ≥
-   MESH_IOU_MIN (min and median printed); at MESH_AB_FRAMES, each kernel
-   against its plain version on the same inputs, and the views against the
-   plain resolve, bit for bit; kernel ms per view (CUDA events), plain ms,
-   fragments per view, the bound and its share;
+   (b) all 600 views rasterized on the card (launches per frame: one
+   `mesh_project`, two `mesh_bin`, one `mesh_raster`), each view's mask IoU
+   against the scene's analytic mask ≥ MESH_IOU_MIN (min and median
+   printed); at MESH_AB_FRAMES, each kernel against its plain version on
+   the same inputs, bit for bit (the projections, the tile lists with each
+   tile's faces sorted, the masks and depths of `mesh_raster`), and the
+   main run's views against them; kernel ms per view (CUDA events), plain ms, fragments and
+   (triangle, tile) pairs per view, each step's bound and its share;
    (c) the mesh renderer's CLI for MESH_CLI_FRAMES with --mask --depth
    into a copy of the scene: every PFM and mask reads back as the kernel's
    view; s per view with the file writes; the carve (128³, threshold 12)
@@ -184,7 +186,14 @@ Phases, each of which raises on failure:
    scene's: occupied-voxel IoU ≥ MESH_CARVE_IOU_MIN;
    (d) frame 0 in RIG_CAMERAS cameras (`make_cameras` of the r4 scene, the
    ActorsHQ rig's count) at 748²: cameras RIG_CHECK_CAMERAS bit-equal to
-   the plain version; ms per view;
+   the plain version; ms per view of each step;
+   (e) the ActorsHQ rig at its full size: RIG_CAMERAS cameras of RIG_12MP
+   (every tenth portrait, so that one pass mixes two image shapes) at
+   RIG_12MP_FRAMES: every kernel against its plain version in all cameras,
+   bit for bit, as in (b); ms per frame and per view of each step, its
+   bound and share, fragments and pairs per view, peak memory; then the
+   renderer's CLI for one frame with --mask (s per view with the PNG
+   writes; two of its masks read back as the kernel's);
 11. the protocol drivers, each run in this process with its CLI commands
    in this process too (`drivers_in_process`), so that the launches are
    counted here:
@@ -215,11 +224,14 @@ kernels: `field_interp` forward and backward, with `launches` counted over
 phase 11, each phase's counts beside them, their phase-3 times at the r4
 shapes, their phase-7(b) times at the dense ones under "dense" and their
 11(d) times at T = 2^22 under "ref_capacity"; the
-earlier `fused_interp` design, launched by phase 3 only; `mesh_project`
-and `mesh_raster`, with `launches` counted over 10(b), their times per
-view at 10(b)'s frames and 10(d)'s under "rig_ms"), the card's name and
-power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
-Usage: python3 chip_smoke.py
+earlier `fused_interp` design, launched by phase 3 only; `mesh_project`,
+`mesh_bin` and `mesh_raster`, with `launches` counted over 10(b), their
+times per view at 10(b)'s frames, 10(d)'s under "rig_ms" and 10(e)'s under
+"rig_12mp_ms"), the card's name and power limit from nvidia-smi, and
+`{"ok": true, "device": {...}}`.
+Usage: python3 chip_smoke.py [--mesh-only]   (--mesh-only: phases 1, 2 and 10
+alone, on a freshly written r4 scene; the kernel table then holds the mesh
+kernels only)
 """
 from __future__ import annotations
 
@@ -401,6 +413,11 @@ MESH_CLI_FRAMES = (0, 12, 25, 37, 49)
 MESH_CARVE_IOU_MIN = 0.95        # occupied voxels, the carve of the mesh's masks against that of the scene's
 RIG_CAMERAS = 160                # the ActorsHQ rig's count
 RIG_CHECK_CAMERAS = (0, 53, 106, 159)
+RIG_12MP = {"width": 4112, "height": 3008}   # the ActorsHQ rig's images (12 MP, the HumanRF paper)
+RIG_12MP_PORTRAIT = tuple(range(0, RIG_CAMERAS, 10))  # every tenth camera portrait, as a rig's calibration mixes them
+RIG_12MP_FRAMES = (0, 25)
+RIG_12MP_PLAIN_CHUNK = 1 << 24   # (triangle, box pixel) pairs per step of the plain version at 12 MP
+MESH_STEPS = ("project", "bin", "raster", "rasterize")
 # Phase 11: the protocol drivers (humanrf_torch/protocol/), cut to fit.
 EVAL_PSNR_SLACK = 0.5            # dB, each evaluate row's masked PSNR against the banked JAX row (phase 4's bar)
 EVAL_SSIM_SLACK = 0.01           # the evaluate phase's mean SSIM against the banked JAX mean
@@ -1826,16 +1843,33 @@ def parallel_phase(device, view, pool, scene: Path, tmp: Path) -> dict:
 # ------------------------------------------------------------------ phase 10
 
 
-def mesh_bytes(params: raster.CameraParams, num_vertices: int, num_faces: int, fragments: int) -> dict:
-    """Bytes each step must move for one frame in every camera: the
-    projection (vertices in, (C, V, 4) out), the raster pass (faces and
-    projections in, the depth buffer's fill and 4 B per fragment's atomic)
-    and the whole `rasterize` (vertices and faces in, the buffer's fill, the
-    resolve's read and its mask and depth written, the atomics)."""
-    C, pixels = params.floats.shape[0], params.total
-    return {"project": 12 * num_vertices + 16 * C * num_vertices,
-            "raster": 12 * num_faces + 16 * C * num_vertices + 4 * pixels + 4 * fragments,
-            "rasterize": 12 * num_vertices + 12 * num_faces + (4 + 4 + 1 + 4) * pixels + 4 * fragments}
+def mesh_work(params: raster.CameraParams, num_vertices: int, num_faces: int, fragments: int,
+              entries: int) -> tuple:
+    """The least bytes and operations of each step for one frame in every
+    camera, by its contract (each input read once, each output written
+    once) → ({step: bytes}, {step: operations}). `rasterize`: vertices and
+    faces in, 1 B of mask and 4 B of depth per pixel out; `mesh_project`:
+    vertices in, (C, V, 4) out; `mesh_bin`: faces and projections in, the
+    tile offsets and the `entries` (triangle, tile) pairs out; `mesh_raster`:
+    faces, projections, offsets and pairs in, mask and depth out.
+    Operations: the projection per (camera, vertex), the setup per (camera,
+    triangle) (per pair in `mesh_raster`) and the test per fragment drawn."""
+    C, pixels, tiles = params.floats.shape[0], params.total, params.tiles
+    projected = 16 * C * num_vertices
+    nbytes = {"project": 12 * num_vertices + projected,
+              "bin": 12 * num_faces + projected + 4 * (tiles + 1) + 4 * entries,
+              "raster": 12 * num_faces + projected + 4 * (tiles + 1) + 4 * entries + 5 * pixels,
+              "rasterize": 12 * num_vertices + 12 * num_faces + 5 * pixels}
+    setup, drawn = RASTER_SETUP_OPS * C * num_faces, RASTER_FRAGMENT_OPS * fragments
+    ops = {"project": PROJECT_OPS * C * num_vertices, "bin": setup,
+           "raster": RASTER_SETUP_OPS * entries + drawn}
+    ops["rasterize"] = ops["project"] + setup + drawn
+    return nbytes, ops
+
+
+def mesh_launches(frames: int) -> dict:
+    """The mesh kernels' launches for `frames` frames through `rasterize`."""
+    return {"project": frames, "bin": 2 * frames, "raster": frames}
 
 
 def mesh_extract(tmp: Path) -> list:
@@ -1878,38 +1912,82 @@ def mesh_extract(tmp: Path) -> list:
     return meshes
 
 
-def check_mesh_kernels(v, f, cameras, kept, device) -> dict:
-    """Phase 10(b)'s A/B at one frame: each kernel against its plain version
-    on the same inputs, bit for bit, and the main run's views against the
-    plain resolve → the frame's numbers."""
+def same_bins(bins: raster.Bins, plain: raster.Bins, num_faces: int) -> bool:
+    """The kernel's tile lists against `rasterize.bin_plain`'s: offsets,
+    crowded slots and counts equal, each tile's faces equal as sets."""
+    tile = torch.repeat_interleave(torch.arange(bins.offsets.numel() - 1, device=bins.offsets.device),
+                                   (bins.offsets[1:] - bins.offsets[:-1]).long())
+    faces = (torch.sort(tile * num_faces + bins.entries.long())[0] % num_faces).to(torch.int32)
+    return (torch.equal(bins.offsets, plain.offsets) and torch.equal(bins.slots, plain.slots)
+            and (bins.crowded, bins.most) == (plain.crowded, plain.most) and torch.equal(faces, plain.entries))
+
+
+def mesh_ab(v, f, cameras, device, chunk: int = raster.PLAIN_CHUNK) -> dict:
+    """Each mesh kernel against its plain version on the same inputs, bit
+    for bit (the projections, the tile lists, and the masks and depths of
+    `mesh_raster`) → the frame's record: the lists, the kernel's flat
+    mask and depth, fragments, max errors and the plain version's seconds
+    per step (one call each, host clock around a synchronize)."""
     params = raster.CameraParams.build(cameras, device)
+    plain_s = {}
+
+    def plain(step, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_s[step] = time.perf_counter() - t0
+        return out
+
+    def plain_raster():
+        buf, drawn = raster.depth_buffer_plain(plain_proj, f, params, chunk)
+        return (*raster.resolve(buf), drawn)
+
+    plain_proj = plain("project", lambda: raster.project_plain(v, params, 1.0))
+    plain_bins = plain("bin", lambda: raster.bin_plain(plain_proj, f, params))
+    plain_mask, plain_depth, fragments = plain("raster", plain_raster)
+    plain_s["rasterize"] = plain_s["project"] + plain_s["raster"]
+
     proj = raster.launch_project(v, params, 1.0)
-    plain_proj = raster.project_plain(v, params, 1.0)
-    buf = raster.launch_raster(proj, f, params)
-    plain_buf, fragments = raster.depth_buffer_plain(plain_proj, f, params)
+    bins = raster.launch_bin(proj, f, params)
     torch.cuda.synchronize()
     if not torch.equal(proj.view(torch.int32), plain_proj.view(torch.int32)):
         raise AssertionError("mesh_project differs from its plain version")
-    if not torch.equal(buf.view(torch.int32), plain_buf.view(torch.int32)):
-        differ = int((buf.view(torch.int32) != plain_buf.view(torch.int32)).sum())
-        raise AssertionError(f"mesh_raster differs from its plain version on {differ} pixels")
-    for (mask, depth), (plain_mask, plain_depth) in zip(kept, raster.resolve(plain_buf, params)):
-        if not (torch.equal(mask, plain_mask) and torch.equal(depth.view(torch.int32), plain_depth.view(torch.int32))):
-            raise AssertionError("a rendered view differs from the plain version's")
+    if not same_bins(bins, plain_bins, f.shape[0]):
+        raise AssertionError("mesh_bin's tile lists differ from the plain version's")
     finite = torch.isfinite(proj) & torch.isfinite(plain_proj)
-    errors = {"project": float((proj - plain_proj)[finite].abs().max()),
-              "raster": float((buf - plain_buf)[torch.isfinite(plain_buf)].abs().max())}
-    return {"errors": errors, "fragments": int(fragments.sum()), "params": params, "proj": proj,
-            "ms": {"project": time_ms(lambda: raster.launch_project(v, params, 1.0)),
-                   "raster": time_ms(lambda: raster.launch_raster(proj, f, params)),
-                   "rasterize": time_ms(lambda: raster.rasterize(v, f, cameras))},
-            "plain_ms": {"project": time_ms(lambda: raster.project_plain(v, params, 1.0), iters=5),
-                         "raster": time_ms(lambda: raster.depth_buffer_plain(plain_proj, f, params), iters=3),
-                         "rasterize": time_ms(lambda: raster.rasterize_plain(v, f, cameras), iters=3)}}
+    errors = {"project": float((proj - plain_proj)[finite].abs().max()), "bin": 0.0}
+    del plain_proj, plain_bins
+    mask, depth = raster.launch_raster(proj, f, params, bins)
+    differ = (mask != plain_mask) | (depth.view(torch.int32) != plain_depth.view(torch.int32))
+    if bool(differ.any()):
+        first = int(torch.nonzero(differ)[0])
+        camera = int(torch.searchsorted(params.ints[:, 2], torch.tensor(first, device=device), right=True)) - 1
+        raise AssertionError(f"mesh_raster differs from the plain version on {int(differ.sum())} pixels (the first "
+                             f"in camera {camera})")
+    errors["raster"] = float((depth - plain_depth).abs().max())
+    del differ
+    return {"params": params, "proj": proj, "bins": bins, "views": (mask, depth),
+            "fragments": int(fragments.sum()), "errors": errors, "plain_s": plain_s}
+
+
+def mesh_times(v, f, cameras, ab: dict, iters: int) -> dict:
+    """Device ms of each step (CUDA events; `mesh_bin` with its host read)."""
+    params, proj, bins = ab["params"], ab["proj"], ab["bins"]
+    return {"project": time_ms(lambda: raster.launch_project(v, params, 1.0), iters),
+            "bin": time_ms(lambda: raster.launch_bin(proj, f, params), iters),
+            "raster": time_ms(lambda: raster.launch_raster(proj, f, params, bins), iters),
+            "rasterize": time_ms(lambda: raster.rasterize(v, f, cameras), iters)}
+
+
+def mesh_rows(v, f, cameras, ab: dict, ms: dict, plain_s: dict) -> dict:
+    """{step: (ms, plain ms, bound ms, bound_by)} for one frame."""
+    nbytes, ops = mesh_work(ab["params"], v.shape[0], f.shape[0], ab["fragments"], ab["bins"].entries.numel())
+    return {step: (ms[step], 1e3 * plain_s[step], *bound(nbytes[step], ops[step])) for step in MESH_STEPS}
 
 
 def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
-    """Phase 10 (see the module docstring) → the two kernels' records."""
+    """Phase 10 (see the module docstring) → the mesh kernels' records."""
     t_phase = time.perf_counter()
     data_dir = scene / "SynthActor" / "Sequence1" / "1x"
     meshes = mesh_extract(tmp)
@@ -1943,32 +2021,35 @@ def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
         f"{cameras[0].width}x{cameras[0].height}) in {wall:.3f} s wall with the IoUs; launches {render_launches}; "
         f"mask IoU against the scene's analytic masks min {ious.min():.5f}, median {np.median(ious):.5f} "
         f"(bar {MESH_IOU_MIN}) [{smi}]")
-    if render_launches != {"project": NUM_FRAMES, "raster": NUM_FRAMES}:
-        raise AssertionError(f"the render launched {render_launches}, not one of each kernel per frame")
+    if render_launches != mesh_launches(NUM_FRAMES):
+        raise AssertionError(f"the render launched {render_launches}, not {mesh_launches(NUM_FRAMES)}")
     if not ious.min() >= MESH_IOU_MIN:
         raise AssertionError(f"a view's mask IoU is {ious.min():.5f} (< {MESH_IOU_MIN})")
 
-    rows = []
+    rows, errors, fragments, pairs = [], {}, 0, 0
     for frame in MESH_AB_FRAMES:
         v, f = on_device[frame]
-        row = check_mesh_kernels(v, f, cameras, kept[frame], device)
-        row["bytes"] = mesh_bytes(row["params"], v.shape[0], f.shape[0], row["fragments"])
-        row["ops"] = {"project": PROJECT_OPS * len(cameras) * v.shape[0],
-                      "raster": RASTER_SETUP_OPS * len(cameras) * f.shape[0] + RASTER_FRAGMENT_OPS * row["fragments"]}
-        row["ops"]["rasterize"] = row["ops"]["project"] + row["ops"]["raster"]
-        rows.append(row)
+        ab = mesh_ab(v, f, cameras, device)
+        for (mask, depth), (kept_mask, kept_depth) in zip(raster.views(*ab["views"], ab["params"]), kept[frame]):
+            if not (torch.equal(mask, kept_mask)
+                    and torch.equal(depth.view(torch.int32), kept_depth.view(torch.int32))):
+                raise AssertionError(f"frame {frame}: a rendered view differs from the plain version's")
+        rows.append(mesh_rows(v, f, cameras, ab, mesh_times(v, f, cameras, ab, iters=20), ab["plain_s"]))
+        errors = {step: max(errors.get(step, 0.0), e) for step, e in ab["errors"].items()}
+        fragments += ab["fragments"] / (len(MESH_AB_FRAMES) * len(cameras))
+        pairs += ab["bins"].entries.numel() / (len(MESH_AB_FRAMES) * len(cameras))
     per_view = {}
-    for step in ("project", "raster", "rasterize"):
-        ms = sum(r["ms"][step] for r in rows) / (len(rows) * len(cameras))
-        plain_ms = sum(r["plain_ms"][step] for r in rows) / (len(rows) * len(cameras))
-        bound_ms, bound_by = bound(sum(r["bytes"][step] for r in rows) / (len(rows) * len(cameras)),
-                                   sum(r["ops"][step] for r in rows) / (len(rows) * len(cameras)))
-        per_view[step] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    for step in MESH_STEPS:
+        ms, plain_ms, bound_ms = (sum(r[step][k] for r in rows) / (len(rows) * len(cameras)) for k in range(3))
+        per_view[step] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": rows[0][step][3]}
         log(f"10(b) {step} at frames {MESH_AB_FRAMES}, per view: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it [{smi}]")
-    fragments = sum(r["fragments"] for r in rows) / (len(rows) * len(cameras))
-    log(f"10(b) kernels against plain at frames {MESH_AB_FRAMES} × {len(cameras)} cameras: bit-equal (masks, "
-        f"depths, projections); {fragments:.0f} fragments per view")
+            f"bound {bound_ms:.5f} ms ({rows[0][step][3]}), {100 * bound_ms / ms:.1f}% of it [{smi}]")
+    v, f = on_device[MESH_AB_FRAMES[0]]
+    log(f"10(b) frame {MESH_AB_FRAMES[0]}, one profiled rasterize: "
+        f"{device_breakdown(lambda: raster.rasterize(v, f, cameras), rows[0]['raster'][0])}")
+    log(f"10(b) kernels against plain at frames {MESH_AB_FRAMES} × {len(cameras)} cameras: bit-equal (projections, "
+        f"tile lists, masks and depths); {fragments:.0f} fragments and {pairs:.0f} (triangle, "
+        f"tile) pairs per view")
 
     # (c) the CLI for MESH_CLI_FRAMES into a copy of the scene, then the carve.
     src = scene / "SynthActor" / "Sequence1"
@@ -1985,7 +2066,7 @@ def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
     torch.cuda.synchronize()
     cli_wall = time.perf_counter() - t0
     cli_launches = dict(raster.launches)
-    if rc != 0 or cli_launches != {"project": len(MESH_CLI_FRAMES), "raster": len(MESH_CLI_FRAMES)}:
+    if rc != 0 or cli_launches != mesh_launches(len(MESH_CLI_FRAMES)):
         raise AssertionError(f"the mesh renderer's CLI returned {rc} with launches {cli_launches}")
     for frame in MESH_CLI_FRAMES:
         for cam, (mask, depth) in zip(cameras, kept[frame]):
@@ -2021,39 +2102,139 @@ def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
     rig_views = raster.rasterize(v, f, rig)
     torch.cuda.synchronize()
     rig_launches = dict(raster.launches)
+    if rig_launches != mesh_launches(1):
+        raise AssertionError(f"the rig's frame launched {rig_launches}")
     plain = raster.rasterize_plain(v, f, [rig[i] for i in RIG_CHECK_CAMERAS])
     for i, (plain_mask, plain_depth) in zip(RIG_CHECK_CAMERAS, plain):
         mask, depth = rig_views[i]
         if not (torch.equal(mask, plain_mask) and torch.equal(depth.view(torch.int32), plain_depth.view(torch.int32))):
             raise AssertionError(f"rig camera {i}: the kernel's view differs from the plain version's")
-    rig_params = raster.CameraParams.build(rig, device)
-    rig_proj = raster.launch_project(v, rig_params, 1.0)
-    rig_ms = {"project": time_ms(lambda: raster.launch_project(v, rig_params, 1.0), iters=5) / RIG_CAMERAS,
-              "raster": time_ms(lambda: raster.launch_raster(rig_proj, f, rig_params), iters=5) / RIG_CAMERAS,
-              "rasterize": time_ms(lambda: raster.rasterize(v, f, rig), iters=5) / RIG_CAMERAS}
+    params = raster.CameraParams.build(rig, device)
+    proj = raster.launch_project(v, params, 1.0)
+    rig_ab = {"params": params, "proj": proj, "bins": raster.launch_bin(proj, f, params)}
+    rig_ms = {step: ms / RIG_CAMERAS for step, ms in mesh_times(v, f, rig, rig_ab, iters=5).items()}
     log(f"10(d) rig: {RIG_CAMERAS} cameras at {rig[0].width}x{rig[0].height}, frame 0: launches {rig_launches}; "
-        f"cameras {RIG_CHECK_CAMERAS} bit-equal to the plain version; ms per view: project {rig_ms['project']:.5f}, "
-        f"raster {rig_ms['raster']:.5f}, rasterize {rig_ms['rasterize']:.5f} [{smi}]")
-    log(f"10: mesh phase in {time.perf_counter() - t_phase:.1f} s")
+        f"cameras {RIG_CHECK_CAMERAS} bit-equal to the plain version; ms per view: "
+        + ", ".join(f"{step} {ms:.5f}" for step, ms in rig_ms.items()) + f" [{smi}]")
+    del rig_views, rig_ab, proj
+    log(f"10: mesh phase (a)-(d) in {time.perf_counter() - t_phase:.1f} s")
+    rig_12mp_ms = rig_12mp_phase(tmp, device, smi)
     by_phase = {"mesh_render": render_launches, "mesh_cli": cli_launches, "mesh_rig": rig_launches}
     return [
         {
-            "name": f"mesh_{step}",
+            "name": name,
             "route": "cuda",
             "source": "humanrf_torch/csrc/mesh_raster.cu",
-            "replaces": "humanrf_tpu/native/mesh_renderer/main.cpp:227",
+            "replaces": f"humanrf_tpu/native/mesh_renderer/main.cpp:{line}",
             "launches": render_launches[step],
             "launches_by_phase": {phase: counts[step] for phase, counts in by_phase.items()},
-            "max_abs_err": max(r["errors"][step] for r in rows),
+            "max_abs_err": errors[step],
             **per_view[step],
             "library_ms": None,  # no PyTorch call rasterizes
-            "per": "view, the mean over frames 0, 25 and 49 × 12 cameras",
+            "per": "view, the mean over frames 0, 25 and 49 × 12 cameras of 748²",
             "rasterize": per_view["rasterize"],
             "fragments_per_view": fragments,
             "rig_ms": rig_ms[step],
+            "rig_12mp_ms": rig_12mp_ms[step],
         }
-        for step in ("project", "raster")
+        for name, step, line in (("mesh_project", "project", 237), ("mesh_bin", "bin", 251),
+                                 ("mesh_raster", "raster", 251))
     ]
+
+
+def device_breakdown(fn, raster_ms: float) -> str:
+    """One call of `fn` under torch.profiler → its device time per kernel
+    (and copy or fill) and the device's busy share of the call's wall time.
+    Kernels launched through ctypes join no PyTorch op: the sums take each
+    device activity's own row of `key_averages`, and skip the ops' rows
+    (`aten::*`), whose device time their kernels' rows already hold. The
+    profiler's `mesh_raster_kernel` must read within 30% of `raster_ms`, its
+    mean time by CUDA events (a single launch spreads around the mean);
+    else no breakdown is given (after the earlier phases it has read no
+    device time, or half)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    def name(key: str) -> str:
+        return key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].strip()[:40]
+
+    rows = sorted(((e.device_time_total / 1e3, name(e.key), e.count)
+                   for e in prof.key_averages() if e.device_time_total > 0 and not e.key.startswith("aten::")),
+                  reverse=True)
+    seen = sum(ms for ms, key, _ in rows if key == "mesh_raster_kernel")
+    if not 0.7 * raster_ms <= seen <= 1.3 * raster_ms:
+        return (f"not measured: the profiler's mesh_raster_kernel reads {seen:.4f} ms against {raster_ms:.4f} ms by "
+                f"CUDA events, so its device times do not hold in this process ({wall:.4f} ms wall)")
+    busy = sum(ms for ms, _, _ in rows)
+    return (f"device {busy:.4f} ms of {wall:.4f} ms wall ({100 * busy / wall:.1f}% busy): "
+            + ", ".join(f"{name} {ms:.4f} ms ×{count}" for ms, name, count in rows[:8]))
+
+
+def rig_12mp_phase(tmp: Path, device, smi: str) -> dict:
+    """Phase 10(e): the ActorsHQ rig at its full size, RIG_CAMERAS cameras of
+    RIG_12MP (every tenth portrait), at RIG_12MP_FRAMES: each kernel against
+    its plain version in every camera, bit for bit; ms per frame and per view
+    of each step with its bound; fragments per view; peak memory; then the
+    renderer's CLI for one frame with --mask → {step: ms per view}."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(R4_SCENE, num_cameras=RIG_CAMERAS, portrait_camera_indices=RIG_12MP_PORTRAIT,
+                              **RIG_12MP)
+    csv = tmp / "rig_12mp_calibration.csv"
+    write_calibration_csv(make_cameras(cfg), csv)
+    rig = mesh_io.read_calibration_f32(csv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals = {step: 0.0 for step in MESH_STEPS}
+    objs = {frame: tmp / f"rig_12mp_{frame:06d}.obj" for frame in RIG_12MP_FRAMES}
+    for frame, obj in objs.items():
+        mesh_io.write_obj(obj, *subject_mesh(R4_SCENE, frame))
+        v, f = (torch.from_numpy(a).to(device) for a in mesh_io.load_obj(obj))  # the mesh as the CLI reads it
+        ab = mesh_ab(v, f, rig, device, RIG_12MP_PLAIN_CHUNK)
+        if frame == RIG_12MP_FRAMES[0]:  # a portrait and a landscape mask, for the CLI's files
+            kept = {i: raster.views(*ab["views"], ab["params"])[i][0].cpu().numpy() for i in (0, 1)}
+        del ab["views"]
+        rows = mesh_rows(v, f, rig, ab, mesh_times(v, f, rig, ab, iters=3), ab["plain_s"])
+        for step, (ms, plain_ms, bound_ms, bound_by) in rows.items():
+            totals[step] += ms
+            log(f"10(e) frame {frame}, {step}: {ms:.4f} ms per frame, {ms / len(rig):.6f} per view; plain "
+                f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it [{smi}]")
+        log(f"10(e) frame {frame}, one profiled rasterize: "
+            f"{device_breakdown(lambda: raster.rasterize(v, f, rig), rows['raster'][0])}")
+        log(f"10(e) frame {frame}: {ab['fragments'] / len(rig):.0f} fragments and "
+            f"{ab['bins'].entries.numel() / len(rig):.0f} "
+            f"(triangle, tile) pairs per view; all {len(rig)} cameras bit-equal to the plain version (projections, "
+            f"tile lists, masks and depths)")
+        del ab
+    log(f"10(e) peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the plain version's buffers and "
+        f"the kernels' held together)")
+
+    out = tmp / "rig_12mp_cli"
+    torch.cuda.synchronize()
+    raster.reset_launches()
+    t0 = time.perf_counter()
+    if mesh_renderer.main(["--objs", str(objs[RIG_12MP_FRAMES[0]]), "--csv", str(csv), "--output", str(out),
+                           "--mask", "--device", device.type]) != 0:
+        raise AssertionError("10(e): the mesh renderer's CLI failed")
+    cli_s = time.perf_counter() - t0
+    cli_launches = dict(raster.launches)
+    pngs = sorted(out.rglob("*.png"))
+    if len(pngs) != len(rig) or cli_launches != mesh_launches(1):
+        raise AssertionError(f"10(e): the CLI wrote {len(pngs)} masks for {len(rig)} cameras, launches {cli_launches}")
+    for i, mask in kept.items():
+        name = rig[i].name
+        png = image_io.decode_png((out / "masks" / name / f"{name}_mask000000.png").read_bytes())
+        if not np.array_equal(png[..., 0], mask):
+            raise AssertionError(f"10(e): the CLI's mask of {name} differs from the kernel's view")
+    shutil.rmtree(out)
+    log(f"10(e) the CLI, one frame of {len(rig)} views of {RIG_12MP['width']}x{RIG_12MP['height']} with --mask: "
+        f"{cli_s:.2f} s, {cli_s / len(rig):.4f} s per view with the OBJ load and PNG writes; launches "
+        f"{cli_launches}; phase 10(e) in {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return {step: ms / (len(RIG_12MP_FRAMES) * len(rig)) for step, ms in totals.items()}
 
 
 # ------------------------------------------------------------------ phase 11
@@ -2347,7 +2528,22 @@ def protocol_phase(scene: Path, tmp: Path, device, r4_stats: dict) -> tuple:
     return launches, capacity_rows
 
 
-def main() -> int:
+def finish(records: list, smi: str) -> int:
+    """The last three lines: the kernel table, the card, the result."""
+    print(json.dumps({"kernels": records}))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv not in ([], ["--mesh-only"]):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--mesh-only]; got {argv}")
+    mesh_only = argv == ["--mesh-only"]
     # Phase 1: device.
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -2362,12 +2558,17 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # Phase 2: build, the three libraries side by side.
-    names = ("field_interp", "fused_interp", "mesh_raster")
+    names = {"field_interp": (), "fused_interp": (), "mesh_raster": raster.LIBRARY_DEFINES}
     with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(load_library, names)))
+        built = dict(zip(names, pool.map(load_library, names, names.values())))
     for name, lib in built.items():
         log(f"build: {lib.path.name} in {lib.build_seconds:.2f} s; per kernel, from -Xptxas -v (shared memory is "
             f"dynamic, set at launch): " + "; ".join(ptxas_summary(lib.ptxas_log)))
+
+    if mesh_only:
+        with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
+            records = mesh_phase(write_r4_scene(device, Path(tmp)), Path(tmp), device, smi)
+        return finish(records, smi)
 
     # Phase 3: the kernels against their plain versions, random and real positions.
     view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
@@ -2504,13 +2705,7 @@ def main() -> int:
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
     ] + mesh_records
-    print(json.dumps({"kernels": records}))
-    print(smi)
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
-    }))
-    return 0
+    return finish(records, smi)
 
 
 if __name__ == "__main__":

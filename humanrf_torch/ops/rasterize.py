@@ -4,9 +4,9 @@ Counterpart of `render_camera` in `humanrf_tpu/native/mesh_renderer/main.cpp`
 (:227-285), the JAX package's host C++ rasterizer (a TPU cannot rasterize;
 the reference renders its masks with OpenGL on the GPU). For CUDA tensors
 `rasterize` launches the hand-written kernels of `humanrf_torch/csrc/
-mesh_raster.cu`, `mesh_project` then `mesh_raster`; for CPU tensors it runs
-`rasterize_plain`, the same arithmetic in eager PyTorch. There is no
-fallback: a CUDA call that cannot build or launch raises.
+mesh_raster.cu`; for CPU tensors it runs `rasterize_plain`, the same
+arithmetic in eager PyTorch. There is no fallback: a CUDA call that cannot
+build or launch raises.
 
 Both follow the native tool's float32 operations in its order, so their
 masks and depths equal the tool's bit for bit:
@@ -24,8 +24,14 @@ masks and depths equal the tool's bit for bit:
   z-buffer in face order keeps exactly the minimum, whatever order the
   fragments come in, and a z of +inf never marks a pixel.
 
-Every camera's image lies in one flat float32 buffer at its own offset, so
-cameras of different sizes share one pass.
+Every camera's image lies in flat buffers at its own offset, so cameras of
+different sizes share one pass. On the card a frame takes four launches:
+`mesh_project` (every vertex in every camera), `mesh_bin` twice (each
+drawn triangle listed in the TILE × TILE screen tiles its box touches:
+counts and their prefix sum, then the lists) and `mesh_raster` (a block per
+tile and CHUNK of its triangles, the tile's depth in shared memory, each
+pixel's mask and depth written once); one host read per frame sizes the
+lists.
 """
 from __future__ import annotations
 
@@ -39,46 +45,85 @@ import torch
 from humanrf_torch.ops.cuda_build import load_library
 
 # Kernel launches since the last reset, per kernel (each wrapper adds one
-# where it launches its kernel).
-launches = {"project": 0, "raster": 0}
+# where it launches its kernel): per frame on the card one "project", two
+# "bin" and one "raster".
+launches = {"project": 0, "bin": 0, "raster": 0}
 
 NEAR = float(np.float32(1e-6))  # the tool's near clip, 1e-6f
 MIN_AREA = float(np.float32(1e-12))
 INT_MIN = -(2**31)
+INT32_MAX = 2**31 - 1
 PLAIN_CHUNK = 1 << 22  # (triangle, box pixel) pairs per step of the plain version
+# The kernels' tiles: 64 × 64 pixels, 16 KB of int32 depth in shared memory.
+TILE_LOG2 = 6
+TILE = 1 << TILE_LOG2
+# Box pixels (within a tile) that one thread walks; a warp walks a larger
+# box over its row ranges. The r4 subject's boxes: 99% hold ≤ 20 pixels at
+# 748² and ≤ 176 at 4112 × 3008; above 256 lie only its rods' thin sides
+# (0.7% of the triangles: 58% and 83% of all box pixels), at both sizes.
+SMALL_BOX = 256
+# Listed triangles per raster block: a tile with more ("crowded", up to 22k
+# at 748²) is split over blocks that merge through a depth buffer of the
+# tile in device memory, so that no one block walks a long list alone.
+CHUNK = 1024
+LIBRARY_DEFINES = (f"MESH_TILE_LOG2={TILE_LOG2}", f"MESH_SMALL_BOX={SMALL_BOX}", f"MESH_CHUNK={CHUNK}")
+MAX_CAMERAS = 65535  # a grid's y dimension
+MAX_SIDE = 1 << 22  # pixel centres x + 0.5 stay exact in float32, stepped by 1
 
 
 def reset_launches() -> None:
-    launches["project"] = launches["raster"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 @dataclass
 class CameraParams:
     """The cameras as the kernels read them. `floats` (C, 16) float32: the
     world-to-camera rotation Rᵀ row-major (9), the translation (3), fx·W,
-    fy·H, cx·W, cy·H; `ints` (C, 3) int64: W, H and the image's offset in
-    the flat buffer of `total` pixels."""
+    fy·H, cx·W, cy·H; `ints` (C, 6) int64: W, H, the image's offset in the
+    flat buffers of `total` pixels, its tiles across and down, and its first
+    tile's index among all `tiles`; `max_tiles`, the most of one camera."""
 
     floats: torch.Tensor
     ints: torch.Tensor
     sizes: List[Tuple[int, int]]  # (H, W) per camera
     total: int
+    tiles: int
+    max_tiles: int
 
     @classmethod
     def build(cls, cameras: Sequence, device) -> "CameraParams":
         """`cameras`: `toolbox.mesh_io.Camera`s (float32 calibration)."""
         floats = np.zeros((len(cameras), 16), dtype=np.float32)
-        ints = np.zeros((len(cameras), 3), dtype=np.int64)
-        offset = 0
+        ints = np.zeros((len(cameras), 6), dtype=np.int64)
+        offset = tiles = max_tiles = 0
         for i, cam in enumerate(cameras):
+            if not (0 < cam.width <= MAX_SIDE and 0 < cam.height <= MAX_SIDE):
+                raise ValueError(f"{cam.name}: images of 1 to {MAX_SIDE} pixels a side, got {cam.width}x{cam.height}")
             width, height = np.float32(cam.width), np.float32(cam.height)
             floats[i, :9] = np.asarray(cam.rotation, dtype=np.float32).T.reshape(-1)
             floats[i, 9:12] = cam.translation
             floats[i, 12:] = [cam.fx * width, cam.fy * height, cam.cx * width, cam.cy * height]
-            ints[i] = (cam.width, cam.height, offset)
+            across, down = -(-cam.width // TILE), -(-cam.height // TILE)
+            ints[i] = (cam.width, cam.height, offset, across, down, tiles)
             offset += cam.width * cam.height
+            tiles += across * down
+            max_tiles = max(max_tiles, across * down)
         return cls(torch.tensor(floats, device=device), torch.tensor(ints, device=device),
-                   [(cam.height, cam.width) for cam in cameras], offset)
+                   [(cam.height, cam.width) for cam in cameras], offset, tiles, max_tiles)
+
+
+@dataclass
+class Bins:
+    """The tile lists: tile t lists entries[offsets[t]:offsets[t + 1]] (int32,
+    face indices); a crowded tile (more than CHUNK faces) has its depth
+    buffer at slots[t] of `crowded`; `most`, the most faces of one tile."""
+
+    offsets: torch.Tensor
+    entries: torch.Tensor
+    slots: torch.Tensor
+    crowded: int
+    most: int
 
 
 def _check(vertices: torch.Tensor, faces: torch.Tensor):
@@ -91,8 +136,12 @@ def _check(vertices: torch.Tensor, faces: torch.Tensor):
         raise ValueError(f"tensors on different devices: {vertices.device}, {faces.device}")
     if vertices.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rasterize runs on cuda or cpu tensors, not {vertices.device}")
-    if faces.numel() and (int(faces.min()) < 0 or int(faces.max()) >= vertices.shape[0]):
-        raise ValueError(f"a face index lies outside the {vertices.shape[0]} vertices")
+    if vertices.shape[0] > INT32_MAX or faces.shape[0] > INT32_MAX:
+        raise ValueError(f"at most 2^31 - 1 vertices and faces, got {vertices.shape[0]} and {faces.shape[0]}")
+    if faces.numel():
+        low, high = torch.stack(torch.aminmax(faces)).tolist()  # one host read
+        if low < 0 or high >= vertices.shape[0]:
+            raise ValueError(f"a face index lies outside the {vertices.shape[0]} vertices")
 
 
 # ------------------------------------------------------------------ plain
@@ -129,6 +178,27 @@ def _max3(a, b, c):
     return torch.where(m < c, c, m)
 
 
+def setup_plain(proj: torch.Tensor, faces: torch.Tensor, params: CameraParams) -> dict:
+    """The per-triangle setup of every (camera, face), each (C, F): `valid`
+    (the tool draws it), the box `minx`, `maxx`, `miny`, `maxy` (int64), the
+    corners `x0`..`y2`, `iz0`..`iz2` and `inv_area`."""
+    corners = proj[:, faces.long()]  # (C, F, 3, 4)
+    x, y, z, iz = (corners[..., k] for k in range(4))
+    width, height = params.ints[:, 0, None], params.ints[:, 1, None]
+    valid = ~((z[..., 0] <= NEAR) | (z[..., 1] <= NEAR) | (z[..., 2] <= NEAR))  # a NaN z is not clipped
+    minx = _to_int_x86(torch.floor(_min3(x[..., 0], x[..., 1], x[..., 2]))).clamp_min(0)
+    maxx = torch.minimum(_to_int_x86(torch.ceil(_max3(x[..., 0], x[..., 1], x[..., 2]))), width - 1)
+    miny = _to_int_x86(torch.floor(_min3(y[..., 0], y[..., 1], y[..., 2]))).clamp_min(0)
+    maxy = torch.minimum(_to_int_x86(torch.ceil(_max3(y[..., 0], y[..., 1], y[..., 2]))), height - 1)
+    valid &= (minx <= maxx) & (miny <= maxy)
+    x0, x1, x2, y0, y1, y2 = x[..., 0], x[..., 1], x[..., 2], y[..., 0], y[..., 1], y[..., 2]
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    valid &= ~(area.abs() < MIN_AREA)
+    return {"valid": valid, "minx": minx, "maxx": maxx, "miny": miny, "maxy": maxy, "x0": x0, "x1": x1, "x2": x2,
+            "y0": y0, "y1": y1, "y2": y2, "iz0": iz[..., 0], "iz1": iz[..., 1], "iz2": iz[..., 2],
+            "inv_area": torch.reciprocal(area)}
+
+
 def depth_buffer_plain(proj: torch.Tensor, faces: torch.Tensor, params: CameraParams,
                        chunk: int = PLAIN_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain depth pass: (C, V, 4) projections → (flat float32 depth
@@ -139,22 +209,10 @@ def depth_buffer_plain(proj: torch.Tensor, faces: torch.Tensor, params: CameraPa
     fragments = torch.zeros(C, dtype=torch.int64, device=device)
     if C == 0 or faces.shape[0] == 0:
         return buf, fragments
-    corners = proj[:, faces.long()]  # (C, F, 3, 4)
-    x, y, z, iz = (corners[..., k] for k in range(4))
-    width, height, offset = (params.ints[:, k, None] for k in range(3))
-    valid = ~((z[..., 0] <= NEAR) | (z[..., 1] <= NEAR) | (z[..., 2] <= NEAR))  # a NaN z is not clipped
-    minx = _to_int_x86(torch.floor(_min3(x[..., 0], x[..., 1], x[..., 2]))).clamp_min(0)
-    maxx = torch.minimum(_to_int_x86(torch.ceil(_max3(x[..., 0], x[..., 1], x[..., 2]))), width - 1)
-    miny = _to_int_x86(torch.floor(_min3(y[..., 0], y[..., 1], y[..., 2]))).clamp_min(0)
-    maxy = torch.minimum(_to_int_x86(torch.ceil(_max3(y[..., 0], y[..., 1], y[..., 2]))), height - 1)
-    valid &= (minx <= maxx) & (miny <= maxy)
-    x0, x1, x2, y0, y1, y2 = x[..., 0], x[..., 1], x[..., 2], y[..., 0], y[..., 1], y[..., 2]
-    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
-    valid &= ~(area.abs() < MIN_AREA)
-    inv_area = torch.reciprocal(area)
-
-    box_w = (maxx - minx + 1).clamp_min(0)
-    count = torch.where(valid, box_w * (maxy - miny + 1), 0).reshape(-1)
+    s = setup_plain(proj, faces, params)
+    width, offset = params.ints[:, 0, None], params.ints[:, 2, None]
+    box_w = (s["maxx"] - s["minx"] + 1).clamp_min(0)
+    count = torch.where(s["valid"], box_w * (s["maxy"] - s["miny"] + 1), 0).reshape(-1)
     ends = torch.cumsum(count, 0)
     # Chunks of whole triangles with at most `chunk` pairs each (a larger
     # triangle is a chunk of its own).
@@ -163,9 +221,9 @@ def depth_buffer_plain(proj: torch.Tensor, faces: torch.Tensor, params: CameraPa
     while cuts[-1] < len(ends_host):
         base = ends_host[cuts[-1] - 1] if cuts[-1] else 0
         cuts.append(max(int(np.searchsorted(ends_host, base + chunk, side="right")), cuts[-1] + 1))
-    per_tri = [t.reshape(-1) for t in (x0, x1, x2, y0, y1, y2, iz[..., 0], iz[..., 1], iz[..., 2], inv_area,
-                                       minx, miny, box_w)]
-    camera = torch.arange(C, device=device)[:, None].expand(valid.shape).reshape(-1)
+    per_tri = [s[k].reshape(-1) for k in ("x0", "x1", "x2", "y0", "y1", "y2", "iz0", "iz1", "iz2", "inv_area",
+                                          "minx", "miny")] + [box_w.reshape(-1)]
+    camera = torch.arange(C, device=device)[:, None].expand(s["valid"].shape).reshape(-1)
     for lo, hi in zip(cuts[:-1], cuts[1:]):
         n = count[lo:hi]
         tri = torch.repeat_interleave(torch.arange(lo, hi, device=device), n)
@@ -189,12 +247,43 @@ def depth_buffer_plain(proj: torch.Tensor, faces: torch.Tensor, params: CameraPa
     return buf, fragments
 
 
-def resolve(buf: torch.Tensor, params: CameraParams) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Flat depth buffer → per camera (mask uint8 0/255, depth float32 with
-    0 where uncovered), each (H, W)."""
+def bin_plain(proj: torch.Tensor, faces: torch.Tensor, params: CameraParams) -> Bins:
+    """The plain tile lists of (C, V, 4) projections: each tile lists the
+    faces drawn in its camera whose box touches it, in ascending order (the
+    kernel lists them in any order)."""
+    device = proj.device
+    C, F = proj.shape[0], faces.shape[0]
+    count = torch.zeros(params.tiles, dtype=torch.int64, device=device)
+    entries = torch.zeros(0, dtype=torch.int32, device=device)
+    if C and F:
+        s = setup_plain(proj, faces, params)
+        tx0, ty0 = s["minx"] >> TILE_LOG2, s["miny"] >> TILE_LOG2
+        across = torch.where(s["valid"], (s["maxx"] >> TILE_LOG2) - tx0 + 1, 0).reshape(-1)
+        down = torch.where(s["valid"], (s["maxy"] >> TILE_LOG2) - ty0 + 1, 0).reshape(-1)
+        pairs = across * down
+        job = torch.repeat_interleave(torch.arange(C * F, device=device), pairs)
+        local = torch.arange(job.numel(), device=device) - (torch.cumsum(pairs, 0) - pairs)[job]
+        cam = job // F
+        tile = (params.ints[cam, 5] + (ty0.reshape(-1)[job] + local // across[job]) * params.ints[cam, 3]
+                + tx0.reshape(-1)[job] + local % across[job])
+        entries = (torch.sort(tile * F + job % F)[0] % F).to(torch.int32)
+        count = torch.bincount(tile, minlength=params.tiles)
+    offsets = torch.zeros(params.tiles + 1, dtype=torch.int32, device=device)
+    offsets[1:] = torch.cumsum(count, 0)
+    crowded = (count > CHUNK).to(torch.int32)
+    slots = (torch.cumsum(crowded, 0) - crowded).to(torch.int32)
+    return Bins(offsets, entries, slots, int(crowded.sum()), int(count.max()) if count.numel() else 0)
+
+
+def resolve(buf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat depth buffer (+inf where uncovered) → flat (mask uint8 0/255,
+    depth float32 with 0 where uncovered)."""
     covered = buf < float("inf")
-    mask = covered.to(torch.uint8) * 255
-    depth = torch.where(covered, buf, 0.0)
+    return covered.to(torch.uint8) * 255, torch.where(covered, buf, 0.0)
+
+
+def views(mask: torch.Tensor, depth: torch.Tensor, params: CameraParams) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Flat mask and depth → per camera (mask, depth), each an (H, W) view."""
     out, start = [], 0
     for height, width in params.sizes:
         stop = start + height * width
@@ -209,60 +298,110 @@ def rasterize_plain(vertices: torch.Tensor, faces: torch.Tensor, cameras: Sequen
     _check(vertices, faces)
     params = CameraParams.build(cameras, vertices.device)
     buf, _ = depth_buffer_plain(project_plain(vertices, params, scale), faces, params, chunk)
-    return resolve(buf, params)
+    return views(*resolve(buf), params)
 
 
 # ----------------------------------------------------------------- kernel
 
 
 def _lib():
-    lib = load_library("mesh_raster").lib
+    lib = load_library("mesh_raster", LIBRARY_DEFINES).lib
     if lib.mesh_project.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # vertices, V, cameras, C, scale, proj, stream.
-        lib.mesh_project.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-        lib.mesh_project.restype = ctypes.c_int
-        # proj, V, faces, F, camera ints, C, zbuf, stream.
-        lib.mesh_raster.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.mesh_raster.restype = ctypes.c_int
+        lib.mesh_project.argtypes = [ptr, i32, ptr, i32, ctypes.c_float, ptr, ptr]
+        # proj, V, faces, F, camera ints, C, tiles, counts, offsets, slots, entries, scratch, fill, out, stream.
+        lib.mesh_bin.argtypes = [ptr, i32, ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr]
+        # proj, V, faces, camera ints, C, max tiles, most, offsets, slots, entries, crowded, crowd z,
+        # crowd done, mask, depth, stream.
+        lib.mesh_raster.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr]
+        for fn in (lib.mesh_project, lib.mesh_bin, lib.mesh_raster):
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
+
+
+def _check_cameras(params: CameraParams) -> None:
+    if params.floats.shape[0] > MAX_CAMERAS:
+        raise ValueError(f"at most {MAX_CAMERAS} cameras per call, got {params.floats.shape[0]}")
 
 
 def launch_project(vertices: torch.Tensor, params: CameraParams, scale: float) -> torch.Tensor:
     """`mesh_project` on the card: (V, 3) → (C, V, 4) as `project_plain`."""
+    _check_cameras(params)
     C, V = params.floats.shape[0], vertices.shape[0]
     proj = torch.empty((C, V, 4), dtype=torch.float32, device=vertices.device)
     if C * V == 0:
         return proj
     with torch.cuda.device(vertices.device):
-        stream = torch.cuda.current_stream(vertices.device).cuda_stream
-        err = _lib().mesh_project(vertices.contiguous().data_ptr(), V, params.floats.data_ptr(), C,
-                                  float(np.float32(scale)), proj.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"mesh_project launch failed at C={C}, V={V}: cudaError {err}")
+        _raise_on(_lib().mesh_project(vertices.contiguous().data_ptr(), V, params.floats.data_ptr(), C,
+                                      float(np.float32(scale)), proj.data_ptr(), _stream(vertices.device)),
+                  f"mesh_project at C={C}, V={V}")
     launches["project"] += 1
     return proj
 
 
-def launch_raster(proj: torch.Tensor, faces: torch.Tensor, params: CameraParams) -> torch.Tensor:
-    """`mesh_raster` on the card: (C, V, 4) projections → the flat float32
-    depth buffer of `depth_buffer_plain` (+inf where nothing was drawn)."""
+def launch_bin(proj: torch.Tensor, faces: torch.Tensor, params: CameraParams) -> Bins:
+    """`mesh_bin` on the card, twice: (C, V, 4) projections → the tile
+    lists of `bin_plain` (each tile's faces in any order). The first launch
+    counts and sums, and the host reads the lists' length (the frame's one
+    wait on the card); the second writes the lists."""
+    _check_cameras(params)
     C, V = proj.shape[:2]
     F = faces.shape[0]
-    # The bits of +inf: a positive float's bits order as the float does,
-    # so an integer atomicMin on them keeps the least depth.
-    zbuf = torch.full((params.total,), 0x7F800000, dtype=torch.int32, device=proj.device)
-    if C * F == 0:
-        return zbuf.view(torch.float32)
-    with torch.cuda.device(proj.device):
-        stream = torch.cuda.current_stream(proj.device).cuda_stream
-        err = _lib().mesh_raster(proj.data_ptr(), V, faces.contiguous().data_ptr(), F, params.ints.data_ptr(), C,
-                                 zbuf.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"mesh_raster launch failed at C={C}, V={V}, F={F}: cudaError {err}")
+    device = proj.device
+    if C * F == 0 or params.tiles == 0:
+        return bin_plain(proj, faces[:0], params)  # empty lists: nothing to launch
+    counts, slots = (torch.empty(params.tiles, dtype=torch.int32, device=device) for _ in range(2))
+    offsets = torch.empty(params.tiles + 1, dtype=torch.int32, device=device)
+    scratch = torch.empty(3, dtype=torch.int64, device=device)
+    faces = faces.contiguous()
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(device):
+        lib, stream = _lib(), _stream(device)
+        args = (proj.data_ptr(), V, faces.data_ptr(), F, params.ints.data_ptr(), C, params.tiles, counts.data_ptr(),
+                offsets.data_ptr(), slots.data_ptr())
+        _raise_on(lib.mesh_bin(*args, None, scratch.data_ptr(), 0, out, stream), f"mesh_bin (counts) at C={C}, F={F}")
+        launches["bin"] += 1
+        total, crowded, most = out
+        if total > INT32_MAX:
+            raise ValueError(f"{total} (triangle, tile) pairs, more than the int32 lists hold")
+        entries = torch.empty(total, dtype=torch.int32, device=device)
+        _raise_on(lib.mesh_bin(*args, entries.data_ptr(), scratch.data_ptr(), 1, None, stream),
+                  f"mesh_bin (lists) at C={C}, F={F}")
+    launches["bin"] += 1
+    return Bins(offsets, entries, slots, crowded, most)
+
+
+def launch_raster(proj: torch.Tensor, faces: torch.Tensor, params: CameraParams,
+                  bins: Bins) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`mesh_raster` on the card: the projections and the tile lists →
+    flat (mask, depth) as `resolve` of `depth_buffer_plain`'s buffer."""
+    _check_cameras(params)
+    C, V = proj.shape[:2]
+    device = proj.device
+    mask = torch.empty(params.total, dtype=torch.uint8, device=device)
+    depth = torch.empty(params.total, dtype=torch.float32, device=device)
+    if params.total == 0:
+        return mask, depth
+    crowd_z = torch.empty((bins.crowded, TILE * TILE), dtype=torch.int32, device=device)
+    crowd_done = torch.empty(bins.crowded, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        _raise_on(_lib().mesh_raster(proj.data_ptr(), V, faces.contiguous().data_ptr(), params.ints.data_ptr(), C,
+                                     params.max_tiles, bins.most, bins.offsets.data_ptr(), bins.slots.data_ptr(),
+                                     bins.entries.data_ptr(), bins.crowded, crowd_z.data_ptr(), crowd_done.data_ptr(),
+                                     mask.data_ptr(), depth.data_ptr(), _stream(device)),
+                  f"mesh_raster at C={C}, V={V}")
     launches["raster"] += 1
-    return zbuf.view(torch.float32)
+    return mask, depth
 
 
 def rasterize(vertices: torch.Tensor, faces: torch.Tensor, cameras: Sequence,
@@ -271,11 +410,13 @@ def rasterize(vertices: torch.Tensor, faces: torch.Tensor, cameras: Sequence,
     `cameras` (`toolbox.mesh_io.Camera`) → per camera (mask (H, W) uint8
     0/255, depth (H, W) float32, camera-space z, 0 where uncovered).
 
-    CUDA tensors go through the kernels (one pass renders every camera),
-    CPU tensors through `rasterize_plain`; anything else raises.
+    CUDA tensors go through the kernels (one pass renders every camera:
+    `mesh_project`, `mesh_bin` twice, `mesh_raster`), CPU tensors through
+    the plain version; anything else raises.
     """
-    _check(vertices, faces)
     if vertices.device.type == "cpu":
         return rasterize_plain(vertices, faces, cameras, scale)
+    _check(vertices, faces)
     params = CameraParams.build(cameras, vertices.device)
-    return resolve(launch_raster(launch_project(vertices, params, scale), faces, params), params)
+    proj = launch_project(vertices, params, scale)
+    return views(*launch_raster(proj, faces, params, launch_bin(proj, faces, params)), params)

@@ -171,9 +171,53 @@ def _clipping_case(tmp_path: Path) -> list:
     return ["--objs", str(obj), "--csv", str(csv), "--mask", "--depth"]
 
 
+# Two cameras at the origin looking down +z, landscape 96×80 and portrait
+# 80×96, both with fx·W = fy·H = 115.2: a point (x, y, 2) lands at pixel
+# (57.6·x + 48, 57.6·y + 40) in the first.
+TWO_SHAPES_CSV = ("name,w,h,rx,ry,rz,tx,ty,tz,fx,fy,px,py\n"
+                  "CamL,96,80,0,0,0,0,0,0,1.2,1.44,0.5,0.5\n"
+                  "CamP,80,96,0,0,0,0,0,0,1.44,1.2,0.5,0.5\n")
+
+
+def _pixel_triangles(tmp_path: Path, name: str, tris) -> list:
+    """Triangles given by their corners' pixels in CamL at depth z → the
+    renderer's arguments for both cameras of TWO_SHAPES_CSV."""
+    csv = tmp_path / "two_shapes.csv"
+    csv.write_text(TWO_SHAPES_CSV)
+    lines = []
+    for corners, z in tris:
+        lines += [f"v {(px - 48) / 57.6 * z / 2!r} {(py - 40) / 57.6 * z / 2!r} {float(z)!r}" for px, py in corners]
+    lines += [f"f {3 * i + 1} {3 * i + 2} {3 * i + 3}" for i in range(len(tris))]
+    obj = tmp_path / f"{name}.obj"
+    obj.write_text("\n".join(lines) + "\n")
+    return ["--objs", str(obj), "--csv", str(csv), "--mask", "--depth"]
+
+
 def _case_args(case: str, scene, tmp_path: Path) -> list:
     data_dir, objs = scene
     csv = str(data_dir / "calibration.csv")
+    if case == "threshold_boxes":
+        # In CamL a box of exactly SMALL_BOX (16 × 16) pixels, walked by one
+        # thread, and one a pixel wider (17 × 16), walked by a warp.
+        assert raster.SMALL_BOX == 16 * 16
+        return _pixel_triangles(tmp_path, case, [(((10.3, 10.3), (24.7, 10.3), (10.3, 24.7)), 2),
+                                                 (((30.3, 10.3), (45.7, 24.7), (30.3, 24.7)), 2)])
+    if case == "whole_image":
+        # One triangle over every pixel of both images, a smaller one in front.
+        return _pixel_triangles(tmp_path, case, [(((-900, -900), (1500, -900), (-900, 1500)), 5),
+                                                 (((20.5, 20.5), (70.2, 30.1), (35.3, 60.8)), 2)])
+    if case == "two_shapes":
+        obj = tmp_path / "sphere.obj"
+        _write_uv_sphere(obj, (0.0, 0.0, 2.0), 0.5)
+        (tmp_path / "two_shapes.csv").write_text(TWO_SHAPES_CSV)
+        return ["--objs", str(obj), "--csv", str(tmp_path / "two_shapes.csv"), "--mask", "--depth"]
+    if case == "tile_edges":
+        # Boxes across the tile edges at x = 64 and y = 64, and a thin
+        # triangle whose box spans all four tiles (row ranges).
+        assert raster.TILE == 64
+        return _pixel_triangles(tmp_path, case, [(((55.3, 58.3), (75.7, 61.2), (60.1, 70.6)), 2),
+                                                 (((63.5, 20.2), (64.5, 20.2), (64.0, 79.5)), 3),
+                                                 (((2.3, 75.2), (93.1, 3.7), (93.9, 4.6)), 2.5)])
     if case == "uv_sphere":
         obj = tmp_path / "sphere.obj"
         _write_uv_sphere(obj, SCENE.center_start, SCENE.sphere_radius)
@@ -194,7 +238,11 @@ def _case_args(case: str, scene, tmp_path: Path) -> list:
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["uv_sphere", "subject", "obj_syntax", "clipping", "subsets"])
+RENDER_CASES = ["uv_sphere", "subject", "obj_syntax", "clipping", "subsets", "threshold_boxes", "whole_image",
+                "two_shapes", "tile_edges"]
+
+
+@pytest.mark.parametrize("case", RENDER_CASES)
 def test_renderer_writes_the_native_tools_masks_and_depths(case, native_renderer, scene, tmp_path):
     native, port = _render_both(native_renderer, tmp_path, _case_args(case, scene, tmp_path))
     assert native and port.keys() == native.keys()
@@ -205,6 +253,8 @@ def test_renderer_writes_the_native_tools_masks_and_depths(case, native_renderer
     if case == "subsets":
         assert sorted(map(str, native)) == [f"masks/{cam}/{cam}_mask{frame:06d}.png"
                                             for cam in ("Cam002", "Cam005") for frame in (0, 2)]
+    if case == "whole_image":
+        assert all(np.frombuffer(native[name], np.uint8).all() for name in masks)
 
 
 def test_renderer_masks_match_the_analytic_masks(scene, tmp_path):
@@ -255,6 +305,179 @@ def test_rasterize_checks_its_inputs_and_never_falls_back():
         raster.rasterize(v.double(), f, [])
     with pytest.raises(ValueError, match="cuda or cpu"):
         raster.rasterize(v.to("meta"), f.to("meta"), [])
+    with pytest.raises(ValueError, match="outside"):
+        raster.rasterize(v, f - 1, [])
+
+
+def test_camera_params_lay_out_pixels_and_tiles(tmp_path):
+    """Two shapes in one call: each image's pixel offset, its 64-pixel tiles
+    across and down (the last ones partial) and its first tile."""
+    (tmp_path / "c.csv").write_text(TWO_SHAPES_CSV + "CamS,130,64,0,0,0,0,0,0,1,1,0.5,0.5\n")
+    params = raster.CameraParams.build(mesh_io.read_calibration_f32(tmp_path / "c.csv"), "cpu")
+    assert params.ints.tolist() == [[96, 80, 0, 2, 2, 0], [80, 96, 7680, 2, 2, 4], [130, 64, 15360, 3, 1, 8]]
+    assert (params.total, params.tiles, params.max_tiles) == (15360 + 130 * 64, 11, 4)
+    assert params.sizes == [(80, 96), (96, 80), (64, 130)]
+
+
+@pytest.mark.parametrize("case", ["subject", "tile_edges"])
+def test_bin_plain_lists_each_drawn_triangle_in_the_tiles_of_its_box(case, scene, tmp_path):
+    """`bin_plain` (the tile lists the kernel is held to) against a loop over
+    the faces: a face is listed in a tile exactly when the tool draws it in
+    that camera and its box touches the tile; and every fragment of the
+    plain depth pass lies in a tile that lists its face."""
+    args = _case_args(case, scene, tmp_path)
+    cameras = mesh_io.read_calibration_f32(args[args.index("--csv") + 1])
+    vertices, faces = (torch.from_numpy(a) for a in mesh_io.load_obj(args[1]))
+    params = raster.CameraParams.build(cameras, "cpu")
+    proj = raster.project_plain(vertices, params, 1.0)
+    bins = raster.bin_plain(proj, faces, params)
+    offsets, entries = bins.offsets, bins.entries
+    setup = raster.setup_plain(proj, faces, params)
+    expected = [[] for _ in range(params.tiles)]
+    for c, (_, across, _, base) in enumerate(params.ints[:, 2:].tolist()):
+        for f in torch.nonzero(setup["valid"][c]).flatten().tolist():
+            box = [int(setup[k][c, f]) >> raster.TILE_LOG2 for k in ("minx", "maxx", "miny", "maxy")]
+            for ty in range(box[2], box[3] + 1):
+                for tx in range(box[0], box[1] + 1):
+                    expected[base + ty * across + tx].append(f)
+    got = [entries[offsets[t]:offsets[t + 1]].tolist() for t in range(params.tiles)]
+    assert got == expected and sum(map(len, got)) > 0
+    crowded = [len(faces_t) > raster.CHUNK for faces_t in got]
+    assert bins.slots.tolist() == [sum(crowded[:t]) for t in range(params.tiles)]
+    assert (bins.crowded, bins.most) == (sum(crowded), max(map(len, got)))
+    listed = {(t, f) for t, faces_t in enumerate(got) for f in faces_t}
+    for c, cam in enumerate(cameras):
+        buf, _ = raster.depth_buffer_plain(proj[c:c + 1], faces, raster.CameraParams.build([cam], "cpu"))
+        drawn = torch.nonzero(torch.isfinite(buf)).flatten()
+        assert drawn.numel() > 0
+        y, x = drawn // cam.width, drawn % cam.width
+        tiles = params.ints[c, 5] + (y >> raster.TILE_LOG2) * params.ints[c, 3] + (x >> raster.TILE_LOG2)
+        assert all(any((t, f) in listed for f in range(faces.shape[0])) for t in set(tiles.tolist()))
+
+
+# A mirror of the kernel's row ranges (mesh_raster.cu: row_ranges,
+# band_extent, row_range) in float32 numpy, to hold the rule that lets a
+# warp skip pixels: every pixel the exact float32 test accepts lies within
+# its row's range.
+
+
+def _row_ranges(x, y):
+    f = np.float32
+    x, y = x.astype(f), y.astype(f)
+    S = max(x.max() - x.min(), y.max() - y.min()) + f(2)
+    R = np.abs(np.concatenate([x, y])).max()
+    area = abs((x[1] - x[0]) * (y[2] - y[0]) - (x[2] - x[0]) * (y[1] - y[0]))
+    length = min(np.hypot(x[(i + 1) % 3] - x[i], y[(i + 1) % 3] - y[i]) for i in range(3))
+    on = bool(S < 2.0**22 and area >= S * S * f(2.0**-12))
+    return x, y, (f(1) + S * S * f(2.0**-16) / length * f(1.001) + R * f(2.0**-16) if on else None)
+
+
+def _row_range(x, y, m, lo, hi, x0, x1):
+    f = np.float32
+    xs = []
+    for i in range(3):
+        if f(lo) + f(0.5) - m <= y[i] <= f(hi) + f(0.5) + m:
+            xs.append(x[i])
+        j = (i + 1) % 3
+        for yb in (f(lo) + f(0.5) - m, f(hi) + f(0.5) + m):
+            if y[i] != y[j] and (yb - y[i]) * (yb - y[j]) <= 0:
+                xs.append(x[i] + (yb - y[i]) * ((x[j] - x[i]) / (y[j] - y[i])))
+    if not xs:
+        return None
+    start = max(int(np.ceil(min(xs) - m - f(0.5))), x0)
+    stop = min(int(np.floor(max(xs) + m - f(0.5))), x1)
+    return (start, stop) if start <= stop else None
+
+
+def _drawn_pixels(corners, width, height):
+    """The tool's test over a triangle's whole box in float32 → (x, y) of
+    every accepted pixel, and the box."""
+    (ax, ay), (bx, by), (dx, dy) = corners.astype(np.float32)
+    minx, maxx = max(0, int(np.floor(min(ax, bx, dx)))), min(width - 1, int(np.ceil(max(ax, bx, dx))))
+    miny, maxy = max(0, int(np.floor(min(ay, by, dy)))), min(height - 1, int(np.ceil(max(ay, by, dy))))
+    with np.errstate(all="ignore"):
+        area = (bx - ax) * (dy - ay) - (dx - ax) * (by - ay)
+        inv = np.float32(1) / area
+        yy, xx = np.mgrid[miny:maxy + 1, minx:maxx + 1]
+        pxc, pyc = xx.astype(np.float32) + np.float32(0.5), yy.astype(np.float32) + np.float32(0.5)
+        w0 = ((bx - pxc) * (dy - pyc) - (dx - pxc) * (by - pyc)) * inv
+        w1 = ((dx - pxc) * (ay - pyc) - (ax - pxc) * (dy - pyc)) * inv
+        w2 = (np.float32(1) - w0) - w1
+    keep = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+    return xx[keep], yy[keep], (minx, maxx, miny, maxy)
+
+
+def _thin_triangles(rng, count, width, height):
+    """Slivers and thin wedges of 50–900 pixels, 0.02–6 pixels wide, at any
+    angle and sub-pixel position; wedges whose far corner lies 5,000–40,000
+    pixels off the image (where float32 rounding is coarsest); a few fat
+    triangles."""
+    out = []
+    for i in range(count):
+        start = rng.uniform((0, 0), (width, height))
+        angle, length, wide = rng.uniform(0, 2 * np.pi), rng.uniform(50, 900), rng.uniform(0.02, 6)
+        along, across = np.array([np.cos(angle), np.sin(angle)]), np.array([-np.sin(angle), np.cos(angle)])
+        end = start + length * along
+        if i % 8 == 7:  # fat
+            out.append(np.stack([start, end, start + rng.uniform(0.3, 1) * length * across]))
+        elif i % 4 == 3:  # far
+            wide = rng.uniform(2, 40)
+            out.append(np.stack([start + rng.uniform(5000, 40000) * along, start + 0.5 * wide * across,
+                                 start - 0.5 * wide * across]))
+        elif i % 2:  # a wedge: one far corner, a short edge
+            out.append(np.stack([start, end + 0.5 * wide * across, end - 0.5 * wide * across]))
+        else:  # a strip's half
+            out.append(np.stack([start, end, start + wide * across + rng.uniform(-1, 1) * along]))
+    return out
+
+
+def _subject_thin_triangles(cfg, count, tmp_path):
+    """The r4 subject's triangles with boxes above SMALL_BOX in two cameras
+    of `cfg` (its rods' sides), in pixels."""
+    cams = make_cameras(cfg)
+    write_calibration_csv([cams[0], cams[len(cams) // 2]], tmp_path / "rig.csv")
+    params = raster.CameraParams.build(mesh_io.read_calibration_f32(tmp_path / "rig.csv"), "cpu")
+    vertices, faces = subject_mesh(cfg, 0)
+    out = []
+    for proj in raster.project_plain(torch.from_numpy(vertices), params, 1.0):
+        corners = proj[torch.from_numpy(faces).long()][..., :2]
+        box = (corners.amax(1) - corners.amin(1) + 2).prod(-1)
+        big = torch.nonzero(box > raster.SMALL_BOX).flatten()
+        out += [corners[i].numpy() for i in big[torch.randperm(len(big), generator=torch.Generator().manual_seed(0))
+                                               [:count]]]
+    return out
+
+
+@pytest.mark.parametrize("case", ["random", "subject_748", "subject_12mp"])
+def test_row_ranges_hold_every_pixel_the_exact_test_draws(case, tmp_path):
+    if case == "random":
+        width, height = 1024, 768
+        tris = _thin_triangles(np.random.default_rng(3), 128, width, height)
+    else:
+        size = {"subject_748": (748, 748), "subject_12mp": (4112, 3008)}[case]
+        cfg = dataclasses.replace(R4_SCENE, num_cameras=8, width=size[0], height=size[1])
+        width, height = size
+        tris = _subject_thin_triangles(cfg, 24, tmp_path)
+    on = pruned = 0
+    for corners in tris:
+        xs, ys, (minx, maxx, miny, maxy) = _drawn_pixels(np.asarray(corners, np.float32), width, height)
+        if minx > maxx or miny > maxy:
+            continue
+        x, y, m = _row_ranges(*np.asarray(corners, np.float32).T)
+        if m is None:
+            continue
+        on += 1
+        kept = 0
+        for row in range(miny, maxy + 1):
+            span = _row_range(x, y, m, row, row, minx, maxx)
+            drawn = xs[ys == row]
+            if span is None:
+                assert drawn.size == 0, (corners, row)
+                continue
+            kept += span[1] - span[0] + 1
+            assert drawn.size == 0 or (span[0] <= drawn.min() and drawn.max() <= span[1]), (corners, row, span)
+        pruned += kept < (maxx - minx + 1) * (maxy - miny + 1) / 4
+    assert on >= len(tris) // 2 and pruned >= on // 2, (on, pruned, len(tris))
 
 
 # --------------------------------------------------------------- host math
@@ -450,21 +673,38 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(cuda_device, scene):
-    """mesh_project and mesh_raster against their plain versions on the
-    card, bit for bit, and the CLI's files against the plain CLI's."""
-    data_dir, objs = scene
-    cameras = mesh_io.read_calibration_f32(data_dir / "calibration.csv")
-    vertices, faces = (torch.from_numpy(a).to(cuda_device) for a in mesh_io.load_obj(objs[1]))
+@pytest.mark.parametrize("case", ["subject", *RENDER_CASES[5:], "clipping"])
+def test_kernels_match_plain_on_card(case, cuda_device, scene, tmp_path):
+    """Each kernel against its plain version on the card, bit for bit: the
+    projections, the tile lists (each tile's faces in any order), and the
+    masks and depths of `mesh_raster`; the launch counts of one
+    `rasterize`."""
+    args = _case_args(case, scene, tmp_path)
+    cameras = mesh_io.read_calibration_f32(args[args.index("--csv") + 1])
+    obj = args[args.index("--objs") + 1 if case != "subject" else args.index("--csv") - 1]
+    vertices, faces = (torch.from_numpy(a).to(cuda_device) for a in mesh_io.load_obj(obj))
     params = raster.CameraParams.build(cameras, cuda_device)
     raster.reset_launches()
-    proj = raster.launch_project(vertices, params, 1.1)
-    buf = raster.launch_raster(proj, faces, params)
+    views = raster.rasterize(vertices, faces, cameras, 1.1)
     torch.cuda.synchronize()
-    assert raster.launches == {"project": 1, "raster": 1}
-    assert torch.equal(proj.view(torch.int32), raster.project_plain(vertices, params, 1.1).view(torch.int32))
-    plain, fragments = raster.depth_buffer_plain(proj, faces, params)
-    assert torch.equal(buf.view(torch.int32), plain.view(torch.int32)) and int(fragments.sum()) > 0
+    assert raster.launches == {"project": 1, "bin": 2, "raster": 1}
+    proj = raster.launch_project(vertices, params, 1.1)
+    plain_proj = raster.project_plain(vertices, params, 1.1)
+    assert torch.equal(proj.view(torch.int32), plain_proj.view(torch.int32))
+    bins, plain_bins = raster.launch_bin(proj, faces, params), raster.bin_plain(proj, faces, params)
+    tile = torch.repeat_interleave(torch.arange(params.tiles, device=cuda_device),
+                                   (bins.offsets[1:] - bins.offsets[:-1]).long())
+    canonical = torch.sort(tile * faces.shape[0] + bins.entries.long())[0] % faces.shape[0]
+    assert torch.equal(bins.offsets, plain_bins.offsets) and torch.equal(canonical.int(), plain_bins.entries)
+    assert torch.equal(bins.slots, plain_bins.slots)
+    assert (bins.crowded, bins.most) == (plain_bins.crowded, plain_bins.most)
+    buf, fragments = raster.depth_buffer_plain(proj, faces, params)
+    plain_mask, plain_depth = raster.resolve(buf)
+    assert int(fragments.sum()) > 0
+    mask, depth = raster.launch_raster(proj, faces, params, bins)
+    assert torch.equal(mask, plain_mask) and torch.equal(depth.view(torch.int32), plain_depth.view(torch.int32))
+    for (mask, depth), (plain_m, plain_d) in zip(views, raster.rasterize_plain(vertices, faces, cameras, 1.1)):
+        assert torch.equal(mask, plain_m) and torch.equal(depth.view(torch.int32), plain_d.view(torch.int32))
 
 
 @pytest.mark.cuda
