@@ -38,6 +38,14 @@ The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
 math ("the old path"), is off the main path; phases 3-5 time it beside the
 new kernels in the same call.
 
+The single-process train step and the render function are CUDA graphs
+(`train/graphs.py`), captured once per input signature and replayed; every
+path below that trains or renders through `make_train_step`,
+`make_render_fn`, `render_image` or the CLI replays them. Phases 4, 5 and
+7(a)-(b) also run the same functions eagerly (`graph=False`) and hold the
+graphs to them; the swaps of the field's call (plain, old path) run
+eagerly, since a graph replays what it captured.
+
 Phases, each of which raises on failure:
 
 1. device: a CUDA Hopper card (capability 9.0) is required;
@@ -49,23 +57,38 @@ Phases, each of which raises on failure:
    call that computes the same function; each `field_interp` kernel against
    its plain version at the r4 grid, the r4 vectors and a reference-capacity
    grid (T = 2^19, dense and hashed levels), at uniform random positions and
-   at real ones (the step-0 field query of phase 5's first batch), with its
-   time beside its plain version's, the old path's (eager corner math plus
-   the (idx, w) kernel, timed in turns) and its bound. Bars: max|err| /
-   max|ref| < 1e-5 (the forward is also reported bit for bit);
-4. the render: kernel launches counted over it (2 `field_interp` forward per
-   batch and segment with samples, no backward, no `fused_interp`), kernel
-   render vs plain render (PSNR ≥ 50 dB), ROI-PSNR against the ground truth
-   within 0.5 dB of the JAX package's banked render of the same view, and
-   warm renders of the plain, the old and the new path in turns;
+   at real ones (the samples that the step-0 field query of phase 5's first
+   batch serves), with its time beside its plain version's, the old path's
+   (eager corner math plus the (idx, w) kernel, timed in turns) and its
+   bound; and at the r4 shapes, each kernel with its skip inputs (the
+   segment id, the valid count) over that query's whole buffer against its
+   plain version with the same inputs (the call the main path makes, and
+   the kernel table's time), timed beside the same kernel on the served
+   samples alone. Bars: max|err| / max|ref| < 1e-5 (the forward is
+   also reported bit for bit);
+4. the render through its graphs: kernel launches counted over it (2
+   `field_interp` forward per batch and segment: every batch queries both
+   segments, no backward, no `fused_interp`), kernel render vs plain render
+   (PSNR ≥ 50 dB), ROI-PSNR against the ground truth within 0.5 dB of the
+   JAX package's banked render of the same view, warm renders of the plain
+   and the old path once and of the eager render and the graphs in turns
+   (s per view), and
+   the graph render bit-equal to the eager one;
 5. training: a step-0 A/B of loss and gradients through the kernels against
-   both directions' plain versions; TRAIN_STEPS steps with launches counted
-   (2 forward + 2 backward per segment per step, no `fused_interp`), finite
-   losses, no skipped update and falling mse; ms per step, supervised rays/s,
-   peak memory and the device's busy share in one profiled step; then
-   windows of the old and the new path in turns (ms per step, peak memory,
-   kernels and busy share of a profiled step each); the held-out Cam012
-   view's ROI-PSNR before and after training;
+   both directions' plain versions (eager); the eager body of a fresh model
+   for one step under `torch.cuda.set_sync_debug_mode("error")` (no op may
+   wait for the device), then the graph's first replay (step 1; step 0 is
+   its warm-up, the eager body) against the eager body from the same state,
+   batch and key (loss bit-equal, gradient cosine ≥ GRAPH_GRAD_COSINE per
+   parameter); TRAIN_STEPS graph steps with launches
+   counted (2 forward + 2 backward per segment per step, no
+   `fused_interp`), finite losses, no skipped update and falling mse; ms
+   per step beside the eager step's before the graphs, supervised rays/s,
+   peak memory and
+   the device's busy share in one profiled step; then windows of the old
+   path, the eager body and the graph in turns (ms per step, peak memory,
+   kernels, device time and busy share of a profiled step each); the
+   held-out Cam012 view's ROI-PSNR before and after training;
 6. the CLI: the r4 scene written with the port's generator (its time; one
    JPEG decoded back against the renderer's image, PSNR ≥ JPEG_PSNR_MIN;
    adaptive partitioning gives [25, 25]), then `humanrf_torch.run.main` with
@@ -78,22 +101,28 @@ Phases, each of which raises on failure:
    step checkpoints after the rolling prune and a best.ckpt, the test frame
    and the CSVs, no skipped update, launches of both `field_interp`
    directions and none of `fused_interp` counted over these runs; then a
-   resume from `latest` for RESUME_STEPS more steps. Prints ms per step,
-   nominal and supervised rays/s, the host fetch share and the pool's
-   replacement rate;
+   resume from `latest` for RESUME_STEPS more steps. Prints ms per step
+   (beside the eager step's before the graphs), nominal and supervised
+   rays/s, the host
+   fetch share and the pool's replacement rate;
 7. dense sampling:
    (a) best.ckpt's 748² view through the dense sampler at the r4 run's
    settings (R4_DENSE, scaled to the 16,384-ray batches): launches counted
    (forward only, no `fused_interp`), a finite image, kernel render vs
    plain render ≥ 50 dB, and the baked 128² patch (`torch_dense_inputs.npz`,
    16 batches of 1,024 rays at the baked settings) ≥ DENSE_PATCH_PSNR_MIN
-   from the JAX package's dense render of it; prints s per view, ms per
-   batch, the sampler's counts per view and the ROI-PSNR beside phase 4's;
+   from the JAX package's dense render of it, both through the graphs, and
+   the graph render bit-equal to the eager one; prints s per view of the
+   plain, eager and graph renders, ms per batch, the sampler's counts per
+   view and the ROI-PSNR beside phase 4's;
    (b) the dense step (DENSE_STEP_CONFIG) on a fresh model with the paper's
    field, fed from phase 5's pool: each field_interp kernel against its
-   plain version at step 0's render-pass and prune-pass queries (bars as
-   phase 3's; time, bound and share of it), a step-0 kernel-vs-plain A/B
-   (loss within 1e-5, gradient cosine ≥ 0.9999), DENSE_STEPS timed steps
+   plain version at the samples that step 0's render-pass and prune-pass
+   queries serve and, with the skip inputs, over the budgets' whole
+   buffers (bars as phase 3's; time, bound and share of it), a step-0
+   kernel-vs-plain A/B (loss within 1e-5, gradient cosine ≥ 0.9999), the
+   sync check and graph-vs-eager first replay as phase 5's, DENSE_STEPS timed
+   graph steps (8 forward + 4 backward launches each)
    (ms per step, rays/s, supervised rays/s, launches, peak memory, one
    profiled step's busy share; no skipped update; mse falling to ≤ ½), and
    the sampler's counts over DENSE_STATS_STEPS more batches;
@@ -223,19 +252,33 @@ The last three lines of output are the kernel table as JSON (the six
 kernels: `field_interp` forward and backward, with `launches` counted over
 phase 11, each phase's counts beside them, their phase-3 times at the r4
 shapes, their phase-7(b) times at the dense ones under "dense" and their
-11(d) times at T = 2^22 under "ref_capacity"; the
+11(d) times at T = 2^22 under "ref_capacity"; the phase-3 and 7(b) times
+are the calls with the skip inputs over the whole buffer, as the main path
+makes them, with the served samples alone under "served_only"; the
 earlier `fused_interp` design, launched by phase 3 only; `mesh_project`,
 `mesh_bin` and `mesh_raster`, with `launches` counted over 10(b), their
 times per view at 10(b)'s frames, 10(d)'s under "rig_ms" and 10(e)'s under
 "rig_12mp_ms"), the card's name and power limit from nvidia-smi, and
 `{"ok": true, "device": {...}}`.
-Usage: python3 chip_smoke.py [--mesh-only]   (--mesh-only: phases 1, 2 and 10
-alone, on a freshly written r4 scene; the kernel table then holds the mesh
-kernels only)
+Usage: python3 chip_smoke.py [--mesh-only | --kernel-ab OTHER_FIELD_INTERP_CU]
+(--mesh-only: phases 1, 2 and 10 alone, on a freshly written r4 scene; the
+kernel table then holds the mesh kernels only. --kernel-ab: phases 1 and 2,
+then `kernel_ab`, this tree's field_interp kernels without skip inputs
+against another build of them; the kernel table is then empty. The script
+runs itself with --breakdown INPUTS for `device_breakdown`'s fresh process)
 """
 from __future__ import annotations
 
+import os
+
+# Keep CUPTI set up between torch.profiler sessions: the script profiles
+# many windows, some of them CUDA graph replays, and PyTorch's own profiler
+# turns the teardown off whenever graphs are in use ("CUDA Graph does not
+# work well with CUPTI teardown", torch/profiler/profiler.py).
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
+
 import contextlib
+import ctypes
 import dataclasses
 import json
 import re
@@ -262,12 +305,13 @@ from humanrf_torch.data.loader import DataLoader
 from humanrf_torch.core.camera import write_calibration_csv
 from humanrf_torch.core.synthetic import GENERATOR_VERSION, make_cameras, render_cameras, subject_mesh
 from humanrf_torch.evaluation.metrics import LpipsModel
-from humanrf_torch.models import decomposition4d, fused_field
+from humanrf_torch.models import fused_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops import rasterize as raster
+from humanrf_torch.ops import cuda_build
 from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.parallel import harness
 from humanrf_torch.parallel.launch import launch
@@ -335,9 +379,22 @@ TRAIN_STEPS = 300          # steps of phase 5 (a fresh model), ~60 s
 WARM_STEPS = 5             # not timed
 STEP0_LOSS_REL = 1e-5      # step-0 loss, kernels vs plain
 STEP0_GRAD_COSINE = 0.9999 # step-0 gradient per parameter, kernels vs plain
+# Step 0 of the captured step against the eager body from the same state,
+# batch and key: the loss bit-equal (the forward sums in a fixed order), the
+# gradient per parameter at this cosine (the backward kernel adds in fp32
+# atomics, in a run-dependent order).
+GRAPH_GRAD_COSINE = 0.99999
+PROFILE_LEAD_S = 0.1       # host seconds between a profiler window's start and its work (`device_profile`)
+# The eager port's numbers on this card before its steps became CUDA graphs
+# (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), printed beside the graphs'.
+EAGER_MS_PER_STEP = {"train step (5)": 40.83, "dense step (7(b))": 38.56, "cli (6)": 75.19,
+                   "dense cli (7(c))": 58.61, "multiseg (11(c))": 205.55, "ref capacity (11(d))": 121.82,
+                   "throughput (11(e))": 75.06}
+EAGER_S_PER_VIEW = "0.44–0.48"  # phase 4's proposal render of a 748² view
 MSE_DROP = 0.5             # mean mse of the last 20 steps ≤ this × that of the first 5
 AB_WARM_STEPS = 2          # phase 5's old/new windows: steps before each timed window
 AB_STEPS = 10              # phase 5's old/new windows: timed steps each
+OLD_WINDOW = (1, 3)        # the old path's window (10–30× slower): steps before it, timed steps
 
 EARLY_STEPS = 20           # phases 6 and 7(c): the first CLI run, validated and saved at its end
 CLI_STEPS = 200            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
@@ -440,8 +497,12 @@ LPIPS_TOL = 1e-5                 # relative, the random-feature LPIPS on the car
 RASTER_FRAGMENT_OPS, RASTER_SETUP_OPS, PROJECT_OPS = 26, 40, 30
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _START:6.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -577,43 +638,99 @@ def train_config(view):
 
 
 def capture_queries(step, batch, pool, key) -> dict:
-    """The (N, 4) sample coordinates of the largest field query of each pass
-    of one training step: "render" (with autograd) and, under dense
-    sampling, "prune" (without)."""
+    """The grid-mode field query of each pass of one eager training step,
+    as the field's kernels get it: "render" (with autograd) and, under dense
+    sampling, "prune" (without); of each, the call of the segment that
+    serves the most samples → {pass: {"xyzt" (N, 4) over the whole buffer,
+    its skip inputs "n_valid", "seg" and "s", and "served", the (M, 4)
+    coordinates of the samples it serves: the query as it was before the
+    static budgets, which phases 3 and 7(b) time}}."""
     captured = {"prune": [], "render": []}
-    field = decomposition4d.apply_decomposition4d_fused
+    field = fused_field.field_interp
 
-    def capture(params, xyz, times, field_cfg, tables=None):
-        captured["render" if torch.is_grad_enabled() else "prune"].append(torch.cat([xyz, times], dim=-1).detach().clone())
-        return field(params, xyz, times, field_cfg, tables)
+    def capture(tables, xyzt, spec, n_valid=None, seg=None, s=0):
+        if spec.mode == fli.MODE_GRID:
+            query = {"xyzt": xyzt.detach().clone().contiguous(), "s": s,
+                     "n_valid": None if n_valid is None else n_valid.clone(),
+                     "seg": None if seg is None else seg.clone()}
+            live = fli.served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
+            query["served"] = query["xyzt"] if live is None else query["xyzt"][live].contiguous()
+            captured["render" if torch.is_grad_enabled() else "prune"].append(query)
+        return field(tables, xyzt, spec, n_valid, seg, s)
 
-    with mock.patch.object(decomposition4d, "apply_decomposition4d_fused", capture):
+    with mock.patch.object(fused_field, "field_interp", capture):
         step(batch, pool.pool, pool.grids, pool.aabb, key)
-    return {k: max(v, key=len).contiguous() for k, v in captured.items() if v}
+    return {k: max(v, key=lambda q: q["served"].shape[0]) for k, v in captured.items() if v}
 
 
-def capture_real_xyzt(device, view, pool) -> torch.Tensor:
-    """The largest field query of phase 5's step 0 (its fresh model, its
-    first batch and key), through the kernels."""
+def capture_real_query(device, view, pool) -> dict:
+    """The render pass's field query of phase 5's step 0 (its fresh model,
+    its first batch and key; see `capture_queries`)."""
     model, cfg = fresh_model(device, view), train_config(view)
     batch = sample_batch(cfg, pool.pixel_rgba, torch.Generator(device).manual_seed(1))
-    step = make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height)
+    step = make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height, graph=False)
     return capture_queries(step, batch, pool, make_key(0, device))["render"]
 
 
-def old_path(tables, xyzt, spec):
+def old_path(tables, xyzt, spec, n_valid=None, seg=None, s=0):
     """The path the field_interp kernels replace: the eager corner math, then
-    the (idx, w) `fused_interp` kernels (differentiable in the tables)."""
-    return fi.fused_interp(tables, *fli.corner_idx_w(xyzt, spec, tables.shape[2]))
+    the (idx, w) `fused_interp` kernels (differentiable in the tables); the
+    skipped samples read 0, as `field_interp`'s do."""
+    out = fi.fused_interp(tables, *fli.corner_idx_w(xyzt, spec, tables.shape[2]))
+    live = fli.served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
+    return out if live is None else torch.where(live, out, 0.0)
 
 
-def field_check(direction: str, dims: dict, kernel, plain, reference, old=None, table_entries=None) -> dict:
+def skip_checks(name: str, positions: str, spec, P: int, F_: int, T: int, query: dict, tables, g=None) -> dict:
+    """The kernels with their skip inputs at a real query over its whole
+    buffer (`query`, from `capture_queries`): the call the main path makes.
+    Each against its plain version with the same inputs (phase 3's bars and
+    references; the forward is also reported bit for bit) → {direction:
+    row}. A row's "ms" and "plain_ms" are the calls with the skip inputs;
+    "served_ms" the same kernel on the served samples alone and without
+    them, the call before the static budgets. The bound counts what the
+    launch needs: the served samples' coordinates, cotangents (backward)
+    and corner math, the segment ids of the slots below the valid count, the
+    tables (or dtab) once, and the forward's whole output (a skipped slot
+    writes its 0). Without `g` (a pass with no backward) only the forward."""
+    xyzt, skip = query["xyzt"], (query["n_valid"], query["seg"], query["s"])
+    served = query["served"]
+    N, M = xyzt.shape[0], served.shape[0]
+    C = 8 if spec.mode == fli.MODE_GRID else 2
+    live = N if query["n_valid"] is None else min(N, int(query["n_valid"]))
+    read = 16 * M + (0 if query["n_valid"] is None else 4) + (0 if query["seg"] is None else 4 * live)
+    ops = P * M * (CORNER_OPS[C] + 2 * C * F_)
+    dims = {"shape": name, "positions": positions, "P": P, "C": C, "F": F_, "T": T, "N": N, "served": M}
+    rows = {"fwd": field_check("fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec, *skip),
+                               lambda: fli.field_interp_plain(tables, xyzt, spec, *skip),
+                               lambda: fli.field_interp_plain(tables, xyzt, spec, *skip),
+                               work=(read + 4 * P * F_ * T + 4 * P * F_ * N, ops))}
+    rows["fwd"]["served_ms"] = time_ms(lambda: fli._launch_fwd(tables, served, spec), iters=10)
+    if g is not None:
+        g_served = g[..., :M].contiguous()
+        rows["bwd"] = field_check("bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T, *skip),
+                                  lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T, *skip),
+                                  lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T, *skip),
+                                  work=(read + 4 * P * F_ * T + 4 * P * F_ * M, ops))
+        rows["bwd"]["served_ms"] = time_ms(lambda: fli._launch_bwd(g_served, served, spec, T), iters=10)
+    for direction, row in rows.items():
+        log(f"kernel field_interp_{direction} {name} ({positions}: n_valid {query['n_valid'] is not None}, "
+            f"seg {query['seg'] is not None}) over {N} slots serving {M}: {row['ms']:.4f} ms; "
+            f"the same kernel on the {M} served samples without them {row['served_ms']:.4f} ms")
+    return rows
+
+
+def field_check(direction: str, dims: dict, kernel, plain, reference, old=None, table_entries=None,
+                work=None) -> dict:
     """One field_interp kernel call against `reference` (its plain version,
     the backward's summed in fp64) at `dims` (shape, positions, P, C, F, T,
-    N); raises past KERNEL_TOL. Its time beside its plain version's, the old
-    path's when given (in turns: old, new, new, old) and its bound → the row.
+    N); raises past KERNEL_TOL. Its time beside its plain version's (`plain`,
+    None: not timed), the old path's when given (in turns: old, new, new,
+    old) and its bound → the row.
     The bound reads `table_entries` table rows (default all P·T): a forward
-    whose samples touch far fewer rows than the tables hold needs only those."""
+    whose samples touch far fewer rows than the tables hold needs only those.
+    `work` = (bytes, operations) replaces the bound's count of every sample
+    (a call with skip inputs needs only its served samples')."""
     out, ref = kernel(), reference()
     torch.cuda.synchronize()
     err = float((out.double() - ref).abs().max())
@@ -623,19 +740,22 @@ def field_check(direction: str, dims: dict, kernel, plain, reference, old=None, 
     where = f"{dims['shape']} ({dims['positions']} positions) P={P} F={F_} T={T} N={N}"
     if not scaled < KERNEL_TOL:
         raise AssertionError(f"field_interp_{direction} kernel disagrees at {where}: scaled err {scaled:.3e}")
-    plain_ms = time_ms(plain, iters=5)
+    plain_ms = None if plain is None else time_ms(plain, iters=5)
     turns = {"old": [], "new": []}
     for which in ("old", "new", "new", "old") if old is not None else ("new",):
         turns[which].append(time_ms(kernel if which == "new" else old, iters=10))
     ms = float(np.mean(turns["new"]))
     # xyzt 16 B per sample, tables or g in, out or dtab out.
     rows = P * T if table_entries is None else table_entries
-    bound_ms, bound_by = bound(16 * N + 4 * F_ * rows + 4 * P * F_ * N, P * N * (CORNER_OPS[C] + 2 * C * F_))
+    if work is None:
+        work = (16 * N + 4 * F_ * rows + 4 * P * F_ * N, P * N * (CORNER_OPS[C] + 2 * C * F_))
+    bound_ms, bound_by = bound(*work)
     log(f"kernel field_interp_{direction} {where}: max|err| {err:.3e} (scaled {scaled:.3e}"
         f"{f', bit-exact {exact}' if direction == 'fwd' else ' against the fp64 sum'}), kernel "
         f"{', '.join(f'{t:.4f}' for t in turns['new'])} ms"
         + (f", old path {', '.join(f'{t:.4f}' for t in turns['old'])} ms" if old is not None else "")
-        + f", plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
+        + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
+        + f", bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
     row = {**dims, "max_abs_err": err, "bit_exact": exact, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
     if old is not None:
@@ -643,7 +763,7 @@ def field_check(direction: str, dims: dict, kernel, plain, reference, old=None, 
     return row
 
 
-def check_field_kernels(device, view, real_xyzt) -> dict:
+def check_field_kernels(device, view, real_query) -> dict:
     """Each field_interp kernel against its plain version at field_shapes,
     at uniform random and at real positions; its time beside its plain
     version's, the old path's (taken in turns: old, new, new, old) and its
@@ -654,14 +774,18 @@ def check_field_kernels(device, view, real_xyzt) -> dict:
     time, so the time vector's two taps take every sample), and an fp32 sum
     of n terms in sequence, as the plain scatter_add on the card makes it,
     moves by ~eps·√n ≈ 2e-5 of its size, more than the bar; the kernel's
-    sums are hierarchical (runs, blocks, then the table) and stay within it."""
+    sums are hierarchical (runs, blocks, then the table) and stay within it.
+    "Real" positions are the samples phase 5's query serves; at the r4
+    shapes the kernels are also held with their skip inputs over the
+    query's whole buffer (`skip_checks`)."""
     rng = np.random.default_rng(0)
     positions = {
         "random": {name: torch.tensor(rng.uniform(0, 1, (n, 4)).astype(np.float32), device=device)
                    for name, n in FIELD_RANDOM_N.items()},
-        "real": real_xyzt.contiguous(),
+        "real": real_query["served"],
     }
     per_shape = {"fwd": [], "bwd": []}
+    skip_rows = {"fwd": [], "bwd": []}
     for name, spec, P, F_, T in field_shapes(view):
         C = 8 if spec.mode == fli.MODE_GRID else 2
         tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
@@ -678,14 +802,27 @@ def check_field_kernels(device, view, real_xyzt) -> dict:
                 "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T), lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
                 lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T),
                 old=lambda: fi._launch_bwd(g, *fli.corner_idx_w(xyzt, spec, T), T)))
-    records = {}
-    for direction, rows in per_shape.items():
-        # The record's times are at real positions, the main path's data.
-        record = summarize([r for r in rows if r["positions"] == "real"])
-        record["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-        record["per_shape"] = rows
-        records[direction] = record
-    return records
+        if name != "capacity":
+            g_full = torch.tensor(rng.normal(size=(P, F_, real_query["xyzt"].shape[0])).astype(np.float32), device=device)
+            for direction, row in skip_checks(name, "real, skip inputs", spec, P, F_, T, real_query, tables,
+                                              g_full).items():
+                skip_rows[direction].append(row)
+    return {d: headline(rows, skip_rows[d], "real") for d, rows in per_shape.items()}
+
+
+def headline(rows: list, skip_rows: list, positions: str) -> dict:
+    """A kernel's record at one field query (grids + vectors): its times and
+    bound are the calls with the skip inputs over the whole buffer, as the
+    main path makes them; the same kernel on the served samples alone (the
+    call before the static budgets, with the old path's time where it was
+    taken) is under "served_only"."""
+    record = summarize(skip_rows)
+    record["max_abs_err"] = max(r["max_abs_err"] for r in rows + skip_rows)
+    served_only = summarize([r for r in rows if r["positions"] == positions])
+    record["served_only"] = {k: v for k, v in served_only.items() if k != "per_shape"}
+    record["per_shape"] = rows
+    record["skip_inputs"] = skip_rows
+    return record
 
 
 def ptxas_summary(log_text: str) -> list:
@@ -731,10 +868,12 @@ def to_u8(img: torch.Tensor) -> np.ndarray:
     return (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
 
 
-def timed_render(model, view) -> tuple:
+def timed_render(model, view, pcfg=None, graph: bool = True) -> tuple:
+    """`render_image` of the view (through its graphs, or eagerly) → (the
+    image, wall s)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = render_image(model, view.pipeline_config, view.inputs, view.rays_batch_size)
+    img = render_image(model, pcfg or view.pipeline_config, view.inputs, view.rays_batch_size, graph=graph)
     torch.cuda.synchronize()
     return img, time.perf_counter() - t0
 
@@ -763,6 +902,96 @@ def held_out_roi_psnr(model, view) -> float:
     return roi_psnr(to_u8(img), view.images["gt_rgb"], view.images["gt_mask"])
 
 
+def step0_kernel_vs_plain(label: str, grads_step, model, batch, pool, key) -> None:
+    """One batch and key through `grads_step` (eager, gradients only) with the
+    field's kernels and with both directions' plain versions: the loss within
+    STEP0_LOSS_REL, each parameter's gradient at cosine ≥ STEP0_GRAD_COSINE."""
+    runs = {}
+    for which in ("kernel", "plain"):
+        patch = (mock.patch.object(fused_field, "field_interp", fli.PlainFieldInterp.apply) if which == "plain"
+                 else contextlib.nullcontext())
+        with patch:
+            loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
+        runs[which] = (float(loss), {n: p.grad.clone() for n, p in model.named_parameters()})
+    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    # The gradients are held by cosine, not by max error: a sum that differs
+    # by an ulp can flip a near-tie bf16 rounding in the MLP, which moves a
+    # few gradient entries by far more than the kernels' own rounding.
+    cosines = {n: cosine(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = min(cosines, key=cosines.get)
+    log(f"{label} step-0 A/B: loss kernel {loss_k:.7f}, plain {loss_p:.7f} (rel {rel:.2e}); "
+        f"gradient cosine min {cosines[worst]:.7f} ({worst})")
+    if not rel <= STEP0_LOSS_REL:
+        raise AssertionError(f"{label} step-0 loss through the kernels differs from the plain run by {rel:.2e} relative")
+    if not cosines[worst] >= STEP0_GRAD_COSINE:
+        raise AssertionError(f"{label} step-0 gradient of {worst} has cosine {cosines[worst]:.7f} to the plain run's")
+    model.zero_grad(set_to_none=True)
+
+
+def adamw(model):
+    return make_optimizer(model.named_parameters(), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
+
+
+def graph_vs_eager(label: str, make_model, cfg, batch, pool, key) -> None:
+    """The captured step against its eager body. First the eager body of a
+    fresh model, warmed once, runs one step under
+    `torch.cuda.set_sync_debug_mode("error")`, which raises at any op that
+    waits for the device (a read the capture would refuse). Then a fresh
+    model with AdamW takes two steps through the graph on the same batch and
+    key: step 0 is the eager body (the graph's warm-up, then its capture),
+    step 1 the first replay. A second model, given the first's parameters
+    and AdamW state from before step 1, takes that step eagerly: the loss
+    bit-equal, each parameter's gradient at cosine ≥ GRAPH_GRAD_COSINE, the
+    parameters after the update printed."""
+    model = make_model()
+    eager = make_train_step(cfg, model, adamw(model), pool.width, pool.height, graph=False)
+    eager(batch, pool.pool, pool.grids, pool.aabb, key)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(batch, pool.pool, pool.grids, pool.aabb, key)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del model, eager
+
+    def snapshot(model, what):
+        return {n: (p.grad if what == "grad" else p).detach().clone() for n, p in model.named_parameters()}
+
+    model_g, model_e = make_model(), make_model()
+    opt_g, opt_e = adamw(model_g), adamw(model_e)
+    graphed = make_train_step(cfg, model_g, opt_g, pool.width, pool.height, graph=True)
+    graphed(batch, pool.pool, pool.grids, pool.aabb, key)  # step 0: the warm-up, then the capture
+    with torch.no_grad():
+        for p_e, p_g in zip(model_e.parameters(), model_g.parameters()):
+            p_e.copy_(p_g)
+        for a, b in zip((opt_e.count, opt_e.skipped, opt_e.notfinite_count, opt_e.last_finite, *opt_e.mu, *opt_e.nu),
+                        (opt_g.count, opt_g.skipped, opt_g.notfinite_count, opt_g.last_finite, *opt_g.mu, *opt_g.nu)):
+            a.copy_(b)
+    runs = {}
+    for graph, model, step in ((True, model_g, graphed),
+                               (False, model_e, make_train_step(cfg, model_e, opt_e, pool.width, pool.height,
+                                                                graph=False))):
+        loss, _ = step(batch, pool.pool, pool.grids, pool.aabb, key)  # step 1 (the graph's first replay)
+        runs[graph] = (float(loss), snapshot(model, "grad"), snapshot(model, "param"))
+    del model_g, model_e, opt_g, opt_e, graphed, step, model
+    (loss_e, grads_e, params_e), (loss_g, grads_g, params_g) = runs[False], runs[True]
+    cosines = {n: cosine(grads_g[n], grads_e[n]) for n in grads_e}
+    worst = min(cosines, key=cosines.get)
+    moved = max(float((params_g[n] - params_e[n]).abs().max()) for n in params_e)
+    log(f"{label} graph vs eager: the eager body ran a step under sync debug mode \"error\" (no op waited for the "
+        f"device); from the same state, the graph's first replay (step 1) loss {loss_g!r}, eager {loss_e!r} "
+        f"(bit-equal {loss_g == loss_e}); gradient cosine min {cosines[worst]:.8f} ({worst}); parameters after the "
+        f"update differ by at most {moved:.3e}")
+    if loss_g != loss_e:
+        raise AssertionError(f"{label}: the graph's first replayed loss {loss_g!r} is not the eager body's {loss_e!r}")
+    if not cosines[worst] >= GRAPH_GRAD_COSINE:
+        raise AssertionError(f"{label}: the graph's first replayed gradient of {worst} has cosine "
+                             f"{cosines[worst]:.8f} to the eager body's")
+    torch.cuda.empty_cache()
+
+
 def train(device, view, pool) -> dict:
     """Phase 5 (see the module docstring). → the main path's launches."""
     model = fresh_model(device, view)
@@ -773,37 +1002,15 @@ def train(device, view, pool) -> dict:
     key = make_key(0, device)
     width, height = pool.width, pool.height
 
-    # Step-0 A/B: one batch, one key, loss and gradients through the kernels
-    # and through both directions' plain versions.
     batch = sample_batch(cfg, pool.pixel_rgba, generator)
-    grads_step = make_train_step(cfg, model, _GradientsOnly(model), width, height)
-    runs = {}
-    for which in ("kernel", "plain"):
-        if which == "plain":
-            with mock.patch.object(fused_field, "field_interp", fli.PlainFieldInterp.apply):
-                loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
-        else:
-            loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
-        runs[which] = (float(loss), {n: p.grad.clone() for n, p in model.named_parameters()})
-    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    # The gradients are held by cosine, not by max error: a sum that differs
-    # by an ulp can flip a near-tie bf16 rounding in the MLP, which moves a
-    # few gradient entries by far more than the kernels' own rounding.
-    cosines = {n: cosine(grads_k[n], grads_p[n]) for n in grads_k}
-    worst = min(cosines, key=cosines.get)
-    log(f"step-0 A/B: loss kernel {loss_k:.7f}, plain {loss_p:.7f} (rel {rel:.2e}); "
-        f"gradient cosine min {cosines[worst]:.7f} ({worst})")
-    if not rel <= STEP0_LOSS_REL:
-        raise AssertionError(f"step-0 loss through the kernels differs from the plain run by {rel:.2e} relative")
-    if not cosines[worst] >= STEP0_GRAD_COSINE:
-        raise AssertionError(f"step-0 gradient of {worst} has cosine {cosines[worst]:.7f} to the plain run's")
-    model.zero_grad(set_to_none=True)
+    step0_kernel_vs_plain("train", make_train_step(cfg, model, _GradientsOnly(model), width, height, graph=False),
+                          model, batch, pool, key)
+    graph_vs_eager("train", lambda: fresh_model(device, view), cfg, batch, pool, key)
 
     roi_before = held_out_roi_psnr(model, view)
     log(f"held-out {view.camera_name} frame {view.frame_number} before training: ROI-PSNR {roi_before:.3f} dB")
 
-    optimizer = make_optimizer(model.named_parameters(), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
+    optimizer = adamw(model)
     step = make_train_step(cfg, model, optimizer, width, height)
     losses, mses, supervised, per_step_launches = [], [], [], []
     torch.cuda.synchronize()
@@ -819,9 +1026,10 @@ def train(device, view, pool) -> dict:
         b = sample_batch(cfg, pool.pixel_rgba, generator)
         loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
         per_step_launches.append({d: fli.launches[d] - before[d] for d in before})
-        losses.append(loss)
-        mses.append(aux["mse"])
-        supervised.append(aux["num_rays_supervised"])
+        # The graph's outputs are overwritten by its next replay: kept as copies.
+        losses.append(loss.clone())
+        mses.append(aux["mse"].clone())
+        supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches, old_launches = dict(fli.launches), dict(fi.launches)
@@ -831,14 +1039,14 @@ def train(device, view, pool) -> dict:
     supervised = torch.stack(supervised).cpu()
     warm = TRAIN_STEPS - WARM_STEPS
     ms_per_step = 1e3 * seconds / warm
-    log(f"train: {TRAIN_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, "
+    log(f"train (graph): {TRAIN_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, "
         f"mse {float(mses[:5].mean()):.5f} (first 5) → {float(mses[-20:].mean()):.5f} (last 20); "
         f"skipped updates {int(optimizer.skipped)}; field_interp launches {launches}, fused_interp {old_launches}")
-    log(f"train: {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included), "
-        f"{float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised rays/s "
-        f"({float(supervised.float().mean()):.0f} supervised rays per step), "
-        f"peak memory {peak / 2**30:.2f} GiB")
-    # Both segments are hit on every step: the pool holds frames 0 and 25.
+    log(f"train (graph): {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included; the eager step "
+        f"before the graphs: {EAGER_MS_PER_STEP['train step (5)']} ms), "
+        f"{float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised "
+        f"rays/s ({float(supervised.float().mean()):.0f} supervised rays per step), peak memory {peak / 2**30:.2f} GiB")
+    # Both segments run on every step (each over all samples, the other's skipped).
     expected = {"fwd": 2 * 2, "bwd": 2 * 2}
     bad = [i for i, n in enumerate(per_step_launches) if n != expected]
     if bad or launches != {d: n * TRAIN_STEPS for d, n in expected.items()}:
@@ -853,13 +1061,15 @@ def train(device, view, pool) -> dict:
         raise AssertionError("training mse did not fall to half its start")
 
     prof = profile_step(step, sample_batch(cfg, pool.pixel_rgba, generator), pool, key, device)
-    log(f"train: one profiled warm step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms of device time "
-        f"in {prof['wall_ms']:.1f} ms profiled wall; device busy {100 * prof['device_ms'] / ms_per_step:.1f}% "
+    log(f"train (graph): one profiled warm step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms of device "
+        f"time in {prof['wall_ms']:.1f} ms profiled wall (its activities span {prof['span_vs_events']:.3f}× the "
+        f"events' time); device busy {100 * prof['device_ms'] / ms_per_step:.1f}% "
         f"of a {ms_per_step:.2f} ms warm step; top: {prof['top']}")
-    old_vs_new_windows(step, cfg, pool, generator, key, device)
+    eager = make_train_step(cfg, model, optimizer, width, height, graph=False)
+    step_windows("train", {"graph": step, "eager": eager}, cfg, pool, generator, key, device)
 
     roi_after = held_out_roi_psnr(model, view)
-    steps_run = TRAIN_STEPS + 1 + 4 * (AB_WARM_STEPS + AB_STEPS + 1)
+    steps_run = TRAIN_STEPS + 1 + sum(OLD_WINDOW) + 1 + 4 * (AB_WARM_STEPS + AB_STEPS + 1)
     log(f"held-out {view.camera_name} frame {view.frame_number} after {steps_run} steps: "
         f"ROI-PSNR {roi_after:.3f} dB (before {roi_before:.3f} dB)")
     if not roi_after > roi_before:
@@ -867,58 +1077,101 @@ def train(device, view, pool) -> dict:
     return launches
 
 
-def old_vs_new_windows(step, cfg, pool, generator, key, device) -> None:
-    """Training windows of the old path (eager corner math plus the (idx, w)
-    kernels) and the new one in turns, old, new, new, old: ms per step, peak
-    memory, and one profiled step's kernel count and busy share each."""
-    results = {"old": [], "new": []}
-    for turn, which in enumerate(("old", "new", "new", "old")):
+def step_windows(label: str, steps: dict, cfg, pool, generator, key, device) -> None:
+    """Training windows in turns, old, eager, graph, graph, eager: the old
+    path (the eager body with eager corner math plus the (idx, w) kernels;
+    one short window, OLD_WINDOW, as it is 10–30× slower), the eager body
+    and the captured step,
+    on one model and
+    optimizer: ms per step, peak memory allocated in the window (a graph's
+    private pool, taken at its capture before the window, is not in it;
+    the main window's peak, which includes the capture, is the graph's),
+    and one profiled step's kernel count, device time and busy share each."""
+    results = {"old": [], "eager": [], "graph": []}
+    for turn, which in enumerate(("old", "eager", "graph", "graph", "eager")):
         patch = mock.patch.object(fused_field, "field_interp", old_path) if which == "old" else contextlib.nullcontext()
+        step = steps["graph" if which == "graph" else "eager"]
+        warm_steps, timed_steps = OLD_WINDOW if which == "old" else (AB_WARM_STEPS, AB_STEPS)
         with patch:
-            for i in range(AB_WARM_STEPS):
+            for i in range(warm_steps):
                 step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
                      fold_in(key, torch.tensor(10_000 + 100 * turn + i, device=device)))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
-            for i in range(AB_STEPS):
+            for i in range(timed_steps):
                 step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
                      fold_in(key, torch.tensor(10_050 + 100 * turn + i, device=device)))
             torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0) / AB_STEPS
+            ms = 1e3 * (time.perf_counter() - t0) / timed_steps
             peak = torch.cuda.max_memory_allocated(device)
             prof = profile_step(step, sample_batch(cfg, pool.pixel_rgba, generator), pool, key, device)
         results[which].append((ms, peak, prof))
-        log(f"train A/B ({which} path): {ms:.2f} ms per step over {AB_STEPS}, peak memory {peak / 2**30:.3f} GiB; "
-            f"profiled step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms device, busy "
+        log(f"{label} windows ({which}): {ms:.2f} ms per step over {timed_steps}, peak memory allocated in the window "
+            f"{peak / 2**30:.3f} GiB; "
+            f"profiled step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms device (span "
+            f"{prof['span_vs_events']:.3f}× the events' time), busy "
             f"{100 * prof['device_ms'] / ms:.1f}%; top: {prof['top']}")
     for which, rows in results.items():
-        log(f"train A/B ({which} path) mean: {np.mean([r[0] for r in rows]):.2f} ms per step, "
-            f"peak {max(r[1] for r in rows) / 2**30:.3f} GiB, {np.mean([r[2]['kernels'] for r in rows]):.0f} kernels "
-            f"per profiled step")
+        ms = np.mean([r[0] for r in rows])
+        device_ms = np.mean([r[2]["device_ms"] for r in rows])
+        log(f"{label} windows ({which}) mean: {ms:.2f} ms per step, peak {max(r[1] for r in rows) / 2**30:.3f} GiB, "
+            f"{np.mean([r[2]['kernels'] for r in rows]):.0f} kernels and {device_ms:.2f} ms device per profiled "
+            f"step, busy {100 * device_ms / ms:.1f}%")
+
+
+@contextlib.contextmanager
+def device_profile():
+    """`torch.profiler` over the CPU and CUDA, its window opened
+    PROFILE_LEAD_S before the body. The profiler keeps only the device
+    activities it places inside its window, and as this process ages it
+    drops more of a window's first ones (a bisection: after each rank
+    launch of phase 9 a window lost more of its first kernels; a window
+    opened 0.1 s early kept them there). After phase 9 that is not enough:
+    see `device_breakdown`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
+        yield prof
 
 
 def profile_step(step, batch, pool, key, device) -> dict:
     """One warm step under torch.profiler: its CUDA kernels' count and summed
     time, and the five largest by self device time. The device's busy share
     is that sum over an unprofiled warm step's wall time (the profiler slows
-    the host)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    the host). The window opens PROFILE_LEAD_S early (`device_profile`).
+    Raises unless the profiler holds the whole step: as many field_interp
+    kernels as the step launched, and its device activities spanning
+    0.7-1.3× the CUDA events' time around the step (a window that lost its
+    first activities spans less)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    before = dict(fli.launches)
+    with device_profile() as prof:
         t0 = time.perf_counter()
+        start.record()
         step(batch, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(TRAIN_STEPS, device=device)))
+        end.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched = sum(fli.launches[d] - before[d] for d in before)
+    events_ms = start.elapsed_time(end)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise AssertionError("torch.profiler saw no CUDA kernel in a training step")
+    span_ms = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+    seen = sum(1 for e in kernels if re.search(r"field_(fwd|bwd)_kernel", e.name))
+    if seen != launched or not 0.7 * events_ms <= span_ms <= 1.3 * events_ms:
+        raise AssertionError(f"torch.profiler saw {seen} field_interp kernels of the step's {launched}, its device "
+                             f"activities spanning {span_ms:.3f} ms against {events_ms:.3f} ms by CUDA events: it "
+                             f"does not hold the whole step in this process")
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:5]
     return {
         "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
         "wall_ms": 1e3 * wall,
         "kernels": len(kernels),
+        "span_vs_events": span_ms / events_ms,
         "top": ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms" for e in top),
     }
 
@@ -985,7 +1238,9 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     log(f"{name}: {EARLY_STEPS} steps, then resumed to {total_steps} + 3 validations + test render + evaluation "
         f"in {wall:.1f} s wall; field_interp launches {launches}, fused_interp {old_launches}; validation PSNR per "
         f"block {blocks}; evaluation {result['averages']}")
-    log(f"{name}: trainer scale ({stats['steps']} steps timed): {stats['ms_per_step']:.2f} ms per step, "
+    before = EAGER_MS_PER_STEP["cli (6)" if name == "cli" else "dense cli (7(c))"]
+    log(f"{name}: trainer scale ({stats['steps']} steps timed, the step a CUDA graph): {stats['ms_per_step']:.2f} ms "
+        f"per step (the eager step before the graphs: {before} ms), "
         f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised rays/s, "
         f"host fetch {100 * stats['fetch_share']:.1f}% of the train time, "
         f"{stats['images_replaced_per_step']:.2f} pool images replaced per step")
@@ -1077,36 +1332,33 @@ def dense_render(device, view, model, proposal_roi: float) -> dict:
     num_batches = -(-width * height // view.rays_batch_size)
     fli.reset_launches()
     fi.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = render_image(model, pcfg, view.inputs, view.rays_batch_size)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    img, first_s = timed_render(model, view, pcfg)
     launches, old_launches = dict(fli.launches), dict(fi.launches)
-    times = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    times, images = {"plain": [], "eager": [], "graph": []}, {}
+    for which in ("plain", "eager", "graph", "graph", "eager"):
         patch = (mock.patch.object(fused_field, "field_interp", fli.field_interp_plain) if which == "plain"
                  else contextlib.nullcontext())
         with patch:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = render_image(model, pcfg, view.inputs, view.rays_batch_size)
-            torch.cuda.synchronize()
-        times[which].append(time.perf_counter() - t0)
-        if which == "plain":
-            img_plain = out
+            images[which], seconds = timed_render(model, view, pcfg, graph=which == "graph")
+        times[which].append(seconds)
+    img_plain, img_eager = images["plain"], images["eager"]
     counts = dense_view_counts(model, pcfg, view)
     img_np = img.cpu().numpy()
     vs_plain = psnr(np.clip(img_np, 0, 1), np.clip(img_plain.cpu().numpy(), 0, 1))
+    vs_eager = psnr(img_np, img_eager.cpu().numpy())
     roi = roi_psnr(to_u8(img), view.images["gt_rgb"], view.images["gt_mask"])
-    kernel_s = float(np.mean(times["kernel"]))
+    per_view = {which: float(np.mean(runs)) for which, runs in times.items()}
     log(f"dense render ({pcfg.samples_per_ray} lattice points per ray, budgets {R4_DENSE['candidate_budget']} / "
         f"{R4_DENSE['sample_budget']} per {R4_DENSE['num_rays']} rays, scaled to {view.rays_batch_size}-ray batches): "
-        f"first {first_s:.3f} s; kernel {', '.join(f'{t:.3f}' for t in times['kernel'])} s "
-        f"({1e3 * kernel_s / num_batches:.1f} ms per batch), plain {', '.join(f'{t:.3f}' for t in times['plain'])} s; "
-        f"field_interp launches {launches}, fused_interp {old_launches}")
-    log(f"dense render: per view {describe_counts(counts)}; PSNR(kernel, plain) = {vs_plain:.2f} dB; "
-        f"ROI-PSNR vs ground truth {roi:.3f} dB (phase 4's proposal render {proposal_roi:.3f} dB)")
+        f"graph, first (warm-up and capture included) {first_s:.3f} s; s per view "
+        + "; ".join(f"{which} {', '.join(f'{t:.3f}' for t in runs)} ({1e3 * per_view[which] / num_batches:.1f} ms "
+                    f"per batch)" for which, runs in times.items())
+        + f"; field_interp launches {launches}, fused_interp {old_launches}")
+    log(f"dense render: per view {describe_counts(counts)}; PSNR(kernel, plain) = {vs_plain:.2f} dB; PSNR(graph, "
+        f"eager) = {vs_eager:.2f} dB (bit-equal {bool(torch.equal(img, img_eager))}); ROI-PSNR vs ground truth "
+        f"{roi:.3f} dB (phase 4's proposal render {proposal_roi:.3f} dB)")
+    if not torch.equal(img, img_eager):
+        raise AssertionError(f"the dense graph render differs from the eager render: {vs_eager:.2f} dB")
     if img_np.shape != view.images["gt_rgb"].shape or not np.isfinite(img_np).all():
         raise AssertionError(f"the dense render is not a finite image of the view's shape: {img_np.shape}")
     if not vs_plain >= RENDER_PSNR_MIN:
@@ -1146,17 +1398,20 @@ def check_dense_kernels(device, model, queries) -> dict:
     """Each field_interp kernel against its plain version at the dense step's
     shapes and real positions: the grids (P = 64, F = 2, T = 2^17) and the
     vectors (P = 4, F = 32, R = 2048) at the render pass's query (forward and
-    backward) and the prune pass's (forward; it has no backward). Bars and
-    references as phase 3's."""
+    backward) and the prune pass's (forward; it has no backward), at the
+    samples each serves and, with the skip inputs, over the budgets' whole
+    buffers (`skip_checks`). Bars and references as phase 3's."""
     seg = model.segment_grid_configs[0]
     shapes = [("grids", fli.grid_spec(seg.grid), 4 * seg.grid.n_levels, seg.grid.n_features_per_level,
                seg.grid.table_size),
               ("vectors", fli.VECTOR_SPEC, 4, seg.feature_dim, seg.vectors_finest_resolution)]
     rng = np.random.default_rng(1)
     rows = {"fwd": [], "bwd": []}
+    skip_rows = {"fwd": [], "bwd": []}
     for name, spec, P, F_, T in shapes:
         tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
-        for where, xyzt in queries.items():
+        for where, query in queries.items():
+            xyzt = query["served"]
             N = xyzt.shape[0]
             dims = {"shape": name, "positions": where, "P": P, "C": 8 if spec.mode == fli.MODE_GRID else 2,
                     "F": F_, "T": T, "N": N}
@@ -1169,8 +1424,15 @@ def check_dense_kernels(device, model, queries) -> dict:
                     "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T),
                     lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
                     lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T)))
+            g_full = (torch.tensor(rng.normal(size=(P, F_, query["xyzt"].shape[0])).astype(np.float32), device=device)
+                      if where == "render" else None)
+            for direction, row in skip_checks(name, f"{where}, skip inputs", spec, P, F_, T, query, tables,
+                                              g_full).items():
+                skip_rows[direction].append(row)
+            del g_full
     # A record per direction: one field query (grids + vectors) of the render pass.
-    return {d: summarize([r for r in rs if r["positions"] == "render"]) | {"per_shape": rs} for d, rs in rows.items()}
+    return {d: headline(rs, [r for r in skip_rows[d] if r["positions"] == "render, skip inputs"], "render")
+            | {"skip_inputs": skip_rows[d]} for d, rs in rows.items()}
 
 
 def dense_train(device, pool) -> tuple:
@@ -1185,34 +1447,17 @@ def dense_train(device, pool) -> tuple:
     width, height = pool.width, pool.height
 
     batch = sample_batch(cfg, pool.pixel_rgba, generator)
-    grads_step = make_train_step(cfg, model, _GradientsOnly(model), width, height)
+    grads_step = make_train_step(cfg, model, _GradientsOnly(model), width, height, graph=False)
     queries = capture_queries(grads_step, batch, pool, key)
-    log(f"dense step-0 queries: render pass {queries['render'].shape[0]} samples, prune pass "
-        f"{queries['prune'].shape[0]} (the segment with the most of each)")
+    log(f"dense step-0 queries: render pass {queries['render']['served'].shape[0]} of "
+        f"{queries['render']['xyzt'].shape[0]} slots, prune pass {queries['prune']['served'].shape[0]} of "
+        f"{queries['prune']['xyzt'].shape[0]} (the segment that serves the most of each)")
     records = check_dense_kernels(device, model, queries)
     del queries
+    step0_kernel_vs_plain("dense", grads_step, model, batch, pool, key)
+    graph_vs_eager("dense", lambda: paper_model(device), cfg, batch, pool, key)
 
-    runs = {}
-    for which in ("kernel", "plain"):
-        patch = (mock.patch.object(fused_field, "field_interp", fli.PlainFieldInterp.apply) if which == "plain"
-                 else contextlib.nullcontext())
-        with patch:
-            loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
-        runs[which] = (float(loss), {n: p.grad.clone() for n, p in model.named_parameters()})
-    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    cosines = {n: cosine(grads_k[n], grads_p[n]) for n in grads_k}
-    worst = min(cosines, key=cosines.get)
-    log(f"dense step-0 A/B: loss kernel {loss_k:.7f}, plain {loss_p:.7f} (rel {rel:.2e}); "
-        f"gradient cosine min {cosines[worst]:.7f} ({worst})")
-    if not rel <= STEP0_LOSS_REL:
-        raise AssertionError(f"dense step-0 loss through the kernels differs from the plain run by {rel:.2e} relative")
-    if not cosines[worst] >= STEP0_GRAD_COSINE:
-        raise AssertionError(f"dense step-0 gradient of {worst} has cosine {cosines[worst]:.7f} to the plain run's")
-    del runs, grads_k, grads_p
-    model.zero_grad(set_to_none=True)
-
-    optimizer = make_optimizer(model.named_parameters(), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
+    optimizer = adamw(model)
     step = make_train_step(cfg, model, optimizer, width, height)
     losses, mses, supervised, per_step = [], [], [], []
     torch.cuda.synchronize()
@@ -1228,9 +1473,9 @@ def dense_train(device, pool) -> tuple:
         b = sample_batch(cfg, pool.pixel_rgba, generator)
         loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
         per_step.append({d: fli.launches[d] - before[d] for d in before})
-        losses.append(loss)
-        mses.append(aux["mse"])
-        supervised.append(aux["num_rays_supervised"])
+        losses.append(loss.clone())
+        mses.append(aux["mse"].clone())
+        supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches, old_launches = dict(fli.launches), dict(fi.launches)
@@ -1250,19 +1495,27 @@ def dense_train(device, pool) -> tuple:
             counts = add_counts(counts, sampler_counts(rays, candidates, pruned))
     prof = profile_step(step, sample_batch(cfg, pool.pixel_rgba, generator), pool, key, device)
 
-    log(f"dense step: {DENSE_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, mse "
+    log(f"dense step (graph): {DENSE_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, mse "
         f"{float(mses[:5].mean()):.5f} (first 5) → {float(mses[-20:].mean()):.5f} (last 20); skipped updates "
         f"{int(optimizer.skipped)}; field_interp launches {launches} ({per_step[-1]} in the last step), fused_interp {old_launches}")
-    log(f"dense step: {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included), "
+    log(f"dense step (graph): {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included; the eager step before "
+        f"the graphs {EAGER_MS_PER_STEP['dense step (7(b))']} ms), "
         f"{cfg.num_rays * warm / seconds:.0f} rays/s, {float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised rays/s "
         f"({float(supervised.float().mean()):.0f} supervised rays per step), peak memory {peak / 2**30:.2f} GiB")
     log(f"dense step: {DENSE_STATS_STEPS} more batches through the trained model's sampler (no update): "
         f"{describe_counts(counts)}")
-    log(f"dense step: one profiled warm step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms of device time "
-        f"in {prof['wall_ms']:.1f} ms profiled wall; device busy {100 * prof['device_ms'] / ms_per_step:.1f}% "
+    log(f"dense step (graph): one profiled warm step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms of device "
+        f"time in {prof['wall_ms']:.1f} ms profiled wall (its activities span {prof['span_vs_events']:.3f}× the "
+        f"events' time); device busy {100 * prof['device_ms'] / ms_per_step:.1f}% "
         f"of a {ms_per_step:.2f} ms warm step; top: {prof['top']}")
-    if old_launches != {"fwd": 0, "bwd": 0} or launches["fwd"] == 0 or launches["bwd"] == 0:
-        raise AssertionError(f"the dense step launched field_interp {launches} and fused_interp {old_launches}")
+    step_windows("dense", {"graph": step, "eager": make_train_step(cfg, model, optimizer, width, height, graph=False)},
+                 cfg, pool, generator, key, device)
+    # Per step: the prune and the render pass each query both segments (grids
+    # and vectors), and the render pass's backward runs for both.
+    expected = {"fwd": 2 * 2 * 2, "bwd": 2 * 2}
+    if old_launches != {"fwd": 0, "bwd": 0} or any(n != expected for n in per_step):
+        raise AssertionError(f"the dense step launched field_interp {launches} (not {expected} in every step) and "
+                             f"fused_interp {old_launches}")
     if not torch.isfinite(losses).all():
         raise AssertionError("non-finite dense training loss")
     if int(optimizer.skipped) != 0:
@@ -1491,6 +1744,7 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
 
     def start(self):
         real_start(self)
+        time.sleep(PROFILE_LEAD_S)  # see `device_profile`: the window's first kernels are kept
         window["start"] = dict(fli.launches)
 
     def stop(self):
@@ -2045,8 +2299,8 @@ def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
         log(f"10(b) {step} at frames {MESH_AB_FRAMES}, per view: kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms ({rows[0][step][3]}), {100 * bound_ms / ms:.1f}% of it [{smi}]")
     v, f = on_device[MESH_AB_FRAMES[0]]
-    log(f"10(b) frame {MESH_AB_FRAMES[0]}, one profiled rasterize: "
-        f"{device_breakdown(lambda: raster.rasterize(v, f, cameras), rows[0]['raster'][0])}")
+    # The profiled breakdowns run in one fresh process at the end of the phase.
+    breakdowns = {f"10(b) frame {MESH_AB_FRAMES[0]}": (v, f, cameras, rows[0]["raster"][0])}
     log(f"10(b) kernels against plain at frames {MESH_AB_FRAMES} × {len(cameras)} cameras: bit-equal (projections, "
         f"tile lists, masks and depths); {fragments:.0f} fragments and {pairs:.0f} (triangle, "
         f"tile) pairs per view")
@@ -2118,7 +2372,9 @@ def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
         + ", ".join(f"{step} {ms:.5f}" for step, ms in rig_ms.items()) + f" [{smi}]")
     del rig_views, rig_ab, proj
     log(f"10: mesh phase (a)-(d) in {time.perf_counter() - t_phase:.1f} s")
-    rig_12mp_ms = rig_12mp_phase(tmp, device, smi)
+    rig_12mp_ms = rig_12mp_phase(tmp, device, smi, breakdowns)
+    for label, line in zip(breakdowns, device_breakdowns(list(breakdowns.values()))):
+        log(f"{label}, one profiled rasterize: {line}")
     by_phase = {"mesh_render": render_launches, "mesh_cli": cli_launches, "mesh_rig": rig_launches}
     return [
         {
@@ -2142,20 +2398,48 @@ def mesh_phase(scene: Path, tmp: Path, device, smi: str) -> list:
     ]
 
 
-def device_breakdown(fn, raster_ms: float) -> str:
+def device_breakdowns(jobs: list) -> list:
+    """For each job (v, f, cameras, raster_ms), one `raster.rasterize(v, f,
+    cameras)` under torch.profiler, all in one fresh process of this script
+    (`--breakdown`, a warm-up call before each) → each one's breakdown
+    (`profiled_breakdown`). Late in this script, after phase 9's
+    rank processes ran on the card, the profiler's windows in this process
+    lose their first device activities: a bisection saw the loss grow after
+    each of 9(a)-(d), and in the full script even a window opened 0.1 s
+    early read no `mesh_raster_kernel` at all; a fresh process reads it
+    whole, as `--mesh-only` always did."""
+    with tempfile.TemporaryDirectory(prefix="breakdown_") as tmp:
+        inputs = Path(tmp) / "inputs.pt"
+        torch.save([(v.cpu(), f.cpu(), cameras, raster_ms) for v, f, cameras, raster_ms in jobs], inputs)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--breakdown", str(inputs)],
+                              capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the profiled rasterize in a fresh process failed:\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    return proc.stdout.strip().splitlines()[-len(jobs):]
+
+
+def breakdown_child(inputs: Path) -> int:
+    """`--breakdown INPUTS`: the fresh process of `device_breakdowns`."""
+    device = torch.device("cuda", 0)
+    load_library("mesh_raster", raster.LIBRARY_DEFINES)
+    for v, f, cameras, raster_ms in torch.load(inputs, weights_only=False):
+        v, f = v.to(device), f.to(device)
+        raster.rasterize(v, f, cameras)
+        print(profiled_breakdown(lambda: raster.rasterize(v, f, cameras), raster_ms), flush=True)
+    return 0
+
+
+def profiled_breakdown(fn, raster_ms: float) -> str:
     """One call of `fn` under torch.profiler → its device time per kernel
     (and copy or fill) and the device's busy share of the call's wall time.
     Kernels launched through ctypes join no PyTorch op: the sums take each
     device activity's own row of `key_averages`, and skip the ops' rows
-    (`aten::*`), whose device time their kernels' rows already hold. The
-    profiler's `mesh_raster_kernel` must read within 30% of `raster_ms`, its
-    mean time by CUDA events (a single launch spreads around the mean);
-    else no breakdown is given (after the earlier phases it has read no
-    device time, or half)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    (`aten::*`), whose device time their kernels' rows already hold. Raises
+    unless the profiler read `mesh_raster_kernel` at 0.7-1.3× `raster_ms`,
+    its mean time by CUDA events (a fresh process read 0.91-1.02×; late in
+    the full script, where a window lost its first activities, 0.52× and
+    nothing)."""
+    with device_profile() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2168,19 +2452,21 @@ def device_breakdown(fn, raster_ms: float) -> str:
                   reverse=True)
     seen = sum(ms for ms, key, _ in rows if key == "mesh_raster_kernel")
     if not 0.7 * raster_ms <= seen <= 1.3 * raster_ms:
-        return (f"not measured: the profiler's mesh_raster_kernel reads {seen:.4f} ms against {raster_ms:.4f} ms by "
-                f"CUDA events, so its device times do not hold in this process ({wall:.4f} ms wall)")
+        raise AssertionError(f"torch.profiler read mesh_raster_kernel as {seen:.4f} ms against {raster_ms:.4f} ms by "
+                             f"CUDA events ({wall:.4f} ms wall): its device times do not hold in this process")
     busy = sum(ms for ms, _, _ in rows)
-    return (f"device {busy:.4f} ms of {wall:.4f} ms wall ({100 * busy / wall:.1f}% busy): "
+    return (f"device {busy:.4f} ms of {wall:.4f} ms wall ({100 * busy / wall:.1f}% busy; mesh_raster_kernel "
+            f"{seen / raster_ms:.2f}× its events time): "
             + ", ".join(f"{name} {ms:.4f} ms ×{count}" for ms, name, count in rows[:8]))
 
 
-def rig_12mp_phase(tmp: Path, device, smi: str) -> dict:
+def rig_12mp_phase(tmp: Path, device, smi: str, breakdowns: dict) -> dict:
     """Phase 10(e): the ActorsHQ rig at its full size, RIG_CAMERAS cameras of
     RIG_12MP (every tenth portrait), at RIG_12MP_FRAMES: each kernel against
     its plain version in every camera, bit for bit; ms per frame and per view
     of each step with its bound; fragments per view; peak memory; then the
-    renderer's CLI for one frame with --mask → {step: ms per view}."""
+    renderer's CLI for one frame with --mask → {step: ms per view}. Frame
+    0's profiled breakdown goes into `breakdowns` (`device_breakdowns`)."""
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(R4_SCENE, num_cameras=RIG_CAMERAS, portrait_camera_indices=RIG_12MP_PORTRAIT,
                               **RIG_12MP)
@@ -2203,8 +2489,8 @@ def rig_12mp_phase(tmp: Path, device, smi: str) -> dict:
             totals[step] += ms
             log(f"10(e) frame {frame}, {step}: {ms:.4f} ms per frame, {ms / len(rig):.6f} per view; plain "
                 f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it [{smi}]")
-        log(f"10(e) frame {frame}, one profiled rasterize: "
-            f"{device_breakdown(lambda: raster.rasterize(v, f, rig), rows['raster'][0])}")
+        if frame == RIG_12MP_FRAMES[0]:  # profiled at the end of phase 10 (`device_breakdowns`)
+            breakdowns[f"10(e) frame {frame}"] = (v, f, rig, rows["raster"][0])
         log(f"10(e) frame {frame}: {ab['fragments'] / len(rig):.0f} fragments and "
             f"{ab['bins'].entries.numel() / len(rig):.0f} "
             f"(triangle, tile) pairs per view; all {len(rig)} cameras bit-equal to the plain version (projections, "
@@ -2270,7 +2556,7 @@ def recorded_losses():
 
         def recorded(*step_args):
             loss, aux = step(*step_args)
-            losses.append(loss.detach())
+            losses.append(loss.detach().clone())  # a graph's output is overwritten by its next replay
             return loss, aux
 
         return recorded
@@ -2281,16 +2567,18 @@ def recorded_losses():
 
 @contextlib.contextmanager
 def first_render_query():
-    """The (N, 4) coordinates of the first field query made with autograd on
-    (step 0's render pass) → a dict that holds them under "xyzt"."""
-    captured, field = {}, decomposition4d.apply_decomposition4d_fused
+    """The (N, 4) coordinates of the samples that the first field query made
+    with autograd on (step 0's render pass, in the graph's warm-up) serves →
+    a dict that holds them under "xyzt"."""
+    captured, field = {}, fused_field.field_interp
 
-    def capture(params, xyz, times, field_cfg, tables=None):
+    def capture(tables, xyzt, spec, n_valid=None, seg=None, s=0):
         if torch.is_grad_enabled() and "xyzt" not in captured:
-            captured["xyzt"] = torch.cat([xyz, times], dim=-1).detach().clone().contiguous()
-        return field(params, xyz, times, field_cfg, tables)
+            live = fli.served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
+            captured["xyzt"] = (xyzt if live is None else xyzt[live]).detach().clone().contiguous()
+        return field(tables, xyzt, spec, n_valid, seg, s)
 
-    with mock.patch.object(decomposition4d, "apply_decomposition4d_fused", capture):
+    with mock.patch.object(fused_field, "field_interp", capture):
         yield captured
 
 
@@ -2415,7 +2703,8 @@ def multiseg_phase(tmp: Path, device, r4_stats: dict) -> dict:
     blocks = result["validation_blocks"]
     log(f"11(c) multiseg: segments {result['segment_sizes']}, {len(loss)} steps in {wall:.1f} s wall (the 100-frame "
         f"scene written included); loss first 10 {early:.5f}, last 10 {late:.5f}; validation {blocks}; "
-        f"{stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed), field_interp launches per step "
+        f"{stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed; the eager step before the graphs: "
+        f"{EAGER_MS_PER_STEP['multiseg (11(c))']} ms), field_interp launches per step "
         f"{per_step(stats['field_interp_launches'], steps_of(stats))} (1,024 rays from 2× candidates, Kc 16, Kf 8); "
         f"phase 6's [25, 25] r4 step: {r4_stats['ms_per_step']:.2f} ms, "
         f"{per_step(r4_stats['field_interp_launches'], steps_of(r4_stats))} (8,192 rays, Kc 32, Kf 16)")
@@ -2464,7 +2753,8 @@ def capacity_phase(tmp: Path, device) -> tuple:
     T = seg.grid.table_size
     log(f"11(d) reference capacity: segments {segments}, T = 2^{T.bit_length() - 1} per level; {steps_of(stats)} "
         f"steps in {wall:.1f} s wall (the scene written included); step-0 loss {stats['first_loss']:.6f}; "
-        f"{stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed); skipped updates "
+        f"{stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed; the eager step before the graphs: "
+        f"{EAGER_MS_PER_STEP['ref capacity (11(d))']} ms); skipped updates "
         f"{stats['skipped_nonfinite']}; peak memory {peak:.2f} GiB; field_interp launches per step "
         f"{per_step(stats['field_interp_launches'], steps_of(stats))}; {results[0]}")
     if segments != [CAPACITY_FRAMES] or T != CAPACITY_T:
@@ -2507,7 +2797,8 @@ def throughput_phase(scene: Path, tmp: Path, device) -> dict:
              "--device", device.type]), backward=True)
     stats = runs[0]["train"]
     log(f"11(e) throughput probe: resumed step {stats['start_step']} to {stats['end_step']} in "
-        f"{time.perf_counter() - t0:.1f} s wall; {stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed), "
+        f"{time.perf_counter() - t0:.1f} s wall; {stats['ms_per_step']:.2f} ms per step ({stats['steps']} timed; the eager "
+        f"step before the graphs {EAGER_MS_PER_STEP['throughput (11(e))']} ms), "
         f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised, host fetch "
         f"{100 * stats['fetch_share']:.1f}%; the probe's own reading {result['ms_per_step']} ms, "
         f"{result['rays_per_s']} rays/s")
@@ -2539,10 +2830,156 @@ def finish(records: list, smi: str) -> int:
     return 0
 
 
+def render_phase(device, view) -> tuple:
+    """Phase 4 (see the module docstring) → (best.ckpt's model, the render's
+    launches, its ROI-PSNR)."""
+    params, _, step, _, _ = load_checkpoint(RUN_DIR / "best.ckpt")
+    model = HumanRFModel(view.model_config, device=device)
+    model.load_state_dict(convert_params(params))
+    model.eval()
+    width, height = view.inputs.width, view.inputs.height
+    num_pixels = width * height
+    num_batches = -(-num_pixels // view.rays_batch_size)
+    frame = view.frame_number
+    # Every batch queries both segments (each over all samples, the other's skipped).
+    expected_launches = 2 * num_batches * model.config.num_segments
+    log(f"model: best.ckpt step {step}, segments {view.model_config.segment_sizes}, "
+        f"{sum(p.numel() for p in model.parameters())} parameters; view {view.camera_name} frame {frame}, "
+        f"{width}x{height}, {num_batches} batches of {view.rays_batch_size} rays")
+
+    fli.reset_launches()
+    fi.reset_launches()
+    img, first_s = timed_render(model, view)
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    log(f"render (graph, first: warm-up and capture included): {first_s:.3f} s, {num_pixels / first_s:.0f} rays/s, "
+        f"field_interp launches {launches}, fused_interp {old_launches}")
+    if launches != {"fwd": expected_launches, "bwd": 0} or old_launches != {"fwd": 0, "bwd": 0}:
+        raise AssertionError(f"the render launched field_interp {launches} and fused_interp {old_launches}, "
+                             f"expected {expected_launches} field_interp forward and nothing else")
+
+    # Warm renders: plain (the field's kernel call swapped for its plain
+    # version) and old (eager corners plus the (idx, w) kernel) once each,
+    # ~15× slower, then the eager render and the graphs in turns; the swaps
+    # and the eager render run the render function eagerly (a graph replays
+    # what it captured).
+    times = {"plain": [], "old": [], "eager": [], "graph": []}
+    swaps = {"plain": fli.field_interp_plain, "old": old_path}
+    for which in ("plain", "old", "eager", "graph", "graph", "eager"):
+        if which in swaps:
+            with mock.patch.object(fused_field, "field_interp", swaps[which]):
+                out, seconds = timed_render(model, view, graph=False)
+            if which == "plain":
+                img_plain = out
+        else:
+            out, seconds = timed_render(model, view, graph=which == "graph")
+            if which == "eager":
+                img_eager = out
+        times[which].append(seconds)
+    for which, runs in times.items():
+        mean = sum(runs) / len(runs)
+        log(f"render ({which}): " + ", ".join(f"{t:.3f}" for t in runs)
+            + f" s per view; mean {mean:.3f} s, {1e3 * mean / num_batches:.1f} ms per batch, {num_pixels / mean:.0f} "
+            f"rays/s" + (f" (the eager render before the graphs: {EAGER_S_PER_VIEW} s)" if which == "graph" else ""))
+    vs_eager = psnr(img.cpu().numpy(), img_eager.cpu().numpy())
+    log(f"PSNR(graph render, eager render) = {vs_eager:.2f} dB (bit-equal {bool(torch.equal(img, img_eager))})")
+    if not torch.equal(img, img_eager):
+        raise AssertionError(f"the graph render differs from the eager render: {vs_eager:.2f} dB")
+
+    img_np = img.cpu().numpy()
+    gt, mask = view.images["gt_rgb"], view.images["gt_mask"]
+    if img_np.shape != gt.shape or not np.isfinite(img_np).all():
+        raise AssertionError(f"render is not a finite image of the ground truth's shape {gt.shape}: {img_np.shape}")
+    vs_plain = psnr(np.clip(img_np, 0, 1), np.clip(img_plain.cpu().numpy(), 0, 1))
+    log(f"PSNR(kernel render, plain render) = {vs_plain:.2f} dB")
+    if not vs_plain >= RENDER_PSNR_MIN:
+        raise AssertionError(f"kernel render differs from the plain render: {vs_plain:.2f} dB < {RENDER_PSNR_MIN}")
+
+    port_u8, jax_u8 = to_u8(img), view.images["jax_render"]
+    port_roi, jax_roi = roi_psnr(port_u8, gt, mask), roi_psnr(jax_u8, gt, mask)
+    vs_jax = psnr(port_u8 / 255.0, jax_u8 / 255.0)
+    log(f"ROI-PSNR vs ground truth: port {port_roi:.3f} dB, banked JAX render {jax_roi:.3f} dB; "
+        f"PSNR(port, JAX render) = {vs_jax:.2f} dB")
+    if not port_roi >= jax_roi - ROI_PSNR_SLACK:
+        raise AssertionError(f"port ROI-PSNR {port_roi:.3f} dB is more than {ROI_PSNR_SLACK} dB below JAX's {jax_roi:.3f}")
+    return model, launches, port_roi
+
+
+def kernel_ab(device, source: Path) -> None:
+    """`--kernel-ab SOURCE`: this tree's field_interp kernels, called without
+    skip inputs, against a build of SOURCE, a `field_interp.cu` with the C
+    interface from before the skip inputs (in, xyzt, out; spec; P, F; T, N;
+    stream), such as the parent commit's (`git show <rev>:humanrf_torch/
+    csrc/field_interp.cu`), on the same inputs in this process: the forward
+    bit-equal, and each direction's time in turns (other, this, this,
+    other; CUDA events over 20 launches) at phase 3's r4 shapes (the samples
+    phase 5's step-0 query serves, and random positions) and at the samples
+    7(b)'s step-0 queries serve."""
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        lib_path = Path(tmp) / "other_field_interp.so"
+        subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path), str(source)], check=True,
+                       capture_output=True)
+        other = ctypes.CDLL(str(lib_path))
+    for name in ("field_interp_fwd", "field_interp_bwd"):
+        fn = getattr(other, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [fli.FieldSpec] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def other_call(name, first, xyzt, out, spec, F_, T):
+        err = getattr(other, name)(first.data_ptr(), xyzt.data_ptr(), out.data_ptr(), spec, first.shape[0], F_, T,
+                                   xyzt.shape[0], torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"{name} of {source} failed: cudaError {err}")
+        return out
+
+    view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
+    pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
+    model, cfg = paper_model(device), pipeline.PipelineConfig(**DENSE_STEP_CONFIG)
+    dense = capture_queries(make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height, graph=False),
+                            sample_batch(cfg, pool.pixel_rgba, torch.Generator(device).manual_seed(2)), pool,
+                            make_key(0, device))
+    seg = model.segment_grid_configs[0]
+    r4_shapes = field_shapes(view)[:2]
+    dense_shapes = [("grids", fli.grid_spec(seg.grid), 4 * seg.grid.n_levels, seg.grid.n_features_per_level,
+                     seg.grid.table_size), ("vectors", fli.VECTOR_SPEC, 4, seg.feature_dim, seg.vectors_finest_resolution)]
+    cases = [("r4 real", capture_real_query(device, view, pool)["served"], r4_shapes),
+             ("r4 random", torch.rand((FIELD_RANDOM_N["grids"], 4), generator=torch.Generator(device).manual_seed(0),
+                                      device=device), r4_shapes),
+             ("dense render", dense["render"]["served"], dense_shapes),
+             ("dense prune", dense["prune"]["served"], dense_shapes)]
+    gen = torch.Generator(device).manual_seed(1)
+    for label, xyzt, shapes in cases:
+        N = xyzt.shape[0]
+        for name, spec, P, F_, T in shapes:
+            tables = torch.randn((P, F_, T), generator=gen, device=device)
+            g = torch.randn((P, F_, N), generator=gen, device=device)
+            calls = {
+                ("other", "fwd"): lambda: other_call("field_interp_fwd", tables, xyzt, torch.empty((P, F_, N), device=device),
+                                                     spec, F_, T),
+                ("this", "fwd"): lambda: fli._launch_fwd(tables, xyzt, spec),
+                ("other", "bwd"): lambda: other_call("field_interp_bwd", g, xyzt, torch.zeros((P, F_, T), device=device),
+                                                     spec, F_, T),
+                ("this", "bwd"): lambda: fli._launch_bwd(g, xyzt, spec, T),
+            }
+            if not torch.equal(calls["other", "fwd"](), calls["this", "fwd"]()):
+                raise AssertionError(f"kernel A/B {label} {name}: the forwards differ")
+            turns = {key: [] for key in calls}
+            for who in ("other", "this", "this", "other"):
+                for direction in ("fwd", "bwd"):
+                    turns[who, direction].append(time_ms(calls[who, direction]))
+            mean = {key: float(np.mean(v)) for key, v in turns.items()}
+            log(f"kernel A/B {label} {name} (P={P} F={F_} T={T} N={N}): "
+                + "; ".join(f"{d} other {mean['other', d]:.4f} ms, this {mean['this', d]:.4f} ms "
+                            f"({100 * (mean['this', d] / mean['other', d] - 1):+.1f}%; turns "
+                            f"{', '.join(f'{t:.4f}' for t in turns['other', d] + turns['this', d])})"
+                            for d in ("fwd", "bwd")))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv not in ([], ["--mesh-only"]):
-        raise SystemExit(f"usage: python3 chip_smoke.py [--mesh-only]; got {argv}")
+    if argv[:1] == ["--breakdown"] and len(argv) == 2:
+        return breakdown_child(Path(argv[1]))
+    if not (argv in ([], ["--mesh-only"]) or (len(argv) == 2 and argv[0] == "--kernel-ab")):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--mesh-only | --kernel-ab OTHER_FIELD_INTERP_CU]; got {argv}")
     mesh_only = argv == ["--mesh-only"]
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -2565,6 +3002,9 @@ def main(argv=None) -> int:
         log(f"build: {lib.path.name} in {lib.build_seconds:.2f} s; per kernel, from -Xptxas -v (shared memory is "
             f"dynamic, set at launch): " + "; ".join(ptxas_summary(lib.ptxas_log)))
 
+    if argv[:1] == ["--kernel-ab"]:
+        kernel_ab(device, Path(argv[1]))
+        return finish([], smi)
     if mesh_only:
         with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
             records = mesh_phase(write_r4_scene(device, Path(tmp)), Path(tmp), device, smi)
@@ -2574,73 +3014,20 @@ def main(argv=None) -> int:
     view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
     train_pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
     old_kernels = check_kernels(device)
-    real_xyzt = capture_real_xyzt(device, view, train_pool)
-    log(f"real positions: {real_xyzt.shape[0]} samples of phase 5's step-0 field query (segment with the most)")
-    new_kernels = check_field_kernels(device, view, real_xyzt)
+    real_query = capture_real_query(device, view, train_pool)
+    log(f"real positions: the {real_query['served'].shape[0]} samples that phase 5's step-0 field query serves "
+        f"(of {real_query['xyzt'].shape[0]} slots; the segment that serves the most)")
+    new_kernels = check_field_kernels(device, view, real_query)
     for direction, record in new_kernels.items():
-        log(f"field_interp_{direction} at real positions, one field query (grids + vectors): "
-            f"{record['ms']:.4f} ms against the old path's {record['old_path_ms']:.4f} ms "
-            f"({record['old_path_ms'] / record['ms']:.2f}×), bound {record['bound_ms']:.4f} ms")
+        served = record["served_only"]
+        log(f"field_interp_{direction} at phase 5's query, one field query (grids + vectors): with the skip inputs "
+            f"over the whole buffer {record['ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
+            f"({100 * record['bound_ms'] / record['ms']:.1f}% of it); on the served samples alone "
+            f"{served['ms']:.4f} ms against the old path's {served['old_path_ms']:.4f} ms "
+            f"({served['old_path_ms'] / served['ms']:.2f}×)")
 
     # Phase 4: the render.
-    params, _, step, _, _ = load_checkpoint(RUN_DIR / "best.ckpt")
-    model = HumanRFModel(view.model_config, device=device)
-    model.load_state_dict(convert_params(params))
-    model.eval()
-    width, height = view.inputs.width, view.inputs.height
-    num_pixels = width * height
-    num_batches = -(-num_pixels // view.rays_batch_size)
-    frame = view.frame_number
-    segments_hit = {int(model.frame_to_segment[frame])}
-    expected_launches = 2 * num_batches * len(segments_hit)
-    log(f"model: best.ckpt step {step}, segments {view.model_config.segment_sizes}, "
-        f"{sum(p.numel() for p in model.parameters())} parameters; view {view.camera_name} frame {frame}, "
-        f"{width}x{height}, {num_batches} batches of {view.rays_batch_size} rays")
-
-    fli.reset_launches()
-    fi.reset_launches()
-    img, first_s = timed_render(model, view)
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
-    log(f"render (kernel, first): {first_s:.3f} s, {num_pixels / first_s:.0f} rays/s, field_interp launches "
-        f"{launches}, fused_interp {old_launches}")
-    if launches != {"fwd": expected_launches, "bwd": 0} or old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"the render launched field_interp {launches} and fused_interp {old_launches}, "
-                             f"expected {expected_launches} field_interp forward and nothing else")
-
-    # Warm renders in turns: plain (the field's kernel call swapped for its
-    # plain version), old (eager corners plus the (idx, w) kernel), new.
-    times = {"plain": [], "old": [], "new": []}
-    swaps = {"plain": fli.field_interp_plain, "old": old_path}
-    for which in ("plain", "old", "new", "new", "old", "plain"):
-        if which in swaps:
-            with mock.patch.object(fused_field, "field_interp", swaps[which]):
-                out, seconds = timed_render(model, view)
-            if which == "plain":
-                img_plain = out
-        else:
-            _, seconds = timed_render(model, view)
-        times[which].append(seconds)
-    for which, runs in times.items():
-        mean = sum(runs) / len(runs)
-        log(f"render ({which}): " + ", ".join(f"{t:.3f}" for t in runs)
-            + f" s; mean {mean:.3f} s, {1e3 * mean / num_batches:.1f} ms per batch, {num_pixels / mean:.0f} rays/s")
-
-    img_np = img.cpu().numpy()
-    gt, mask = view.images["gt_rgb"], view.images["gt_mask"]
-    if img_np.shape != gt.shape or not np.isfinite(img_np).all():
-        raise AssertionError(f"render is not a finite image of the ground truth's shape {gt.shape}: {img_np.shape}")
-    vs_plain = psnr(np.clip(img_np, 0, 1), np.clip(img_plain.cpu().numpy(), 0, 1))
-    log(f"PSNR(kernel render, plain render) = {vs_plain:.2f} dB")
-    if not vs_plain >= RENDER_PSNR_MIN:
-        raise AssertionError(f"kernel render differs from the plain render: {vs_plain:.2f} dB < {RENDER_PSNR_MIN}")
-
-    port_u8, jax_u8 = to_u8(img), view.images["jax_render"]
-    port_roi, jax_roi = roi_psnr(port_u8, gt, mask), roi_psnr(jax_u8, gt, mask)
-    vs_jax = psnr(port_u8 / 255.0, jax_u8 / 255.0)
-    log(f"ROI-PSNR vs ground truth: port {port_roi:.3f} dB, banked JAX render {jax_roi:.3f} dB; "
-        f"PSNR(port, JAX render) = {vs_jax:.2f} dB")
-    if not port_roi >= jax_roi - ROI_PSNR_SLACK:
-        raise AssertionError(f"port ROI-PSNR {port_roi:.3f} dB is more than {ROI_PSNR_SLACK} dB below JAX's {jax_roi:.3f}")
+    model, launches, port_roi = render_phase(device, view)
 
     # Phase 5: training.
     train_launches = train(device, view, train_pool)

@@ -70,6 +70,21 @@
 // launch is cut into 4 waves, which evens out blocks whose adds collide more
 // than others'. Atomics add in a run-dependent order; the sums are fp32.
 //
+// ---- Skipped slots --------------------------------------------------------
+// Both directions take two optional inputs, read from device memory so that
+// a launch needs no host read and replays unchanged in a CUDA graph: a slot
+// count n_valid (slots at or past *n_valid are skipped: the empty tail of a
+// static sample budget) and a per-sample segment id seg with the segment s
+// the call serves (samples of other segments are skipped: a multi-segment
+// model's routing, the JAX package's where-masking). A skipped sample writes
+// 0 in the forward and adds nothing in the backward. The grid stays sized by
+// N, so the launch is static. With n_valid, the blocks split the live
+// prefix [0, *n_valid) evenly among them, read from device memory at run
+// time (see live_range), and the forward's blocks also split the tail's
+// zeros; a block with no live sample neither stages nor flushes a slab. Each
+// kernel is built with and without this skip code (kSkip); a call with
+// neither input runs the build without it, the kernel as it was before.
+//
 // Both entry points launch on the caller's stream, allocate nothing, do not
 // synchronise and return cudaGetLastError(). They take any N, any T < 2^31,
 // and P <= 65,535.
@@ -121,6 +136,32 @@ constexpr int kSlabBytes = 64 * 1024;
 constexpr uint32_t kOutside = 0xFFFFFFFFu;  // a corner outside [0, T)
 
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+// This block's range [begin, end) of the samples it computes. Without
+// n_valid, block x takes [x*spb, (x+1)*spb). With it, the live prefix
+// [0, *n_valid), which is what costs, is split evenly over the blocks of the
+// (unchanged) grid, in parts that are multiples of `align` and at least
+// `min_part` (a staged slab's floor): were the blocks laid over all N, only
+// those over the prefix would work, a third of the card or less at the
+// dense step's budgets.
+__device__ __forceinline__ void live_range(const int32_t* n_valid, int64_t N, int64_t spb, int64_t align,
+                                           int64_t min_part, int64_t& begin, int64_t& end) {
+  if (n_valid == nullptr) {
+    begin = static_cast<int64_t>(blockIdx.x) * spb;
+    end = min(N, begin + spb);
+    return;
+  }
+  const int64_t live = min(N, static_cast<int64_t>(max(__ldg(n_valid), 0)));
+  int64_t part = max((live + gridDim.x - 1) / gridDim.x, min_part);
+  part = (part + align - 1) / align * align;
+  begin = min(live, static_cast<int64_t>(blockIdx.x) * part);
+  end = min(live, begin + part);
+}
+
+// Whether sample n (below the live end) belongs to the segment served.
+__device__ __forceinline__ bool served(const int32_t* seg, int seg_id, int64_t n) {
+  return seg == nullptr || __ldg(seg + n) == seg_id;
+}
 
 // The corner math of one sample for one pair, in registers.
 struct PairSetup {
@@ -222,24 +263,39 @@ __device__ __forceinline__ void load_slab(const float* slab, uint32_t t, float (
 }
 
 // Grid (sample ranges, feature chunks, P). kStaged: dynamic shared memory of
-// T*kFC floats, the chunk's slab transposed to (T, kFC).
-template <int kC, int kFC, bool kStaged>
+// T*kFC floats, the chunk's slab transposed to (T, kFC). kSkip: the call has
+// skip inputs (n_valid or seg); without them the skip code compiles away and
+// the kernel is the one it was before they existed.
+template <int kC, int kFC, bool kStaged, bool kSkip>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 field_fwd_kernel(const float* __restrict__ tables,  // (P, F, T)
                  const float4* __restrict__ xyzt,   // (N, 4)
                  float* __restrict__ out,           // (P, F, N)
                  const FieldSpec spec, int F, uint32_t T, int64_t N, int64_t samples_per_block,
-                 bool vec_store) {
+                 bool vec_store, const int32_t* __restrict__ n_valid, const int32_t* __restrict__ seg, int seg_id,
+                 int64_t min_part) {
   extern __shared__ float4 smem[];
   float* slab = reinterpret_cast<float*>(smem);
   const int p = blockIdx.z;
   const int f0 = blockIdx.y * kFC;
   const int fc = min(kFC, F - f0);
-  const int64_t n_begin = static_cast<int64_t>(blockIdx.x) * samples_per_block;
-  const int64_t n_end = min(N, n_begin + samples_per_block);
+  int64_t n_begin, n_end;  // the same for the whole block
+  live_range(kSkip ? n_valid : nullptr, N, samples_per_block, kThreads * kFwdPerThread, min_part, n_begin, n_end);
   const float* tab = tables + (static_cast<int64_t>(p) * F + f0) * T;
 
-  if constexpr (kStaged) {
+  if (kSkip && n_valid != nullptr) {
+    // The empty tail [*n_valid, N), split evenly over the blocks: zeros.
+    const int64_t live = min(N, static_cast<int64_t>(max(__ldg(n_valid), 0)));
+    const int64_t part = (N - live + gridDim.x - 1) / gridDim.x;
+    const int64_t t_begin = live + static_cast<int64_t>(blockIdx.x) * part;
+    const int64_t t_end = min(N, t_begin + part);
+    for (int f = 0; f < fc; ++f) {
+      float* row = out + (static_cast<int64_t>(p) * F + f0 + f) * N;
+      for (int64_t n = t_begin + threadIdx.x; n < t_end; n += kThreads) row[n] = 0.0f;
+    }
+  }
+
+  if (kStaged && (!kSkip || n_begin < n_end)) {
 #pragma unroll
     for (int f = 0; f < kFC; ++f) {
       for (uint32_t t = threadIdx.x; t < T; t += kThreads) {
@@ -257,7 +313,7 @@ field_fwd_kernel(const float* __restrict__ tables,  // (P, F, T)
     for (int j = 0; j < kFwdPerThread; ++j) {
 #pragma unroll
       for (int f = 0; f < kFC; ++f) acc[j][f] = 0.0f;
-      if (n0 + j < n_end) {
+      if (n0 + j < n_end && (!kSkip || served(seg, seg_id, n0 + j))) {
         uint32_t idx[kC];
         float w[kC];
         corners<kC>(s, __ldg(xyzt + n0 + j), idx, w);
@@ -296,20 +352,23 @@ field_fwd_kernel(const float* __restrict__ tables,  // (P, F, T)
 // T*kFC floats, the chunk's gradient slab as (kFC, T); otherwise global
 // atomics. (Feature-major, unlike the forward's slab: a warp's adds for one
 // feature then spread over all 32 banks, where (T, kFC) would put them on
-// 32 / kFC of them.)
-template <int kC, int kFC, bool kStaged>
+// 32 / kFC of them.) kSkip as the forward's.
+template <int kC, int kFC, bool kStaged, bool kSkip>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 field_bwd_kernel(const float* __restrict__ g,       // (P, F, N)
                  const float4* __restrict__ xyzt,   // (N, 4)
                  float* __restrict__ dtab,          // (P, F, T), zeroed
-                 const FieldSpec spec, int F, uint32_t T, int64_t N, int64_t samples_per_block) {
+                 const FieldSpec spec, int F, uint32_t T, int64_t N, int64_t samples_per_block,
+                 const int32_t* __restrict__ n_valid, const int32_t* __restrict__ seg, int seg_id,
+                 int64_t min_part) {
   extern __shared__ float4 smem[];
   float* slab = reinterpret_cast<float*>(smem);
   const int p = blockIdx.z;
   const int f0 = blockIdx.y * kFC;
   const int fc = min(kFC, F - f0);
-  const int64_t n_begin = static_cast<int64_t>(blockIdx.x) * samples_per_block;
-  const int64_t n_end = min(N, n_begin + samples_per_block);
+  int64_t n_begin, n_end;
+  live_range(kSkip ? n_valid : nullptr, N, samples_per_block, kThreads * kBwdRun, min_part, n_begin, n_end);
+  if (kSkip && n_begin >= n_end) return;  // no live sample (uniform over the block)
   float* dst = dtab + (static_cast<int64_t>(p) * F + f0) * T;
   const float* grow = g + (static_cast<int64_t>(p) * F + f0) * N;
 
@@ -346,6 +405,7 @@ field_bwd_kernel(const float* __restrict__ g,       // (P, F, N)
     const int len = static_cast<int>(min(static_cast<int64_t>(kBwdRun), n_end - n0));
     for (int j = 0; j < len; ++j) {
       const int64_t n = n0 + j;
+      if (kSkip && !served(seg, seg_id, n)) continue;
       float gv[kFC];
 #pragma unroll
       for (int f = 0; f < kFC; ++f) gv[f] = f < fc ? __ldg(grow + static_cast<int64_t>(f) * N + n) : 0.0f;
@@ -386,6 +446,7 @@ struct Plan {
   int chunks;
   int smem;
   int64_t spb = 0;  // samples per block
+  int64_t min_spb = 0;  // the floor of a block's samples (staged slabs)
   unsigned ranges = 0;
 };
 
@@ -423,6 +484,7 @@ cudaError_t size_grid(Kernel kernel, Plan& pl, int P, int64_t N, int C, uint32_t
   int64_t spb = (N + per_pc - 1) / per_pc;
   const int64_t floor_spb = pl.staged ? (4 * static_cast<int64_t>(T) + C - 1) / C : 0;
   if (spb < floor_spb) spb = floor_spb;
+  pl.min_spb = floor_spb;
   pl.spb = (spb + tile - 1) / tile * tile;
   pl.ranges = static_cast<unsigned>((N + pl.spb - 1) / pl.spb);
   return cudaSuccess;
@@ -438,38 +500,43 @@ bool valid_args(const FieldSpec& spec, int P, int F, long long T, long long N) {
   return spec.mode == kModeVector && P == 4;
 }
 
-template <int kC, int kFC, bool kStaged>
+template <int kC, int kFC, bool kStaged, bool kSkip>
 struct FwdLaunch {
   static cudaError_t run(const float* tables, const float* xyzt, float* out, const FieldSpec& spec, int P, int F,
-                         uint32_t T, int64_t N, cudaStream_t s, Plan pl) {
-    auto kernel = field_fwd_kernel<kC, kFC, kStaged>;
+                         uint32_t T, int64_t N, const int32_t* n_valid, const int32_t* seg, int seg_id,
+                         cudaStream_t s, Plan pl) {
+    auto kernel = field_fwd_kernel<kC, kFC, kStaged, kSkip>;
     const cudaError_t err = size_grid(kernel, pl, P, N, kC, T, kThreads * kFwdPerThread, kFwdWaves);
     if (err != cudaSuccess) return err;
     kernel<<<grid_of(pl, P), kThreads, pl.smem, s>>>(tables, reinterpret_cast<const float4*>(xyzt), out, spec, F, T,
-                                                     N, pl.spb, N % 4 == 0);
+                                                     N, pl.spb, N % 4 == 0, n_valid, seg, seg_id, pl.min_spb);
     return cudaGetLastError();
   }
 };
 
-template <int kC, int kFC, bool kStaged>
+template <int kC, int kFC, bool kStaged, bool kSkip>
 struct BwdLaunch {
   static cudaError_t run(const float* g, const float* xyzt, float* dtab, const FieldSpec& spec, int P, int F,
-                         uint32_t T, int64_t N, cudaStream_t s, Plan pl) {
-    auto kernel = field_bwd_kernel<kC, kFC, kStaged>;
+                         uint32_t T, int64_t N, const int32_t* n_valid, const int32_t* seg, int seg_id,
+                         cudaStream_t s, Plan pl) {
+    auto kernel = field_bwd_kernel<kC, kFC, kStaged, kSkip>;
     const cudaError_t err = size_grid(kernel, pl, P, N, kC, T, kThreads * kBwdRun, kBwdWaves);
     if (err != cudaSuccess) return err;
     kernel<<<grid_of(pl, P), kThreads, pl.smem, s>>>(g, reinterpret_cast<const float4*>(xyzt), dtab, spec, F, T, N,
-                                                     pl.spb);
+                                                     pl.spb, n_valid, seg, seg_id, pl.min_spb);
     return cudaGetLastError();
   }
 };
 
-// Dispatch on (corners, feature chunk, staging) to one instantiation.
-template <int kC, template <int, int, bool> class Launch, typename... Args>
-cudaError_t dispatch(const Plan& pl, Args... args) {
-#define FIELD_INTERP_CASE(FC) \
-  case FC:                    \
-    return pl.staged ? Launch<kC, FC, true>::run(args..., pl) : Launch<kC, FC, false>::run(args..., pl);
+// Dispatch on (corners, feature chunk, staging, skip inputs) to one instantiation.
+template <int kC, template <int, int, bool, bool> class Launch, typename... Args>
+cudaError_t dispatch(const Plan& pl, bool skip, Args... args) {
+#define FIELD_INTERP_CASE(FC)                                                                                 \
+  case FC:                                                                                                    \
+    if (skip) {                                                                                               \
+      return pl.staged ? Launch<kC, FC, true, true>::run(args..., pl) : Launch<kC, FC, false, true>::run(args..., pl); \
+    }                                                                                                         \
+    return pl.staged ? Launch<kC, FC, true, false>::run(args..., pl) : Launch<kC, FC, false, false>::run(args..., pl);
   switch (pl.fc) {
     FIELD_INTERP_CASE(1)
     FIELD_INTERP_CASE(2)
@@ -480,30 +547,35 @@ cudaError_t dispatch(const Plan& pl, Args... args) {
   return cudaErrorInvalidValue;
 }
 
-template <template <int, int, bool> class Launch>
+template <template <int, int, bool, bool> class Launch>
 int run_entry(const float* a, const float* xyzt, float* o, const FieldSpec& spec, int P, int F, long long T,
-              long long N, void* stream) {
+              long long N, const int32_t* n_valid, const int32_t* seg, int seg_id, void* stream) {
   if (P <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   if (!valid_args(spec, P, F, T, N)) return static_cast<int>(cudaErrorInvalidValue);
   const Plan pl = make_plan(F, static_cast<uint32_t>(T));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t t32 = static_cast<uint32_t>(T);
   const int64_t n64 = static_cast<int64_t>(N);
-  const cudaError_t err = spec.mode == kModeGrid ? dispatch<8, Launch>(pl, a, xyzt, o, spec, P, F, t32, n64, s)
-                                                 : dispatch<2, Launch>(pl, a, xyzt, o, spec, P, F, t32, n64, s);
+  const bool skip = n_valid != nullptr || seg != nullptr;
+  const cudaError_t err =
+      spec.mode == kModeGrid ? dispatch<8, Launch>(pl, skip, a, xyzt, o, spec, P, F, t32, n64, n_valid, seg, seg_id, s)
+                             : dispatch<2, Launch>(pl, skip, a, xyzt, o, spec, P, F, t32, n64, n_valid, seg, seg_id, s);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// out (P, F, N) f32; xyzt (N, 4) f32; tables (P, F, T) f32.
+// out (P, F, N) f32; xyzt (N, 4) f32; tables (P, F, T) f32. n_valid (one
+// int32) and seg ((N,) int32, with the segment seg_id served) may be null.
 extern "C" int field_interp_fwd(const float* tables, const float* xyzt, float* out, FieldSpec spec, int P, int F,
-                                long long T, long long N, void* stream) {
-  return run_entry<FwdLaunch>(tables, xyzt, out, spec, P, F, T, N, stream);
+                                long long T, long long N, const int32_t* n_valid, const int32_t* seg, int seg_id,
+                                void* stream) {
+  return run_entry<FwdLaunch>(tables, xyzt, out, spec, P, F, T, N, n_valid, seg, seg_id, stream);
 }
 
 // dtab (P, F, T) f32 must hold zeros on entry (the caller allocates it with torch.zeros).
 extern "C" int field_interp_bwd(const float* g, const float* xyzt, float* dtab, FieldSpec spec, int P, int F,
-                                long long T, long long N, void* stream) {
-  return run_entry<BwdLaunch>(g, xyzt, dtab, spec, P, F, T, N, stream);
+                                long long T, long long N, const int32_t* n_valid, const int32_t* seg, int seg_id,
+                                void* stream) {
+  return run_entry<BwdLaunch>(g, xyzt, dtab, spec, P, F, T, N, n_valid, seg, seg_id, stream);
 }

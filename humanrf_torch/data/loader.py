@@ -29,7 +29,10 @@ The batch goes to `device` as a `HostBatch`; the pool's metadata as a cached
 `PoolArrays` snapshot; the occupancy grids as a device ring of
 corner-dilated grids (`ops/occupancy.py::dilate_grid`). Worker threads never
 touch the device: they queue grid uploads, which the consumer thread runs
-under `data_lock` before it snapshots the pool.
+under `data_lock` before it snapshots the pool. On the card every upload is
+staged in a fresh pinned host buffer and copied asynchronously
+(`_device_copy`), so a fetch never waits for the device: a copy from
+pageable memory would first synchronise the stream.
 """
 from __future__ import annotations
 
@@ -350,7 +353,7 @@ class DataLoader:
         replacement per fetch (`deterministic`), both choose the same slot."""
         if frame_number in self.frame_to_grid_slot:
             return self.frame_to_grid_slot[frame_number]
-        grid = torch.as_tensor(self.dataset.get_occupancy_grid(frame_number), device=self.device)
+        grid = self._device_copy(self.dataset.get_occupancy_grid(frame_number))
         live = set(self.entry_frame_numbers.tolist())
         held = {s for fn, s in self.frame_to_grid_slot.items() if fn in live}
         for _ in range(self.occupancy_grids_buffer_size):
@@ -445,6 +448,19 @@ class DataLoader:
         self.continue_replacing()
         return self
 
+    def _device_copy(self, array: np.ndarray) -> torch.Tensor:
+        """A copy of `array` on the loader's device that owns its memory. On
+        the card it is staged in a fresh pinned buffer and copied with
+        `non_blocking=True`: no stream sync, and PyTorch's pinned-memory
+        allocator records the copy's event on the buffer and reuses it only
+        once the copy has completed, so a later fetch never overwrites a
+        buffer in flight. The staging copy is the snapshot."""
+        src = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return src.clone().to(self.device)
+        staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True).copy_(src)
+        return staged.to(self.device, non_blocking=True)
+
     def pool_arrays(self) -> PoolArrays:
         """The pool's metadata on the device, cached per pool version. Called
         under `data_lock`; copies, since the replacer rewrites the host arrays
@@ -452,7 +468,7 @@ class DataLoader:
         if self._pool_cache is None or self._pool_cache[0] != self._pool_version:
             snapshot = PoolArrays(
                 *(
-                    torch.tensor(a.copy(), device=self.device)
+                    self._device_copy(a)
                     for a in (
                         self.entry_inverse_krs,
                         self.entry_camera_origins,
@@ -519,12 +535,7 @@ class DataLoader:
             info = BatchInfo(num_real, width, height, camera_number, frame_number)
 
         self.iternum += num_real
-        batch = HostBatch(
-            buffer_idx=torch.from_numpy(buffer_idx).to(self.device),
-            pixel_idx=torch.from_numpy(pixel_idx).to(self.device),
-            rgba=torch.from_numpy(rgba).to(self.device),
-            ray_light_ok=torch.from_numpy(light_ok).to(self.device),
-        )
+        batch = HostBatch(*(self._device_copy(a) for a in (buffer_idx, pixel_idx, rgba, light_ok)))
         return batch, pool, grids, info
 
     def _gather_light_ok(self, buffer_idx: np.ndarray, pixel_idx: np.ndarray) -> np.ndarray:

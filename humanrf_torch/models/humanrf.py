@@ -8,11 +8,19 @@ params pytree leaf for leaf:
     sigma_net.w<i>, color_net.w<i>  (din, dout)    proposal.<s>.factors  (4, res, rank)
     camera_embeddings               (160, E)
 
-Samples are routed to their segment by index selection, as the reference
-does (`humanrf.py:172-177`); a segment with no samples in the batch runs
-nothing. The JAX package's where-masking plus `lax.cond` gives the same
-numbers, and the same gradients: the scatter into the result routes each
-row's gradient back to its own segment's parameters.
+Samples are routed to their segment on the device, with static shapes and
+no host read, as the JAX package routes them (`humanrf_tpu/models/
+humanrf.py:243-276`, its where-masking without the `lax.cond`): every
+segment's table lookups run over all N samples, their kernels skipping the
+samples of other segments (`seg`/`s` of `ops/field_interp.py`); the
+per-segment lookups, exact zeros outside each segment, are summed and
+composed into features once. The
+proposal field, plain PyTorch ops, reads each sample's own segment's
+factors in one gather over the segments' stacked factors (evaluating every
+segment on all N and selecting with `torch.where` would repeat its gathers
+and their sorting backward once per segment). Each sample's features and
+gradients are those of the reference's index selection (`humanrf.py:
+172-177`).
 
 A model is built with zero parameters; `init_parameters` draws a fresh one
 from an explicit `torch.Generator` with the JAX package's distributions
@@ -22,7 +30,7 @@ loads a JAX one.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Mapping, Optional, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +39,10 @@ from torch import nn
 
 from humanrf_torch.models.activation import truncated_exp
 from humanrf_torch.models.decomposition4d import Decomposition4D, Decomposition4DConfig
+from humanrf_torch.models.fused_field import compose
 from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.mlp import MLP, normal
-from humanrf_torch.models.proposal import ProposalField, ProposalFieldConfig
+from humanrf_torch.models.proposal import ProposalField, ProposalFieldConfig, apply_proposal_field
 from humanrf_torch.models.sh import sh_encode
 
 # Matches humanrf/adaptive_temporal_partitioning.py:8.
@@ -150,39 +159,33 @@ class HumanRFModel(nn.Module):
 
     # ----------------------------------------------------------------- routing
 
-    def _per_segment(
-        self, frame_numbers: torch.Tensor, inputs: torch.Tensor, out_shape, apply: Callable[[int, torch.Tensor], torch.Tensor]
-    ) -> torch.Tensor:
-        """Scatter `apply(s, inputs[rows of segment s])` into a zero (out_shape) result."""
+    def _segment_ids(self, frame_numbers: torch.Tensor) -> Optional[torch.Tensor]:
+        """(N,) int32 segment of each sample (-1 for a frame of no segment),
+        or None for a one-segment model, whose query serves every sample."""
         if self.config.num_segments == 1:
-            return apply(0, inputs)
-        segment_ids = self.frame_to_segment[frame_numbers]
-        out = torch.zeros(out_shape, dtype=torch.float32, device=inputs.device)
-        for s in range(self.config.num_segments):
-            rows = torch.nonzero(segment_ids == s).squeeze(1)
-            if rows.numel() == 0:
-                continue
-            out[rows] = apply(s, inputs[rows])
-        return out
+            return None
+        return self.frame_to_segment[frame_numbers].int()
 
     # ----------------------------------------------------------------- queries
 
     def features(self, positions: torch.Tensor, frame_numbers: torch.Tensor,
-                 tables: Optional[Mapping[int, torch.Tensor]] = None) -> torch.Tensor:
+                 tables: Optional[Mapping[int, torch.Tensor]] = None,
+                 n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """positions (N,3) in [-0.5,0.5]; frame_numbers (N,) → (N, L*F).
         `tables` maps a segment to its (4L, F, T) table stack where the
         caller holds it (the FSDP step's gathered tables); the other segments
-        read their own parameters."""
+        read their own parameters. Samples at or past `n_valid` (one int32 on
+        the device: a static budget's empty tail) get zero features."""
         tables = tables or {}
         frame_numbers = frame_numbers.long()
         times = self.frame_to_local_time[frame_numbers][:, None]
-        xyzt = torch.cat([positions + 0.5, times], dim=-1)
-        return self._per_segment(
-            frame_numbers,
-            xyzt,
-            (positions.shape[0], self.config.total_feature_dim),
-            lambda s, x: self.segments[s](x[:, :3], x[:, 3:], tables.get(s)),
-        )
+        xyz = positions + 0.5
+        seg = self._segment_ids(frame_numbers)
+        grid = vectors = None
+        for s, segment in enumerate(self.segments):
+            f, v = segment.lookups(xyz, times, tables.get(s), n_valid, seg, s)
+            grid, vectors = (f, v) if grid is None else (grid + f, vectors + v)
+        return compose(grid, vectors)
 
     def proposal_density(self, positions: torch.Tensor, frame_numbers: torch.Tensor) -> torch.Tensor:
         """positions (N, 3) in [-0.5, 0.5]; frame_numbers (N,) → sigma (N,) fp32."""
@@ -191,12 +194,17 @@ class HumanRFModel(nn.Module):
         frame_numbers = frame_numbers.long()
         times = self.frame_to_local_time[frame_numbers][:, None]
         coords = torch.cat([positions + 0.5, times], dim=-1)
-        return self._per_segment(frame_numbers, coords, (positions.shape[0],), lambda s, c: self.proposal[s](c))
+        seg = self._segment_ids(frame_numbers)
+        if seg is None:
+            return self.proposal[0](coords)
+        factors = torch.stack([field.factors for field in self.proposal])
+        return apply_proposal_field({"factors": factors}, coords, self.proposal_config, seg)
 
     def density(self, positions: torch.Tensor, frame_numbers: torch.Tensor,
-                tables: Optional[Mapping[int, torch.Tensor]] = None):
-        """→ (density (N,), geometry_features (N, G)). humanrf.py:158-186."""
-        h = self.sigma_net(self.features(positions, frame_numbers, tables))
+                tables: Optional[Mapping[int, torch.Tensor]] = None, n_valid: Optional[torch.Tensor] = None):
+        """→ (density (N,), geometry_features (N, G)). humanrf.py:158-186.
+        `n_valid` as in `features`."""
+        h = self.sigma_net(self.features(positions, frame_numbers, tables, n_valid))
         density = truncated_exp(h[..., 0]) * self.config.density_scale
         return density, h[..., 1:]
 
@@ -208,11 +216,12 @@ class HumanRFModel(nn.Module):
         camera_numbers: Optional[torch.Tensor] = None,
         is_training: bool = False,
         tables: Optional[Mapping[int, torch.Tensor]] = None,
+        n_valid: Optional[torch.Tensor] = None,
     ):
         """→ (density (N,), radiance (N, 3)). humanrf.py:188-208. `tables`
-        as in `features`."""
+        and `n_valid` as in `features`."""
         cfg = self.config
-        density, geo = self.density(positions, frame_numbers, tables)
+        density, geo = self.density(positions, frame_numbers, tables, n_valid)
         color_in = [sh_encode((directions + 1.0) * 0.5, cfg.sh_degree), geo]
         if cfg.camera_embedding_dim > 0:
             if is_training:

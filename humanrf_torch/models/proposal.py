@@ -19,7 +19,7 @@ backward sorts the indices and reduces each row's segment in parallel.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,14 +41,25 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_proposal_field(
-    params: Mapping[str, torch.Tensor], coords: torch.Tensor, cfg: ProposalFieldConfig
+    params: Mapping[str, torch.Tensor], coords: torch.Tensor, cfg: ProposalFieldConfig,
+    seg: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """coords: (N, 4) [x, y, z, t] in [0, 1] → density (N,) fp32.
 
-    align_corners=True linear sampling of each axis factor.
+    align_corners=True linear sampling of each axis factor. `params
+    ["factors"]` is one segment's (4, res, rank); with `seg`, the (N,) int32
+    segment of each sample, it is every segment's stacked, (S, 4, res,
+    rank), and each sample reads its own segment's rows in the same gathers
+    (a sample of no segment, seg < 0, reads density 0): a multi-segment
+    model's routing with static shapes, each sample's numbers those of its
+    segment's field alone.
     """
     res = cfg.resolution
-    factors = _bf16(params["factors"])  # (4, res, rank)
+    factors = _bf16(params["factors"])
+    if seg is None:
+        factors, first_row = factors[None], 0
+    else:
+        first_row = seg.clamp(min=0).long() * res  # the sample's segment's first row in (S·res, rank)
 
     rank_prod = None
     for axis in range(4):
@@ -61,12 +72,13 @@ def apply_proposal_field(
         same = i0 == i1
         w0 = torch.where(same, _bf16(w0 + w1), w0)
         w1 = torch.where(same, torch.zeros_like(w1), w1)
-        f = factors[axis]
-        vals = w0[:, None] * F.embedding(i0, f) + w1[:, None] * F.embedding(i1, f)  # (N, rank)
+        f = factors[:, axis].reshape(-1, factors.shape[-1])  # (S·res, rank)
+        vals = w0[:, None] * F.embedding(first_row + i0, f) + w1[:, None] * F.embedding(first_row + i1, f)  # (N, rank)
         rank_prod = vals if rank_prod is None else rank_prod * vals
 
     raw = rank_prod.sum(dim=-1)
-    return truncated_exp(raw) * cfg.density_scale
+    sigma = truncated_exp(raw) * cfg.density_scale
+    return sigma if seg is None else torch.where(seg >= 0, sigma, 0.0)
 
 
 class ProposalField(nn.Module):

@@ -16,6 +16,15 @@ Two modes, described by a `FieldSpec` passed to the kernels by value:
 - vector (`VECTOR_SPEC`): tables (4, D, R), pair p reads coordinate p of
   `xyzt`, 2 clamped taps.
 
+Two optional inputs skip samples, both read from device memory so that no
+call reads the device from the host and a CUDA graph replays it unchanged:
+`n_valid`, a one-element int32 tensor (samples at or past it are skipped:
+the empty tail of a static sample budget), and `seg`, an (N,) int32 segment
+id per sample with `s` the segment served (other segments' samples are
+skipped: the JAX package's where-masked routing, without its `lax.cond`). A
+skipped sample's output is 0 and it adds nothing to the gradient; the plain
+versions mask identically.
+
 `field_interp` is differentiable in `tables` only, as the JAX `custom_vjp`
 is: `xyzt` gets no gradient, and the forward saves `xyzt`, not corners. CUDA
 tensors go through `FieldInterpKernel`, CPU tensors through
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import Optional
 
 import torch
 
@@ -164,17 +174,38 @@ def corner_idx_w(xyzt: torch.Tensor, spec: FieldSpec, table_size: int):
     return torch.cat(idx).contiguous(), torch.cat(w).contiguous()  # (4L, 8, N)
 
 
-def field_interp_plain(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
-    """The corner math, then `fused_interp_plain`; out-of-table corners add nothing."""
-    return fused_interp_plain(tables, *corner_idx_w(xyzt, spec, tables.shape[2]))
+def served(n: int, device, n_valid=None, seg=None, s: int = 0):
+    """(n,) bool: the samples a call with these skip inputs serves (below
+    `n_valid`, of segment `s`), or None when it serves every one. Device
+    ops only: no host read."""
+    live = None
+    if n_valid is not None:
+        live = torch.arange(n, device=device) < n_valid.reshape(())
+    if seg is not None:
+        live = seg == s if live is None else live & (seg == s)
+    return live
 
 
-def field_interp_bwd_plain(g: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, table_size: int) -> torch.Tensor:
-    """The corner math, then `fused_interp_bwd_plain`: dtab (P, F, T)."""
+def field_interp_plain(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid=None, seg=None,
+                       s: int = 0) -> torch.Tensor:
+    """The corner math, then `fused_interp_plain`; out-of-table corners add
+    nothing, skipped samples read 0."""
+    out = fused_interp_plain(tables, *corner_idx_w(xyzt, spec, tables.shape[2]))
+    live = served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
+    return out if live is None else torch.where(live, out, 0.0)
+
+
+def field_interp_bwd_plain(g: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, table_size: int, n_valid=None,
+                           seg=None, s: int = 0) -> torch.Tensor:
+    """The corner math, then `fused_interp_bwd_plain`: dtab (P, F, T). A
+    skipped sample's cotangent is taken as 0, so it adds exact zeros."""
+    live = served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
+    if live is not None:
+        g = torch.where(live, g, 0.0)
     return fused_interp_bwd_plain(g, *corner_idx_w(xyzt, spec, table_size), table_size)
 
 
-def _check(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec):
+def _check(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid=None, seg=None):
     if tables.dim() != 3 or xyzt.dim() != 2 or xyzt.shape[1] != 4:
         raise ValueError(f"expected tables (P,F,T) and xyzt (N,4); got {tuple(tables.shape)}, {tuple(xyzt.shape)}")
     if tables.dtype != torch.float32 or xyzt.dtype != torch.float32:
@@ -185,61 +216,99 @@ def _check(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec):
     if spec.mode not in (MODE_GRID, MODE_VECTOR) or tables.shape[0] != pairs:
         raise ValueError(f"tables {tuple(tables.shape)} do not fit a field spec of mode {spec.mode}, "
                          f"{spec.n_levels} levels ({pairs} pairs)")
+    for name, t, shape in (("n_valid", n_valid, None), ("seg", seg, (xyzt.shape[0],))):
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or t.device != xyzt.device or not t.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous int32 tensor on {xyzt.device}, got {t.dtype} on {t.device}")
+        if (t.numel() != 1) if shape is None else (tuple(t.shape) != shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; expected {'one element' if shape is None else shape}")
 
 
-def _run(name: str, first: torch.Tensor, xyzt: torch.Tensor, out: torch.Tensor, spec: FieldSpec, F: int, T: int):
+def _aligned(xyzt: torch.Tensor) -> torch.Tensor:
+    """`xyzt` contiguous and 16-byte aligned: the kernels read a sample as one
+    float4. The main path's xyzt is a fresh `torch.cat` (the allocator's
+    blocks are 512-byte aligned), so this copies only a caller's offset view,
+    once per query: the forward saves the aligned tensor for the backward
+    (and under CUDA graph capture the copy comes from the graph's pool, at
+    the same address on every replay)."""
+    xyzt = xyzt.contiguous()
+    return xyzt.clone() if xyzt.data_ptr() % 16 else xyzt
+
+
+def _run(name: str, first: torch.Tensor, xyzt: torch.Tensor, out: torch.Tensor, spec: FieldSpec, F: int, T: int,
+         n_valid=None, seg=None, s: int = 0):
     fn = getattr(load_library("field_interp").lib, name)
     if fn.argtypes is None:
-        # in0, xyzt, out; spec; P, F; T, N; stream.
-        fn.argtypes = [ctypes.c_void_p] * 3 + [FieldSpec] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        # in0, xyzt, out; spec; P, F; T, N; n_valid, seg, s; stream.
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [FieldSpec] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    if xyzt.data_ptr() % 16:
-        xyzt = xyzt.clone()  # the kernels read a sample as one 16-byte float4
+    xyzt = _aligned(xyzt)
     P, N = first.shape[0], xyzt.shape[0]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream(first.device).cuda_stream
-        err = fn(first.data_ptr(), xyzt.data_ptr(), out.data_ptr(), spec, P, F, T, N, stream)
+        err = fn(first.data_ptr(), xyzt.data_ptr(), out.data_ptr(), spec, P, F, T, N, ptr(n_valid), ptr(seg), s,
+                 stream)
     if err != 0:
         # 1 (invalid value): P must be 4L (grid) or 4 (vector), at most 65,535; T < 2^31.
         raise RuntimeError(f"{name} launch failed at P={P}, F={F}, T={T}, N={N}, mode {spec.mode}: cudaError {err}")
 
 
-def _launch_fwd(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+def _launch_fwd(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid=None, seg=None,
+                s: int = 0) -> torch.Tensor:
     P, F, T = tables.shape
     out = torch.empty((P, F, xyzt.shape[0]), dtype=torch.float32, device=tables.device)
     if xyzt.shape[0] == 0:
         return out  # nothing to launch
-    _run("field_interp_fwd", tables.contiguous(), xyzt.contiguous(), out, spec, F, T)
+    _run("field_interp_fwd", tables.contiguous(), xyzt, out, spec, F, T, n_valid, seg, s)
     launches["fwd"] += 1
     return out
 
 
-def _launch_bwd(g: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, table_size: int) -> torch.Tensor:
+def _launch_bwd(g: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, table_size: int, n_valid=None, seg=None,
+                s: int = 0) -> torch.Tensor:
     P, F, N = g.shape
     if g.dtype != torch.float32 or N != xyzt.shape[0] or g.device != xyzt.device:
         raise ValueError(f"expected g (P,F,N) float32 beside xyzt {tuple(xyzt.shape)}, got {tuple(g.shape)} {g.dtype}")
     dtab = torch.zeros((P, F, table_size), dtype=torch.float32, device=g.device)
     if N == 0:
         return dtab  # nothing to launch
-    _run("field_interp_bwd", g.contiguous(), xyzt.contiguous(), dtab, spec, F, table_size)
+    _run("field_interp_bwd", g.contiguous(), xyzt, dtab, spec, F, table_size, n_valid, seg, s)
     launches["bwd"] += 1
     return dtab
 
 
+def _save(ctx, xyzt, tables, spec, n_valid, seg, s) -> None:
+    """Saves `xyzt` and the skip inputs given (no (P, C, N) corners)."""
+    ctx.skips = (n_valid is not None, seg is not None)
+    ctx.save_for_backward(xyzt, *(t for t in (n_valid, seg) if t is not None))
+    ctx.spec, ctx.table_size, ctx.s = spec, tables.shape[2], s
+
+
+def _saved(ctx):
+    """→ (xyzt, n_valid, seg) as `_save` kept them."""
+    saved = iter(ctx.saved_tensors)
+    xyzt = next(saved)
+    return (xyzt, *(next(saved) if given else None for given in ctx.skips))
+
+
 class FieldInterpKernel(torch.autograd.Function):
-    """Both directions on the CUDA kernels; the forward saves `xyzt` only."""
+    """Both directions on the CUDA kernels; the forward saves `xyzt` (and the
+    skip inputs) only."""
 
     @staticmethod
-    def forward(ctx, tables, xyzt, spec):
-        ctx.save_for_backward(xyzt)
-        ctx.spec, ctx.table_size = spec, tables.shape[2]
-        return _launch_fwd(tables, xyzt, spec)
+    def forward(ctx, tables, xyzt, spec, n_valid=None, seg=None, s=0):
+        xyzt = _aligned(xyzt)
+        _save(ctx, xyzt, tables, spec, n_valid, seg, s)
+        return _launch_fwd(tables, xyzt, spec, n_valid, seg, s)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        (xyzt,) = ctx.saved_tensors
-        return _launch_bwd(g, xyzt, ctx.spec, ctx.table_size), None, None
+        xyzt, n_valid, seg = _saved(ctx)
+        return _launch_bwd(g, xyzt, ctx.spec, ctx.table_size, n_valid, seg, ctx.s), None, None, None, None, None
 
 
 class PlainFieldInterp(torch.autograd.Function):
@@ -247,28 +316,30 @@ class PlainFieldInterp(torch.autograd.Function):
     `field_interp_bwd_plain`, the corners recomputed from `xyzt`."""
 
     @staticmethod
-    def forward(ctx, tables, xyzt, spec):
-        ctx.save_for_backward(xyzt)
-        ctx.spec, ctx.table_size = spec, tables.shape[2]
-        return field_interp_plain(tables, xyzt, spec)
+    def forward(ctx, tables, xyzt, spec, n_valid=None, seg=None, s=0):
+        _save(ctx, xyzt, tables, spec, n_valid, seg, s)
+        return field_interp_plain(tables, xyzt, spec, n_valid, seg, s)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        (xyzt,) = ctx.saved_tensors
-        return field_interp_bwd_plain(g.contiguous(), xyzt, ctx.spec, ctx.table_size), None, None
+        xyzt, n_valid, seg = _saved(ctx)
+        dtab = field_interp_bwd_plain(g.contiguous(), xyzt, ctx.spec, ctx.table_size, n_valid, seg, ctx.s)
+        return dtab, None, None, None, None, None
 
 
-def field_interp(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec) -> torch.Tensor:
+def field_interp(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid: Optional[torch.Tensor] = None,
+                 seg: Optional[torch.Tensor] = None, s: int = 0) -> torch.Tensor:
     """tables (P, F, T) f32, xyzt (N, 4) f32 in [0, 1] → (P, F, N) f32,
-    differentiable in `tables`.
+    differentiable in `tables`. `n_valid` (one int32) and `seg` ((N,)
+    int32, serving segment `s`) skip samples (see the module docstring).
 
     CUDA tensors go through the CUDA kernels, CPU tensors through the plain
     versions; anything else raises.
     """
-    _check(tables, xyzt, spec)
+    _check(tables, xyzt, spec, n_valid, seg)
     if tables.device.type == "cuda":
-        return FieldInterpKernel.apply(tables, xyzt, spec)
+        return FieldInterpKernel.apply(tables, xyzt, spec, n_valid, seg, s)
     if tables.device.type == "cpu":
-        return PlainFieldInterp.apply(tables, xyzt, spec)
+        return PlainFieldInterp.apply(tables, xyzt, spec, n_valid, seg, s)
     raise ValueError(f"field_interp runs on cuda or cpu tensors, not {tables.device}")

@@ -15,17 +15,25 @@ reference):
 
 The within-ray scan does not take one fp32 cumsum over the whole buffer minus
 each ray's offset: over ~10^6 samples that cancels catastrophically. It
-scatters each sample to its slot in an (R, samples_per_ray) layout (a ray
+copies each sample to its slot in an (R, samples_per_ray) layout (a ray
 holds at most samples_per_ray contiguous samples), takes `torch.cumsum` along
 the rows and gathers back, differentiably. The per-ray sums use the same
 layout, summed along the rows: unlike `index_add`'s atomics on the card,
 that adds in a fixed order, so a render is the same from run to run. The
 JAX package's segmented `associative_scan` and `segment_sum` add in other
-orders, so the two differ by fp32 roundings.
+orders, so the two differ by fp32 roundings. Each empty slot gets a place of
+its own past the rows: were they all sent to one place, the gather's
+backward would add ~10^6 gradients to it one after another (on the card,
+the dense step's largest cost).
 
-A flat pass queries the field on the buffer's valid prefix only (one host
-read of `num_valid` per pass): empty slots carry weight 0, so the outputs and
-gradients are those of a query on every slot.
+A flat pass queries the field on every slot of its static buffer, as the JAX
+package does, and reads nothing back to the host: `num_valid` stays on the
+device and goes to the field's kernels, which skip the empty tail (its
+features are zeros), and every empty slot is masked with `torch.where`
+before any sum: its density is 0 before σ·Δt, and its weight and radiance
+are exactly 0. A row sum with trailing exact zeros is unchanged, so the
+outputs are bit-equal to a query on the valid prefix alone, and an empty
+slot's gradient is exactly 0, never 0·inf.
 """
 from __future__ import annotations
 
@@ -49,27 +57,29 @@ class RenderOutput(NamedTuple):
 
 
 def _to_rows(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, max_length: int):
-    """Scatter `values` (S, ...) into (num_segments + 1, max_length, ...)
-    rows, entry i of a segment at column i → (rows, (row, col) per value).
+    """Copy `values` (S, ...) into (num_segments, max_length, ...) rows,
+    entry i of a segment at column i → (rows, the S entries past the rows,
+    each value's flat position in rows-then-entries).
 
     `segment_ids` ascend (ray-major buffers do), and a segment id in
     [0, num_segments) has at most `max_length` entries. Values of any other
-    id (the empty tail, id == num_segments) must be 0; they all go to column
-    0 of the last row."""
+    id (the empty tail, id == num_segments) must be 0; value s of them goes
+    to entry s past the rows, so every position is distinct."""
     ids = segment_ids.long()
-    slot = torch.arange(ids.shape[0], device=ids.device) - torch.searchsorted(ids, ids)
-    inside = ids < num_segments
-    row = torch.where(inside, ids, num_segments)
-    col = torch.where(inside, slot, 0)
-    rows = values.new_zeros((num_segments + 1, max_length, *values.shape[1:])).index_put((row, col), values)
-    return rows, (row, col)
+    n = ids.shape[0]
+    pos = torch.arange(n, device=ids.device)
+    in_rows = num_segments * max_length
+    flat = torch.where(ids < num_segments, ids * max_length + (pos - torch.searchsorted(ids, ids)), in_rows + pos)
+    buf = values.new_zeros((in_rows + n, *values.shape[1:])).index_copy(0, flat, values)
+    return buf[:in_rows].view(num_segments, max_length, *values.shape[1:]), buf[in_rows:], flat
 
 
 def segmented_cumsum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, max_length: int) -> torch.Tensor:
     """Inclusive cumsum that restarts at each run of equal `segment_ids` (see
     `_to_rows` for what they must satisfy)."""
-    rows, index = _to_rows(values, segment_ids, num_segments, max_length)
-    return torch.cumsum(rows, dim=1)[index]
+    rows, rest, flat = _to_rows(values, segment_ids, num_segments, max_length)
+    scanned = torch.cat([torch.cumsum(rows, dim=1).flatten(0, 1), rest])
+    return scanned.index_select(0, flat)
 
 
 def _per_ray_exclusive_cumsum(values, sample_ray, num_rays: int, max_length: int) -> torch.Tensor:
@@ -98,8 +108,8 @@ def accumulate_along_rays(
     D), or of weights → (num_rays, 1), in a fixed order. Empty slots (weight
     0) are dropped."""
     src = weights[:, None] if values is None else weights[:, None] * values
-    rows, _ = _to_rows(src, sample_ray, num_rays, max_length)
-    return rows.sum(dim=1)[:num_rays]
+    rows, _, _ = _to_rows(src, sample_ray, num_rays, max_length)
+    return rows.sum(dim=1)
 
 
 def render_visibility(
@@ -117,12 +127,6 @@ def render_visibility(
     neg_log = torch.where(keep, -torch.log1p(-torch.clamp(alphas, 0.0, 1.0 - 1e-7)), 0.0)
     excl = _per_ray_exclusive_cumsum(neg_log, samples.ray, num_rays, max_length)
     return keep & (torch.exp(-excl) > early_stop_eps)
-
-
-def _valid_prefix(samples: SampleSet) -> SampleSet:
-    """The first num_valid slots (a host read of num_valid)."""
-    n = int(samples.num_valid)
-    return samples._replace(t=samples.t[:n], ray=samples.ray[:n], valid=samples.valid[:n])
 
 
 def _sample_rays(samples: SampleSet, origins, dirs, num_rays: int):
@@ -145,16 +149,16 @@ def prune_samples(
     """The reference's `prune_samples` (`volume_rendering.py:42-84`): query
     the density only, cull invisible samples, compact into `budget` slots.
 
-    `density_fn(positions, frame_numbers) -> density`; the caller runs this
-    under `torch.no_grad()`. Training jitter is the caller's (the pipeline
-    keys it by ray identity), so there is no key here.
+    `density_fn(positions, frame_numbers, num_valid) -> density` over every
+    slot (`num_valid`, on the device, lets the field skip the empty tail);
+    the caller runs this under `torch.no_grad()`. Training jitter is the
+    caller's (the pipeline keys it by ray identity), so there is no key here.
     """
-    prefix = _valid_prefix(samples)
-    ray_idx, positions, _ = _sample_rays(prefix, origins, dirs, num_rays)
-    density = density_fn(positions, frame_numbers[ray_idx])
+    ray_idx, positions, _ = _sample_rays(samples, origins, dirs, num_rays)
+    density = torch.where(samples.valid, density_fn(positions, frame_numbers[ray_idx], samples.num_valid), 0.0)
     alphas = 1.0 - torch.exp(-density * render_step_size)
-    visible = render_visibility(alphas, prefix, num_rays, max_length)
-    return compact_flat_samples(prefix, visible, budget)
+    visible = render_visibility(alphas, samples, num_rays, max_length)
+    return compact_flat_samples(samples, visible, budget)
 
 
 def render(
@@ -171,16 +175,20 @@ def render(
 ) -> RenderOutput:
     """The reference's `render` (`volume_rendering.py:87-150`).
 
-    `forward_fn(positions, directions, frame_numbers, camera_numbers) ->
-    (density, radiance)`; `background_rgb` is a scalar or (R, 3), blended by
+    `forward_fn(positions, directions, frame_numbers, camera_numbers,
+    num_valid) -> (density, radiance)` over every slot (see
+    `prune_samples`); `background_rgb` is a scalar or (R, 3), blended by
     (1 − weights_sum).
     """
-    prefix = _valid_prefix(samples)
-    ray_idx, positions, sample_dirs = _sample_rays(prefix, origins, dirs, num_rays)
-    density, radiance = forward_fn(positions, sample_dirs, frame_numbers[ray_idx], camera_numbers[ray_idx])
-    weights = render_weights_from_density(density, prefix, num_rays, render_step_size, max_length)
-    color = accumulate_along_rays(weights, prefix.ray, num_rays, max_length, values=radiance)
-    weights_sum = accumulate_along_rays(weights, prefix.ray, num_rays, max_length)
+    ray_idx, positions, sample_dirs = _sample_rays(samples, origins, dirs, num_rays)
+    density, radiance = forward_fn(positions, sample_dirs, frame_numbers[ray_idx], camera_numbers[ray_idx],
+                                   samples.num_valid)
+    valid = samples.valid
+    density = torch.where(valid, density, 0.0)
+    radiance = torch.where(valid[:, None], radiance, 0.0)
+    weights = render_weights_from_density(density, samples, num_rays, render_step_size, max_length)
+    color = accumulate_along_rays(weights, samples.ray, num_rays, max_length, values=radiance)
+    weights_sum = accumulate_along_rays(weights, samples.ray, num_rays, max_length)
     if background_rgb is not None:
         color = color + background_rgb * (1.0 - weights_sum)
     return RenderOutput(color=color, weights_sum=weights_sum)

@@ -15,7 +15,7 @@ slots carry ``ray == num_rays`` and ``t = 0``. A ray whose samples did not all
 fit the budget has ``ray_included`` false, so the loss can leave it out (the
 reference truncates the merged batch at a ray boundary, `humanrf/input.py:
 33-47`). JAX's ``.at[target].set(..., mode="drop")`` is a scatter into
-``budget + 1`` slots whose last one, the drop slot, is sliced off.
+``budget`` slots and a drop slot per value, which are sliced off.
 """
 from __future__ import annotations
 
@@ -38,11 +38,13 @@ class SampleSet(NamedTuple):
 
 def _compact(values, keep: torch.Tensor, pos: torch.Tensor, budget: int, fills):
     """Scatter each of `values` (flat) to `pos` where `keep`, into `budget`
-    slots filled with its entry of `fills`; the rest go to the drop slot."""
-    target = torch.where(keep, pos, budget)
+    slots filled with its entry of `fills`; the rest go to drop slots past
+    the budget, one each (millions of stores to one address serialise)."""
+    n = keep.shape[0]
+    target = torch.where(keep, pos, budget + torch.arange(n, device=keep.device))
     out = []
     for v, fill in zip(values, fills):
-        buf = torch.full((budget + 1,), fill, dtype=v.dtype, device=v.device)
+        buf = torch.full((budget + n,), fill, dtype=v.dtype, device=v.device)
         out.append(buf.scatter_(0, target, v)[:budget])
     return out
 
@@ -81,7 +83,7 @@ def compact_samples(t: torch.Tensor, valid: torch.Tensor, budget: int) -> Sample
     """Compact an (R, samples_per_ray) candidate lattice into (budget,) slots,
     ray-major then ascending t (the row-major flatten)."""
     num_rays, samples_per_ray = t.shape
-    flat_ray = torch.arange(num_rays, dtype=torch.int32, device=t.device).repeat_interleave(samples_per_ray)
+    flat_ray = torch.arange(num_rays, dtype=torch.int32, device=t.device)[:, None].expand(-1, samples_per_ray).reshape(-1)
     incl = torch.cumsum(valid.reshape(-1).int(), 0)
     pos = incl - 1
     keep = valid.reshape(-1) & (pos < budget)
@@ -105,8 +107,12 @@ def compact_flat_samples(sample_set: SampleSet, new_valid: torch.Tensor, budget:
     keep = flat_valid & (pos < budget)
     out_t, out_ray = _compact((sample_set.t, sample_set.ray), keep, pos, budget, (0.0, num_rays))
     overflowed = (flat_valid & (pos >= budget)).int()
-    ray_overflow = torch.zeros(num_rays + 1, dtype=torch.int32, device=overflowed.device).scatter_reduce_(
-        0, sample_set.ray.long(), overflowed, "amax"
+    # Empty slots (ray == num_rays) go to places of their own past the rays.
+    n = overflowed.shape[0]
+    ray = sample_set.ray.long()
+    target = torch.where(ray < num_rays, ray, num_rays + torch.arange(n, device=ray.device))
+    ray_overflow = torch.zeros(num_rays + n, dtype=torch.int32, device=overflowed.device).scatter_reduce_(
+        0, target, overflowed, "amax"
     )[:num_rays]
     ray_included = sample_set.ray_included & (ray_overflow == 0)
     num_valid = torch.clamp(flat_valid.sum(), max=budget).int()

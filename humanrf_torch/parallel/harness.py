@@ -111,7 +111,7 @@ def run_steps(group, device: torch.device, path, out_dir, mode: str) -> dict:
     elif mode == "fsdp":
         step = fsdp.make_fsdp_train_step(cfg, model, optimizer, width, height, sharding)
     elif mode == "single":
-        step = make_train_step(cfg, model, optimizer, width, height)
+        step = make_train_step(cfg, model, optimizer, width, height, graph=False)  # as eager as the ranks' steps
     else:
         raise ValueError(f"unknown mode {mode!r} (dp, fsdp or single)")
 

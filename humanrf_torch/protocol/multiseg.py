@@ -11,7 +11,8 @@ ranks with the tables sharded (`--tpu.param_sharding fsdp`).
 
 The run exercises adaptive partitioning at n = 4, frame-window batches that
 cross segment boundaries, the per-segment routing of every query
-(`models/humanrf.py::_per_segment`) and a checkpoint of four segments.
+(`models/humanrf.py::features`, every segment's query over all samples, the
+others skipped on the device) and a checkpoint of four segments.
 
     python -m humanrf_torch.protocol.multiseg [--steps 400] [--size 192] [--root protocol_runs/multiseg] [--device cpu]
 

@@ -112,7 +112,7 @@ def probe(scene: Path, best: Path, frames, size: int, rays: int, device: str, ou
     try:
         for data_idx, (batch, pool, grids, info) in enumerate(loader):
             out_batch, _ = render_fn(batch, pool, grids, aabb, 0.0)
-            partial_colors.append(out_batch.color[: info.num_real])
+            partial_colors.append(out_batch.color[: info.num_real].clone())  # the next batch overwrites it
             partial_rgba.append(batch.rgba[: info.num_real])
             if (data_idx + 1) % loader.num_batches_per_full_image != 0:
                 continue

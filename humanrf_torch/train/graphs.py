@@ -1,0 +1,112 @@
+"""A step as one device program: captured once as a CUDA graph, then replayed.
+
+The port's counterpart of `jax.jit` around the JAX package's train step and
+render function (`humanrf_tpu/train/pipeline.py:477,534`). Both are written
+with static shapes and no host read inside (static sample budgets, the valid
+count and the segment routing kept on the device), so on the card each is
+captured once per input signature (the shapes, types and devices of its
+tensors, and its other arguments) as a `torch.cuda.CUDAGraph`:
+
+1. the inputs are copied into static buffers on the card; a tensor that is
+   the same object at the same version as at the last call (the loader's
+   cached pool snapshot, its grid ring, a render's constant columns) is not
+   copied again;
+2. the first call of a signature runs the eager body on a side stream, as
+   PyTorch's whole-network capture asks, and returns its outputs: this is
+   the call's real step, and it builds the CUDA libraries and creates every
+   `.grad` and optimizer moment. The body is then captured on that stream,
+   which runs nothing;
+3. every later call replays the graph and returns its static outputs, which
+   the next replay overwrites.
+
+Python counters do not move on a replay, so the field kernels' launches
+(`ops/field_interp.py::launches`) counted while capturing are taken back and
+added per replay: the counts are those of the eager steps. A capture that
+fails raises, with the failing op's error; nothing falls back to the eager
+body. A call whose tensors are all on the CPU runs the body eagerly: CPUs
+have no graphs.
+
+A graph reads the model's parameters where they were at capture: weights
+are loaded in place (`load_state_dict`), never rebound.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from humanrf_torch.ops import field_interp as fli
+
+
+class _Captured:
+    """One input signature's graph: static inputs, outputs and launches."""
+
+    def __init__(self, static: List[Optional[torch.Tensor]]):
+        self.static = static
+        self.seen: List = [None] * len(static)  # (tensor, version) last copied per leaf
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None
+        self.launches: Dict[str, int] = {}
+
+    def copy_inputs(self, leaves) -> None:
+        for i, (leaf, buf) in enumerate(zip(leaves, self.static)):
+            if buf is None:
+                continue
+            seen = self.seen[i]
+            if seen is not None and seen[0] is leaf and seen[1] == leaf._version:
+                continue
+            buf.copy_(leaf, non_blocking=True)
+            self.seen[i] = (leaf, leaf._version)
+
+
+class GraphedStep:
+    """`body(*args, **kwargs)` replayed as a CUDA graph per input signature
+    (see the module docstring); `name` goes into a failed capture's error."""
+
+    def __init__(self, name: str, body: Callable):
+        self.name = name
+        self.body = body
+        self._graphs: Dict[str, _Captured] = {}
+
+    def __call__(self, *args, **kwargs):
+        leaves, spec = tree_flatten((args, kwargs))
+        tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+        device = next((t.device for t in tensors if t.device.type == "cuda"), None)
+        if device is None:
+            return self.body(*args, **kwargs)  # the CPU: eager
+        key = repr((spec, [(tuple(t.shape), t.dtype, t.device) if isinstance(t, torch.Tensor) else t
+                           for t in leaves]))
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry, out = self._warm_up_and_capture(leaves, spec, device)
+            self._graphs[key] = entry
+            return out
+        entry.copy_inputs(leaves)
+        entry.graph.replay()
+        for direction, n in entry.launches.items():
+            fli.launches[direction] += n
+        return entry.out
+
+    def _warm_up_and_capture(self, leaves, spec, device):
+        """→ (the signature's graph, the eager body's outputs for this call)."""
+        entry = _Captured([torch.empty(t.shape, dtype=t.dtype, device=device) if isinstance(t, torch.Tensor) else None
+                           for t in leaves])
+        entry.copy_inputs(leaves)
+        args, kwargs = tree_unflatten([s if s is not None else leaf for s, leaf in zip(entry.static, leaves)], spec)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            out = self.body(*args, **kwargs)  # this call's step
+        graph = torch.cuda.CUDAGraph()
+        before = dict(fli.launches)
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                entry.out = self.body(*args, **kwargs)
+        except Exception as e:
+            raise RuntimeError(f"capturing {self.name} as a CUDA graph failed (there is no eager fallback): {e}") from e
+        entry.launches = {d: fli.launches[d] - before[d] for d in before}
+        fli.launches.update(before)  # the capture launched nothing
+        torch.cuda.current_stream(device).wait_stream(stream)
+        entry.graph = graph
+        return entry, out

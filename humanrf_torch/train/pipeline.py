@@ -19,6 +19,12 @@ JAX step does: the dense jitter (by ray id and lattice slot), the proposal's
 stratified offsets and the random background, so a ray draws the same noise
 wherever compaction moves it, and the same as the JAX package's step under
 the same key. A render has no noise, so it is deterministic.
+
+Both are one device program, as the JAX package's jitted step and render
+are: static shapes throughout (the dense passes query every slot of their
+budgets), no host read inside, and on the card each is captured once as a
+CUDA graph and replayed (`train/graphs.py`). The CPU runs the same
+functions eagerly; `graph=False` runs them eagerly on the card too.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from humanrf_torch.ops.rays import aabb_intersect, pixel_to_ray
 from humanrf_torch.ops.render import RenderOutput, composite_grid, prune_samples, render, render_weights_grid
 from humanrf_torch.ops.resample import proposal_distillation_per_ray, sample_intervals, stratified_bins, weights_to_cdf
 from humanrf_torch.ops.sampling import SampleSet, generate_samples
+from humanrf_torch.train.graphs import GraphedStep
 from humanrf_torch.train.losses import bce_loss, huber_loss, masked_mean
 from humanrf_torch.utils.rngs import split, uniform_per_id
 
@@ -174,7 +181,9 @@ def prune_and_render(
     jittered by U[0, step) (`volume_rendering.py:63-64`), drawn per (global
     ray id, lattice slot), and camera embeddings are on. The prune pass's
     density query runs without autograd (JAX: `stop_gradient`), so no
-    activation of its up to `candidate_budget` samples is kept.
+    activation of its `candidate_budget` slots is kept. Both passes query
+    every slot of their buffer; the field's kernels skip the slots past
+    `num_valid`, which stays on the device.
     """
     num_rays = rays.origins.shape[0]
     if rng is not None:
@@ -187,15 +196,21 @@ def prune_and_render(
     if cfg.use_visibility_prune:
         with torch.no_grad():
             samples = prune_samples(
-                lambda p, f: model.density(p, f, tables)[0], samples, rays.origins, rays.directions, rays.frame_numbers,
+                lambda p, f, n: model.density(p, f, tables, n)[0], samples, rays.origins, rays.directions, rays.frame_numbers,
                 num_rays, cfg.sample_budget, cfg.render_step_size, cfg.samples_per_ray,
             )
     out = render(
-        lambda p, d, f, c: model(p, d, f, c, is_training=rng is not None, tables=tables),
+        lambda p, d, f, c, n: model(p, d, f, c, is_training=rng is not None, tables=tables, n_valid=n),
         samples, rays.origins, rays.directions, rays.frame_numbers, rays.camera_numbers,
         num_rays, background_rgb, cfg.render_step_size, cfg.samples_per_ray,
     )
     return out, samples
+
+
+def _per_sample(values: torch.Tensor, k: int) -> torch.Tensor:
+    """(R, ...) per-ray values → (R·k, ...), each ray's repeated k times (a
+    `repeat_interleave` whose size is static)."""
+    return values[:, None].expand(values.shape[0], k, *values.shape[1:]).reshape(-1, *values.shape[1:])
 
 
 def proposal_render(
@@ -248,7 +263,7 @@ def proposal_render(
         k = t.shape[1]
         pts = rays.origins[:, None, :] + rays.directions[:, None, :] * t[..., None]
         sigma = model.proposal_density(
-            pts.reshape(-1, 3), rays.frame_numbers.repeat_interleave(k)
+            pts.reshape(-1, 3), _per_sample(rays.frame_numbers, k)
         ).reshape(num_rays, k)
         mask = rays.valid[:, None] & sample_occupancy(grids, grid_ids[:, None], pts + 0.5)
         return render_weights_grid(sigma, dt, mask)
@@ -267,9 +282,9 @@ def proposal_render(
     pts_f = rays.origins[:, None, :] + rays.directions[:, None, :] * t_f[..., None]
     density, radiance = model(
         pts_f.reshape(-1, 3),
-        rays.directions.repeat_interleave(k_fine, dim=0),
-        rays.frame_numbers.repeat_interleave(k_fine),
-        rays.camera_numbers.repeat_interleave(k_fine),
+        _per_sample(rays.directions, k_fine),
+        _per_sample(rays.frame_numbers, k_fine),
+        _per_sample(rays.camera_numbers, k_fine),
         is_training=is_training,
         tables=tables,
     )
@@ -347,7 +362,8 @@ def training_loss(
     return total, aux
 
 
-def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: int, height: int):
+def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: int, height: int,
+                    graph: bool = True):
     """Returns train_step(batch, pool, grids, aabb, rng, ray_ids=None) → (loss, aux).
 
     `batch` carries `num_rays × candidate_rays_factor` candidate rays; after
@@ -359,6 +375,13 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
     It updates the parameters and the optimizer's state in place: the
     PyTorch form of the JAX step's donated buffers. `loss` and `aux` are
     detached device tensors; nothing waits for the device.
+
+    On the card the step is one CUDA graph (`train/graphs.py`): forward,
+    backward and `optimizer.step()`, the gradients zeroed in place inside
+    it; `loss` and `aux` are then its static outputs, which the next step
+    overwrites. The first call of a batch shape is the eager body (the
+    graph's warm-up); the graph replays from the second on. `graph=False`
+    runs the eager body (the CPU always does).
     """
 
     def step(batch: HostBatch, pool: PoolArrays, grids, aabb, rng: torch.Tensor, ray_ids=None):
@@ -370,7 +393,7 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
         samples = None
         if cfg.sampling != "proposal":
             samples = build_samples(cfg, rays, pool, grids, batch.buffer_idx)
-        optimizer.zero_grad()
+        model.zero_grad(set_to_none=False)
         loss, aux = training_loss(
             cfg, model, rays, batch.rgba, rng, pool, grids, batch.buffer_idx, ray_ids=ray_ids, samples=samples
         )
@@ -378,14 +401,18 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
         optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
-    return step
+    return GraphedStep("the train step", step) if graph else step
 
 
-def make_render_fn(cfg: PipelineConfig, model: HumanRFModel, width: int, height: int):
+def make_render_fn(cfg: PipelineConfig, model: HumanRFModel, width: int, height: int, graph: bool = True):
     """Returns render_rays(batch, pool, grids, aabb, background_rgb) →
     (RenderOutput, ray_valid) for validation/test image assembly. Under
     dense sampling the budgets are the batch's (see
-    `trainer.render_pipeline_config`)."""
+    `trainer.render_pipeline_config`). On the card it is one CUDA graph
+    per batch size (`train/graphs.py`; a scalar `background_rgb` is part of
+    the signature): its outputs are static, overwritten by the next batch,
+    so a caller that keeps them copies them. `graph=False` runs it
+    eagerly."""
 
     @torch.no_grad()
     def fn(batch: HostBatch, pool: PoolArrays, grids, aabb, background_rgb):
@@ -396,8 +423,8 @@ def make_render_fn(cfg: PipelineConfig, model: HumanRFModel, width: int, height:
             samples = build_samples(cfg, rays, pool, grids, batch.buffer_idx)
             out, _ = prune_and_render(cfg, model, rays, samples, background_rgb)
         valid = rays.valid[:, None]
-        color = torch.where(valid, out.color, torch.as_tensor(background_rgb, dtype=out.color.dtype, device=out.color.device))
+        color = torch.where(valid, out.color, background_rgb)
         wsum = torch.where(valid, out.weights_sum, 0.0)
         return RenderOutput(color=color, weights_sum=wsum), rays.valid
 
-    return fn
+    return GraphedStep("the render function", fn) if graph else fn

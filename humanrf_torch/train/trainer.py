@@ -19,6 +19,11 @@ Counterpart of `humanrf_tpu/train/trainer.py`:
   dense budgets scaled to its size (the JAX `Trainer._get_render_fn`);
 - `render_image`: the batched pixel loop of `Trainer.test` over one image.
 
+On the card the single-process train step and every render function are
+CUDA graphs, replayed (`train/graphs.py`): their outputs are static buffers
+that the next call overwrites, so what is kept across calls (a rendered
+batch) is copied. The multi-rank steps (`parallel/`) stay eager.
+
 With a process group of several ranks (`humanrf_torch/parallel`) the
 `Trainer` trains data-parallel, or with `--tpu.param_sharding fsdp` with
 its segment tables sharded, as the JAX trainer does over its mesh: rank 0
@@ -35,6 +40,7 @@ import contextlib
 import dataclasses
 import subprocess
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
@@ -194,20 +200,33 @@ def render_pipeline_config(pcfg: PipelineConfig, batch_size: int) -> PipelineCon
                                sample_budget=scale(pcfg.sample_budget))
 
 
-def render_image(model: HumanRFModel, pcfg: PipelineConfig, inputs: ViewInputs, rays_batch_size: int) -> torch.Tensor:
+# Render functions per model, kept while the model lives: on the card each
+# holds its captured graphs (`render_image` renders view after view).
+_RENDER_FNS: "weakref.WeakKeyDictionary[HumanRFModel, Dict[tuple, Callable]]" = weakref.WeakKeyDictionary()
+
+
+def render_image(model: HumanRFModel, pcfg: PipelineConfig, inputs: ViewInputs, rays_batch_size: int,
+                 graph: bool = True) -> torch.Tensor:
     """Render pool entry `inputs.buffer_index` on a black background →
     (H, W, 3) float32 colors.
 
     Pixels go in batches of `rays_batch_size`; the last batch is padded with
-    pixel 0 and its padding is dropped, as the test loader does. `pcfg`'s
-    dense budgets are scaled to the batch (`render_pipeline_config`).
+    pixel 0 and its padding is dropped, as the test loader does, so every
+    batch replays one graph on the card. `pcfg`'s dense budgets are scaled
+    to the batch (`render_pipeline_config`). The render function is kept
+    per model and settings; `graph=False` renders eagerly.
     """
     device = inputs.aabb.device
     width, height = inputs.width, inputs.height
     if not bool(inputs.pool.landscape[inputs.buffer_index]):
         width, height = height, width  # portrait image
     num_pixels = width * height
-    render_fn = make_render_fn(render_pipeline_config(pcfg, rays_batch_size), model, inputs.width, inputs.height)
+    batch_cfg = render_pipeline_config(pcfg, rays_batch_size)
+    fns = _RENDER_FNS.setdefault(model, {})
+    key = (batch_cfg, inputs.width, inputs.height, graph)
+    if key not in fns:
+        fns[key] = make_render_fn(batch_cfg, model, inputs.width, inputs.height, graph)
+    render_fn = fns[key]
 
     buffer_idx = torch.full((rays_batch_size,), inputs.buffer_index, dtype=torch.int32, device=device)
     rgba = torch.zeros((rays_batch_size, 4), dtype=torch.float32, device=device)
@@ -219,7 +238,7 @@ def render_image(model: HumanRFModel, pcfg: PipelineConfig, inputs: ViewInputs, 
         pixel_idx[:num_real] = torch.arange(start, start + num_real, dtype=torch.int32, device=device)
         batch = HostBatch(buffer_idx, pixel_idx, rgba, light_ok)
         out, _ = render_fn(batch, inputs.pool, inputs.grids, inputs.aabb, 0.0)
-        colors.append(out.color[:num_real])
+        colors.append(out.color[:num_real].clone())
     return torch.cat(colors).reshape(height, width, 3)
 
 
@@ -329,7 +348,10 @@ class Trainer:
         if batch_size not in self._render_fns:
             width, height = self.resolution
             pcfg = render_pipeline_config(self.pcfg, batch_size)
-            self._render_fns[batch_size] = make_render_fn(pcfg, self.model, width, height)
+            # A multi-rank trainer renders eagerly: under FSDP the full tables
+            # are gathered into new tensors for every validation, which a
+            # captured graph would not see.
+            self._render_fns[batch_size] = make_render_fn(pcfg, self.model, width, height, graph=self.group is None)
         return self._render_fns[batch_size]
 
     def _log_info(self, text: str) -> None:
@@ -502,7 +524,7 @@ class Trainer:
         partial_rgba: List[torch.Tensor] = []
         for data_idx, (batch, pool, grids, info) in enumerate(data_loader):
             out, _ = self._get_render_fn(batch.pixel_idx.shape[0])(batch, pool, grids, aabb, 0.0)
-            partial_colors.append(out.color[: info.num_real])
+            partial_colors.append(out.color[: info.num_real].clone())  # the next batch overwrites `out`
             partial_rgba.append(batch.rgba[: info.num_real])
             if (data_idx + 1) % data_loader.num_batches_per_full_image != 0:
                 continue
