@@ -150,8 +150,9 @@ Phases, each of which raises on failure:
    and `--tpu.profile_dir`: a filtered pool-pixel share > 0, no skipped
    update, supervised rays/s beside phase 6's; the events file read back
    with every record's CRC, holding JAX_SCALAR_TAGS and the comparison
-   images; one trace, of steps 20–24, whose `field_interp` kernels equal the
-   launches counted in its window;
+   images; one trace, of steps 20–24 (the recorder's `train.step` spans it
+   holds), whose `field_interp` kernels equal the launches counted in its
+   window, and its idle gaps labelled by the program's spans;
 9. multi-GPU training, every rank a spawned process (`parallel/launch.py`)
    running `parallel/harness.py::run_steps` on inputs saved to a file. The
    card is one, and NCCL refuses two ranks on one GPU, so ranks that share
@@ -328,6 +329,7 @@ from humanrf_torch.toolbox import alembic_extractor, mesh_io, mesh_renderer
 from humanrf_torch.toolbox import generate_occupancy_grids_from_masks as occ
 from humanrf_torch.toolbox.write_alembic import objs_to_abc
 from humanrf_torch.train.trainer import Trainer, make_optimizer, render_image, render_pipeline_config, sample_batch
+from humanrf_torch.utils import profiling
 from humanrf_torch.utils.profiling import Trace
 from humanrf_torch.utils.rngs import fold_in, make_key
 from humanrf_torch.utils.summary import masked_crc32c
@@ -1746,9 +1748,13 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
         real_start(self)
         time.sleep(PROFILE_LEAD_S)  # see `device_profile`: the window's first kernels are kept
         window["start"] = dict(fli.launches)
+        window["t0"] = time.perf_counter_ns()
 
     def stop(self):
         window["stop"] = dict(fli.launches)
+        # The recorder's steps in the trace: a span is a CPU event of the trace.
+        window["steps"] = [s.id for s in profiling.snapshot()["spans"]["train.step"]
+                           if s.annotated and s.start_ns >= window["t0"]]
         return real_stop(self)
 
     try:
@@ -1786,19 +1792,22 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
         raise AssertionError(f"the events hold scalars {sorted(tags)} and images {sorted(events['images'])}, "
                              f"not the JAX trainer's {sorted(JAX_SCALAR_TAGS)} and its comparison images")
 
-    traces = list(profile_dir.iterdir())
-    if len(traces) != 1:
-        raise AssertionError(f"expected one trace in {profile_dir}, found {traces}")
+    traces, gap_files = sorted(profile_dir.glob("*.pt.trace.json")), sorted(profile_dir.glob("*.gaps.json"))
+    if len(traces) != 1 or len(gap_files) != 1:
+        raise AssertionError(f"expected one trace and its gaps in {profile_dir}, found {traces} {gap_files}")
     trace_events = json.loads(traces[0].read_text())["traceEvents"]
-    # A step's span is on the host's timeline and, as a GPU annotation, on the device's.
-    steps = sorted({int(e["name"].split()[1]) for e in trace_events if str(e.get("name")).startswith("train_step ")})
+    gaps = json.loads(gap_files[0].read_text())["idle_gaps"]
+    steps = window["steps"]
+    step_events = sum(e.get("name") == "train.step" for e in trace_events)
     traced = {d: sum(e.get("cat") == "kernel" and f"field_{d}_kernel" in e.get("name", "") for e in trace_events)
               for d in ("fwd", "bwd")}
     in_window = {d: window["stop"][d] - window["start"][d] for d in ("fwd", "bwd")}
     log(f"profile: {traces[0].name} ({traces[0].stat().st_size / 2**20:.1f} MiB), steps {steps}; field_interp "
-        f"kernels in the trace {traced}, launches counted in its window {in_window}")
-    if steps != list(range(20, 25)):
-        raise AssertionError(f"the trace holds steps {steps}, not 20–24")
+        f"kernels in the trace {traced}, launches counted in its window {in_window}; idle gaps {gaps}")
+    if steps != list(range(20, 25)) or step_events != 5:
+        raise AssertionError(f"the trace holds steps {steps} ({step_events} train.step events), not 20–24")
+    if not gaps or any(label != "other" and "." not in label for label, _ in gaps):
+        raise AssertionError(f"the trace's idle gaps {gaps} are not labelled by the program's spans")
     if not (launches["fwd"] > 0 and launches["bwd"] > 0) or old_launches != {"fwd": 0, "bwd": 0}:
         raise AssertionError(f"the light-bloom run launched field_interp {launches}, fused_interp {old_launches}")
     if traced != in_window or not min(traced.values()) > 0:

@@ -33,10 +33,19 @@ under `data_lock` before it snapshots the pool. On the card every upload is
 staged in a fresh pinned host buffer and copied asynchronously
 (`_device_copy`), so a fetch never waits for the device: a copy from
 pageable memory would first synchronise the stream.
+
+The recorder (`utils/profiling.py`) sees each fetch as `loader.fetch` (id:
+the batch number) with its parts (`loader.replace`, `loader.draw`,
+`loader.lock_wait`, `loader.grid_upload`, `loader.gather`,
+`loader.pool_snapshot`, `loader.stage`), and each image load as
+`loader.load` (id: the pair index) with `loader.decode`, `loader.prepare`,
+`loader.commit_wait` and `loader.commit`; it counts `loader.grid_uploads`,
+`loader.pool_snapshots`, `loader.staged_bytes` and `loader.images_replaced`.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import itertools
 import multiprocessing
 import threading
@@ -52,8 +61,20 @@ from humanrf_torch.core import morphology
 from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.ops.occupancy import dilate_grid
 from humanrf_torch.train.pipeline import HostBatch, PoolArrays
+from humanrf_torch.utils import profiling
 
 _INV_255 = np.float32(1.0) / np.float32(255.0)
+
+
+@contextlib.contextmanager
+def _locked(lock: threading.Lock, wait_span: str):
+    """Hold `lock`, the wait to acquire it recorded as `wait_span`."""
+    with profiling.span(wait_span):
+        lock.acquire()
+    try:
+        yield
+    finally:
+        lock.release()
 
 
 class BatchInfo:
@@ -231,6 +252,7 @@ class DataLoader:
             )
         print(f"Images are loaded in {time.time() - start:.2f}s by a pool of {pool_threads} threads.")
         self.pair_load_index = self.buffer_size
+        self.batch_number = 0  # fetches so far
 
         self._replacer_thread = None
         if self.run_replacer_thread and not self.deterministic:
@@ -296,8 +318,9 @@ class DataLoader:
             if self._shutdown.is_set():
                 return
             self._evict_stale_grid_slots()
-            self._load_and_copy_camera_frame_data(pair, self.pair_load_index % self.buffer_size, self.data_lock)
+            self._load_and_copy_camera_frame_data(pair, self.pair_load_index, self.data_lock)
             self.pair_load_index += 1
+            profiling.count("loader.images_replaced")
 
     def _evict_stale_grid_slots(self):
         if (
@@ -314,8 +337,9 @@ class DataLoader:
         """Deterministic-mode replacement: one entry, on the caller's thread."""
         pair = next(self.camera_frame_pairs)
         self._evict_stale_grid_slots()
-        self._load_and_copy_camera_frame_data(pair, self.pair_load_index % self.buffer_size, None)
+        self._load_and_copy_camera_frame_data(pair, self.pair_load_index, None)
         self.pair_load_index += 1
+        profiling.count("loader.images_replaced")
 
     def _queue_grid_slot(self, buffer_index: int, frame_number: int) -> int:
         """The frame's device slot when it has one, else queue its upload for
@@ -329,7 +353,7 @@ class DataLoader:
     def _resolve_pending_grids(self) -> None:
         """Consumer side, under `data_lock`: upload every queued grid of a
         live frame and patch the pool's slot column."""
-        with self.grid_lock:
+        with _locked(self.grid_lock, "loader.lock_wait"):
             if not self._pending_grid_entries:
                 return
             pending, self._pending_grid_entries = self._pending_grid_entries, []
@@ -353,6 +377,11 @@ class DataLoader:
         replacement per fetch (`deterministic`), both choose the same slot."""
         if frame_number in self.frame_to_grid_slot:
             return self.frame_to_grid_slot[frame_number]
+        with profiling.span("loader.grid_upload"):
+            profiling.count("loader.grid_uploads")
+            return self._upload_new_grid(frame_number)
+
+    def _upload_new_grid(self, frame_number: int) -> int:
         grid = self._device_copy(self.dataset.get_occupancy_grid(frame_number))
         live = set(self.entry_frame_numbers.tolist())
         held = {s for fn, s in self.frame_to_grid_slot.items() if fn in live}
@@ -374,8 +403,15 @@ class DataLoader:
         return slot
 
     def _load_and_copy_camera_frame_data(
-        self, camera_frame_pair: Tuple[int, int], buffer_index: int, data_lock: Optional[threading.Lock]
+        self, camera_frame_pair: Tuple[int, int], pair_index: int, data_lock: Optional[threading.Lock]
     ) -> None:
+        """Load the schedule's `pair_index`-th (camera, frame) pair into its
+        pool entry, committing under `data_lock` when one is given."""
+        with profiling.span("loader.load", pair_index):
+            self._load_pair(camera_frame_pair, pair_index % self.buffer_size, data_lock)
+
+    def _load_pair(self, camera_frame_pair: Tuple[int, int], buffer_index: int,
+                   data_lock: Optional[threading.Lock]) -> None:
         camera_number, frame_number = camera_frame_pair
         camera = self.cameras[camera_number]
         if self._shutdown.is_set():
@@ -383,24 +419,26 @@ class DataLoader:
 
         rgba = light_ok = None
         if self.mode != DataLoader.Mode.TEST:
-            rgb = self.dataset.get_rgb(camera_number, frame_number)[..., [2, 1, 0]]  # BGR → RGB
-            if self.use_mask:
-                mask = self.dataset.get_mask(camera_number, frame_number)
-                rgb = rgb * mask
-            else:
-                mask = np.ones_like(rgb[..., 0:1])
-            rgba = (np.concatenate((rgb, mask), axis=-1) * np.float32(255)).astype(np.uint8).reshape(-1, 4)
-            if self.light_annotations is not None:
-                light_ok = self._light_ok(mask[..., 0], self.light_annotations[camera_number])
+            with profiling.span("loader.decode"):
+                bgr = self.dataset.get_rgb(camera_number, frame_number)
+                mask = self.dataset.get_mask(camera_number, frame_number) if self.use_mask else None
+            with profiling.span("loader.prepare"):
+                rgb = bgr[..., [2, 1, 0]]  # BGR → RGB
+                if mask is not None:
+                    rgb = rgb * mask
+                else:
+                    mask = np.ones_like(rgb[..., 0:1])
+                rgba = (np.concatenate((rgb, mask), axis=-1) * np.float32(255)).astype(np.uint8).reshape(-1, 4)
+                if self.light_annotations is not None:
+                    light_ok = self._light_ok(mask[..., 0], self.light_annotations[camera_number])
 
         if self.run_replacer_thread and self.mode != DataLoader.Mode.TRAINING:
             self.empty_slots_sem.acquire()
         if self._shutdown.is_set():
             return
 
-        if data_lock is not None:
-            data_lock.acquire()
-        try:
+        held = _locked(data_lock, "loader.commit_wait") if data_lock is not None else contextlib.nullcontext()
+        with held, profiling.span("loader.commit"):
             grid_slot = 0
             if self.space_pruning_mode == DataLoader.SpacePruningMode.OCCUPANCY_GRID:
                 grid_slot = self._queue_grid_slot(buffer_index, frame_number)
@@ -414,9 +452,6 @@ class DataLoader:
             self.entry_camera_origins[buffer_index] = self.all_camera_origins[camera_number]
             self.entry_grid_slots[buffer_index] = grid_slot
             self._pool_version += 1
-        finally:
-            if data_lock is not None:
-                data_lock.release()
 
         if self.run_replacer_thread and self.mode != DataLoader.Mode.TRAINING:
             for _ in range(self.num_batches_per_full_image):
@@ -456,6 +491,7 @@ class DataLoader:
         once the copy has completed, so a later fetch never overwrites a
         buffer in flight. The staging copy is the snapshot."""
         src = torch.from_numpy(np.ascontiguousarray(array))
+        profiling.count("loader.staged_bytes", src.nbytes)
         if self.device.type != "cuda":
             return src.clone().to(self.device)
         staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True).copy_(src)
@@ -466,19 +502,21 @@ class DataLoader:
         under `data_lock`; copies, since the replacer rewrites the host arrays
         in place after the snapshot is handed out."""
         if self._pool_cache is None or self._pool_cache[0] != self._pool_version:
-            snapshot = PoolArrays(
-                *(
-                    self._device_copy(a)
-                    for a in (
-                        self.entry_inverse_krs,
-                        self.entry_camera_origins,
-                        self.entry_landscape,
-                        self.entry_frame_numbers,
-                        self.entry_camera_numbers,
-                        self.entry_grid_slots,
+            with profiling.span("loader.pool_snapshot"):
+                profiling.count("loader.pool_snapshots")
+                snapshot = PoolArrays(
+                    *(
+                        self._device_copy(a)
+                        for a in (
+                            self.entry_inverse_krs,
+                            self.entry_camera_origins,
+                            self.entry_landscape,
+                            self.entry_frame_numbers,
+                            self.entry_camera_numbers,
+                            self.entry_grid_slots,
+                        )
                     )
                 )
-            )
             self._pool_cache = (self._pool_version, snapshot)
         return self._pool_cache[1]
 
@@ -488,20 +526,28 @@ class DataLoader:
         if self.mode in (M.VALIDATION, M.TEST) and self.iternum >= len(self):
             self.pause_replacing()
             raise StopIteration
+        self.batch_number += 1
+        with profiling.span("loader.fetch", self.batch_number):
+            return self._fetch()
 
+    def _fetch(self):
+        M = DataLoader.Mode
         width, height = self.resolution
         R = self.batch_size
         if self.mode == M.TRAINING:
             # replacer_event doubles as the pause gate, so deterministic
             # replacement honours it too.
             if self.deterministic and self.run_replacer_thread and self.replacer_event.is_set():
-                self._replace_one_sync()
-            buffer_idx = self.rng.integers(0, self.buffer_size, size=R).astype(np.int32)
-            pixel_idx = self.rng.integers(0, self.num_pixels_per_camera, size=R).astype(np.int32)
-            with self.data_lock:
+                with profiling.span("loader.replace"):
+                    self._replace_one_sync()
+            with profiling.span("loader.draw"):
+                buffer_idx = self.rng.integers(0, self.buffer_size, size=R).astype(np.int32)
+                pixel_idx = self.rng.integers(0, self.num_pixels_per_camera, size=R).astype(np.int32)
+            with _locked(self.data_lock, "loader.lock_wait"):
                 self._resolve_pending_grids()
-                rgba = self.pixel_rgba[buffer_idx, pixel_idx].astype(np.float32) * _INV_255
-                light_ok = self._gather_light_ok(buffer_idx, pixel_idx)
+                with profiling.span("loader.gather"):
+                    rgba = self.pixel_rgba[buffer_idx, pixel_idx].astype(np.float32) * _INV_255
+                    light_ok = self._gather_light_ok(buffer_idx, pixel_idx)
                 pool = self.pool_arrays()
                 grids = self.device_grids
             info = BatchInfo(num_real=R, width=width, height=height)
@@ -516,18 +562,19 @@ class DataLoader:
 
             if self.run_replacer_thread:
                 self.available_slots_sem.acquire()
-            with self.data_lock:
+            with _locked(self.data_lock, "loader.lock_wait"):
                 self._resolve_pending_grids()
                 if not self.entry_landscape[buffer_index]:
                     width, height = height, width  # portrait image
-                pixel_idx = np.arange(ray_start, ray_end, dtype=np.int32)
-                pixel_idx = np.concatenate([pixel_idx, np.zeros(R - num_real, dtype=np.int32)])
-                buffer_idx = np.full(R, buffer_index, dtype=np.int32)
-                if self.mode == M.VALIDATION:
-                    rgba = self.pixel_rgba[buffer_idx, pixel_idx].astype(np.float32) / 255.0
-                else:
-                    rgba = np.zeros((R, 4), dtype=np.float32)
-                light_ok = self._gather_light_ok(buffer_idx, pixel_idx)
+                with profiling.span("loader.gather"):
+                    pixel_idx = np.arange(ray_start, ray_end, dtype=np.int32)
+                    pixel_idx = np.concatenate([pixel_idx, np.zeros(R - num_real, dtype=np.int32)])
+                    buffer_idx = np.full(R, buffer_index, dtype=np.int32)
+                    if self.mode == M.VALIDATION:
+                        rgba = self.pixel_rgba[buffer_idx, pixel_idx].astype(np.float32) / 255.0
+                    else:
+                        rgba = np.zeros((R, 4), dtype=np.float32)
+                    light_ok = self._gather_light_ok(buffer_idx, pixel_idx)
                 pool = self.pool_arrays()
                 grids = self.device_grids
             if self.run_replacer_thread and ray_end == self.num_pixels_per_camera:
@@ -535,7 +582,8 @@ class DataLoader:
             info = BatchInfo(num_real, width, height, camera_number, frame_number)
 
         self.iternum += num_real
-        batch = HostBatch(*(self._device_copy(a) for a in (buffer_idx, pixel_idx, rgba, light_ok)))
+        with profiling.span("loader.stage"):
+            batch = HostBatch(*(self._device_copy(a) for a in (buffer_idx, pixel_idx, rgba, light_ok)))
         return batch, pool, grids, info
 
     def _gather_light_ok(self, buffer_idx: np.ndarray, pixel_idx: np.ndarray) -> np.ndarray:

@@ -28,6 +28,14 @@ have no graphs.
 
 A graph reads the model's parameters where they were at capture: weights
 are loaded in place (`load_state_dict`), never rebound.
+
+The recorder (`utils/profiling.py`) sees each call as `graph.call`, id
+`(name, call number)`, with `graph.capture` (a signature's first call),
+`graph.copy_inputs` and `graph.replay`, and times each replay on the device
+with a CUDA event pair (`graph.device_ms`, same id). It counts
+`graph.captures`, `graph.input_copies`, `graph.input_copies_skipped` and
+`graph.input_bytes`. The spans stay outside the captured body: Python does
+not run on a replay.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from humanrf_torch.ops import field_interp as fli
+from humanrf_torch.utils import profiling
 
 
 class _Captured:
@@ -50,14 +59,21 @@ class _Captured:
         self.launches: Dict[str, int] = {}
 
     def copy_inputs(self, leaves) -> None:
+        copies = skipped = nbytes = 0
         for i, (leaf, buf) in enumerate(zip(leaves, self.static)):
             if buf is None:
                 continue
             seen = self.seen[i]
             if seen is not None and seen[0] is leaf and seen[1] == leaf._version:
+                skipped += 1
                 continue
             buf.copy_(leaf, non_blocking=True)
             self.seen[i] = (leaf, leaf._version)
+            copies += 1
+            nbytes += buf.nbytes
+        profiling.count("graph.input_copies", copies)
+        profiling.count("graph.input_copies_skipped", skipped)
+        profiling.count("graph.input_bytes", nbytes)
 
 
 class GraphedStep:
@@ -68,8 +84,15 @@ class GraphedStep:
         self.name = name
         self.body = body
         self._graphs: Dict[str, _Captured] = {}
+        self.calls = 0
 
     def __call__(self, *args, **kwargs):
+        self.calls += 1
+        call = (self.name, self.calls)
+        with profiling.span("graph.call", call):
+            return self._call(call, args, kwargs)
+
+    def _call(self, call, args, kwargs):
         leaves, spec = tree_flatten((args, kwargs))
         tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
         device = next((t.device for t in tensors if t.device.type == "cuda"), None)
@@ -79,11 +102,15 @@ class GraphedStep:
                            for t in leaves]))
         entry = self._graphs.get(key)
         if entry is None:
-            entry, out = self._warm_up_and_capture(leaves, spec, device)
+            with profiling.span("graph.capture"):
+                entry, out = self._warm_up_and_capture(leaves, spec, device)
+            profiling.count("graph.captures")
             self._graphs[key] = entry
             return out
-        entry.copy_inputs(leaves)
-        entry.graph.replay()
+        with profiling.span("graph.copy_inputs"):
+            entry.copy_inputs(leaves)
+        with profiling.span("graph.replay"), profiling.device_time("graph.device_ms", call, device):
+            entry.graph.replay()
         for direction, n in entry.launches.items():
             fli.launches[direction] += n
         return entry.out

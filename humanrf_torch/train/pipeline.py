@@ -41,6 +41,7 @@ from humanrf_torch.ops.resample import proposal_distillation_per_ray, sample_int
 from humanrf_torch.ops.sampling import SampleSet, generate_samples
 from humanrf_torch.train.graphs import GraphedStep
 from humanrf_torch.train.losses import bce_loss, huber_loss, masked_mean
+from humanrf_torch.utils import profiling
 from humanrf_torch.utils.rngs import split, uniform_per_id
 
 
@@ -382,10 +383,21 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
     overwrites. The first call of a batch shape is the eager body (the
     graph's warm-up); the graph replays from the second on. `graph=False`
     runs the eager body (the CPU always does).
+
+    Each step adds on the device to the recorder's counters
+    (`utils/profiling.py`): `sampler.candidate_rays_valid` (the valid
+    candidates), `sampler.rays_valid` (the valid rays in the `num_rays`
+    slots), `sampler.rays_overflowed` (valid rays left out of the loss, those
+    whose samples overflow a dense budget), `sampler.samples` and
+    `sampler.steps`.
     """
+    device = next(model.parameters()).device
+    counters = {name: profiling.device_counter(f"sampler.{name}", device)
+                for name in ("candidate_rays_valid", "rays_valid", "rays_overflowed", "samples", "steps")}
 
     def step(batch: HostBatch, pool: PoolArrays, grids, aabb, rng: torch.Tensor, ray_ids=None):
         rays = build_rays(cfg, batch, pool, grids, aabb, width, height)
+        counters["candidate_rays_valid"] += rays.valid.sum()
         if cfg.candidate_rays_factor > 1:
             if ray_ids is None:
                 ray_ids = torch.arange(cfg.num_rays * cfg.candidate_rays_factor, device=rays.origins.device)
@@ -399,6 +411,11 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
         )
         loss.backward()
         optimizer.step()
+        rays_valid = rays.valid.sum()
+        counters["rays_valid"] += rays_valid
+        counters["rays_overflowed"] += rays_valid - aux["num_rays_supervised"]
+        counters["samples"] += aux["num_samples"]
+        counters["steps"] += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     return GraphedStep("the train step", step) if graph else step

@@ -9,8 +9,10 @@ Counterpart of `humanrf_tpu/train/trainer.py`:
   loss/throughput bookkeeping every 20 and 500 steps, the replacer paused
   around saves and validation, TensorBoard events under `run/` with the
   JAX package's tags, a `torch.profiler` trace of steps 20–24 with
-  `--tpu.profile_dir`), `validate` (validation.txt and the validation
-  images), `test` (the test frames, or numbered frames and an ffmpeg video),
+  `--tpu.profile_dir`; the recorder's spans `train.key`, `train.fetch`,
+  `train.step`, `train.log` and `train.pause`, id the step), `validate`
+  (validation.txt and the validation images), `test` (the test frames, or
+  numbered frames and an ffmpeg video),
   and the rolling, best and resumed checkpoints in the JAX package's
   format;
 - `sample_batch`: a training batch drawn from a baked pool of images by an
@@ -59,6 +61,7 @@ from humanrf_torch.parallel.feed import Feed
 from humanrf_torch.parallel.mesh import make_sharded_train_step
 from humanrf_torch.train.checkpoint import CHECKPOINT_SUFFIX, load_checkpoint, resolve_checkpoint, save_checkpoint
 from humanrf_torch.train.pipeline import HostBatch, PipelineConfig, PoolArrays, make_render_fn, make_train_step
+from humanrf_torch.utils import profiling
 from humanrf_torch.utils.profiling import Trace
 from humanrf_torch.utils.rngs import make_key, split
 from humanrf_torch.utils.summary import SummaryWriter
@@ -385,15 +388,15 @@ class Trainer:
         save_every = self.config.training.save_checkpoint_every_n_steps
         validate_every = self.config.validation.every_n_steps
 
-        window_start = time.time()
+        window_start = time.perf_counter_ns()
         start_step = last_log = self.step
         start_pairs = training_data_loader.pair_load_index
         start_launches = dict(fli.launches)
         # Supervised rays (valid and budgeted, the ones the loss sees), summed
         # on the device between logs so that no step waits for the device.
         supervised_accum = torch.zeros((), dtype=torch.int64, device=aabb.device)
-        fetch_accum = 0.0  # host batch assembly (loader fetch under data_lock)
-        pause_accum = 0.0  # validation and checkpoint pauses
+        fetch_ns = 0  # host batch assembly: the `train.fetch` spans
+        pause_ns = 0  # validation and checkpoint pauses
         totals = {"steps": 0, "seconds": 0.0, "fetch_seconds": 0.0, "wall_seconds": 0.0, "supervised": 0}
         # --tpu.profile_dir: one trace per run, of the five steps from the
         # first step >= 20 (the JAX trainer's window at K = 1).
@@ -410,75 +413,78 @@ class Trainer:
                 elif tracer is not None and self.step >= trace_stop_at:
                     self._log_info(f"profiler trace written to {tracer.stop()}")
                     tracer, profile_dir = None, None
-            self.rng, step_rng = split(self.rng)
-            span = torch.profiler.record_function(f"train_step {self.step}") if tracer else contextlib.nullcontext()
-            with span:
-                t_fetch = time.perf_counter()
+            with profiling.span("train.key", self.step):
+                self.rng, step_rng = split(self.rng)
+            with profiling.span("train.fetch", self.step) as fetch:
                 batch, pool, grids, _ = next(loader_iter)
-                fetch_accum += time.perf_counter() - t_fetch
+            fetch_ns += fetch.duration_ns
+            with profiling.span("train.step", self.step):
                 loss, aux = self.train_step_fn(batch, pool, grids, aabb, step_rng)
-            supervised_accum += aux["num_rays_supervised"]
+                supervised_accum += aux["num_rays_supervised"]
             if first_loss is None:
                 first_loss = float(loss)
 
             if self.is_writer and (self.step % 20 == 0 or self.step <= 1):
-                step_loss = float(loss)
-                loss_ema = 0.95 * loss_ema + 0.05 * step_loss
-                elapsed = time.time() - window_start
-                train_elapsed = max(elapsed - pause_accum, 1e-9)
-                steps = self.step - last_log
-                supervised = int(supervised_accum)
-                self.writer.add_scalar("photometric/training", float(aux["photometric"]), self.step)
-                self.writer.add_scalar("psnr/training", -10 * np.log10(max(float(aux["mse"]), 1e-12)), self.step)
-                if "mask_loss" in aux:
-                    self.writer.add_scalar("mask_loss/training", float(aux["mask_loss"]), self.step)
-                if elapsed > 0:
-                    rays = self.pcfg.num_rays * steps
-                    self.writer.add_scalar("throughput/rays_per_sec", rays / train_elapsed, self.step)
-                    self.writer.add_scalar("throughput/rays_per_sec_wall", rays / elapsed, self.step)
-                    self.writer.add_scalar("throughput/supervised_rays_per_sec", supervised / train_elapsed, self.step)
-                    self.writer.add_scalar("throughput/steps_per_sec", steps / train_elapsed, self.step)
-                    self.writer.add_scalar("throughput/host_fetch_fraction", fetch_accum / elapsed, self.step)
-                if last_log >= 20:
-                    totals["steps"] += steps
-                    totals["seconds"] += train_elapsed
-                    totals["fetch_seconds"] += fetch_accum
-                    totals["wall_seconds"] += elapsed
-                    totals["supervised"] += supervised
-                if self.step % 500 == 0:
-                    self._log_info(
-                        f"step {self.step}: loss={step_loss:.5f} ema={loss_ema:.5f} "
-                        f"samples={int(aux['num_samples'])} "
-                        f"rays/s={self.pcfg.num_rays * steps / train_elapsed:.0f} "
-                        f"supervised_rays/s={supervised / train_elapsed:.0f}"
-                        f" [fetch {100 * fetch_accum / max(elapsed, 1e-9):.0f}% device+dispatch "
-                        f"{100 * (elapsed - pause_accum - fetch_accum) / max(elapsed, 1e-9):.0f}%"
-                        + (f" val/ckpt {pause_accum:.0f}s" if pause_accum > 0 else "")
-                        + f"] skipped_nonfinite={int(self.optimizer.skipped)}"
-                    )
-                    if int(self.optimizer.skipped) > 0:
-                        self.writer.add_scalar("stability/skipped_nonfinite_updates", int(self.optimizer.skipped),
+                with profiling.span("train.log", self.step):
+                    step_loss = float(loss)
+                    loss_ema = 0.95 * loss_ema + 0.05 * step_loss
+                    elapsed = (time.perf_counter_ns() - window_start) / 1e9
+                    train_elapsed = max(elapsed - pause_ns / 1e9, 1e-9)
+                    steps = self.step - last_log
+                    supervised = int(supervised_accum)
+                    self.writer.add_scalar("photometric/training", float(aux["photometric"]), self.step)
+                    self.writer.add_scalar("psnr/training", -10 * np.log10(max(float(aux["mse"]), 1e-12)), self.step)
+                    if "mask_loss" in aux:
+                        self.writer.add_scalar("mask_loss/training", float(aux["mask_loss"]), self.step)
+                    if elapsed > 0:
+                        rays = self.pcfg.num_rays * steps
+                        self.writer.add_scalar("throughput/rays_per_sec", rays / train_elapsed, self.step)
+                        self.writer.add_scalar("throughput/rays_per_sec_wall", rays / elapsed, self.step)
+                        self.writer.add_scalar("throughput/supervised_rays_per_sec", supervised / train_elapsed,
                                                self.step)
-                supervised_accum.zero_()
-                window_start = time.time()
-                last_log = self.step
-                fetch_accum = 0.0
-                pause_accum = 0.0
+                        self.writer.add_scalar("throughput/steps_per_sec", steps / train_elapsed, self.step)
+                        self.writer.add_scalar("throughput/host_fetch_fraction", fetch_ns / 1e9 / elapsed, self.step)
+                    if last_log >= 20:
+                        totals["steps"] += steps
+                        totals["seconds"] += train_elapsed
+                        totals["fetch_seconds"] += fetch_ns / 1e9
+                        totals["wall_seconds"] += elapsed
+                        totals["supervised"] += supervised
+                    if self.step % 500 == 0:
+                        self._log_info(
+                            f"step {self.step}: loss={step_loss:.5f} ema={loss_ema:.5f} "
+                            f"samples={int(aux['num_samples'])} "
+                            f"rays/s={self.pcfg.num_rays * steps / train_elapsed:.0f} "
+                            f"supervised_rays/s={supervised / train_elapsed:.0f}"
+                            f" [fetch {100 * fetch_ns / 1e9 / max(elapsed, 1e-9):.0f}% device+dispatch "
+                            f"{100 * (elapsed - (pause_ns + fetch_ns) / 1e9) / max(elapsed, 1e-9):.0f}%"
+                            + (f" val/ckpt {pause_ns / 1e9:.0f}s" if pause_ns > 0 else "")
+                            + f"] skipped_nonfinite={int(self.optimizer.skipped)}"
+                        )
+                        if int(self.optimizer.skipped) > 0:
+                            self.writer.add_scalar("stability/skipped_nonfinite_updates", int(self.optimizer.skipped),
+                                                   self.step)
+                    supervised_accum.zero_()
+                    window_start = time.perf_counter_ns()
+                    last_log = self.step
+                    fetch_ns = 0
+                    pause_ns = 0
 
             if self.step % save_every == 0 or self.step % validate_every == 0:
-                t_pause = time.perf_counter()
-                training_data_loader.pause_replacing()
-                with self._full_state():
-                    if self.is_writer:
-                        if self.step % save_every == 0:
-                            self.save(best=False)
-                        if self.step % validate_every == 0:
-                            self.validate(validation_data_loader)
-                            self.save(best=True)
-                if self.group is not None:
-                    dist.barrier(self.group)
-                training_data_loader.continue_replacing()
-                pause_accum += time.perf_counter() - t_pause
+                t_pause = time.perf_counter_ns()
+                with profiling.span("train.pause", self.step):
+                    training_data_loader.pause_replacing()
+                    with self._full_state():
+                        if self.is_writer:
+                            if self.step % save_every == 0:
+                                self.save(best=False)
+                            if self.step % validate_every == 0:
+                                self.validate(validation_data_loader)
+                                self.save(best=True)
+                    if self.group is not None:
+                        dist.barrier(self.group)
+                    training_data_loader.continue_replacing()
+                pause_ns += time.perf_counter_ns() - t_pause
 
         if tracer is not None:
             self._log_info(f"profiler trace written to {tracer.stop()}")

@@ -1,21 +1,21 @@
 """The port's profiler (humanrf_torch/utils/profiling.py) and the trainer's
 `--tpu.profile_dir` window.
 
-- `trace` writes one Chrome-trace JSON holding what ran inside it;
-- `RateMeter` counts items over its window;
+- `Trace` writes one Chrome-trace JSON holding what ran inside it, and its
+  idle gaps beside it;
 - a 26-step CLI run with `--tpu.profile_dir` writes exactly one trace, and
-  its `train_step` spans are those of steps 20–24: the JAX trainer's window
+  its `train.step` spans are those of steps 20–24: the JAX trainer's window
   (start at the first step >= 20, stop five steps later) at one step per
-  dispatch.
+  dispatch. The recorder's spans of the run say which steps the trace holds.
 """
 import json
-import time
 
 import torch
 
 from humanrf_torch.core.synthetic import SyntheticSceneConfig, generate_synthetic_dataset
 from humanrf_torch.run import main as t_main
-from humanrf_torch.utils.profiling import RateMeter, trace
+from humanrf_torch.utils import profiling
+from humanrf_torch.utils.profiling import Trace
 
 torch.set_num_threads(2)
 
@@ -25,28 +25,20 @@ def _events(path):
 
 
 def test_trace_writes_one_chrome_trace_of_its_body(tmp_path):
-    with trace(tmp_path / "prof"):
-        with torch.profiler.record_function("inside"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    with trace(tmp_path / "off", enabled=False):
-        torch.ones(3).sum()
-    (path,) = (tmp_path / "prof").iterdir()
-    assert path.name.endswith(".pt.trace.json") and not (tmp_path / "off").exists()
+    tracer = Trace(tmp_path / "prof", cuda=False)
+    tracer.start()
+    with profiling.span("inside"):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    path = tracer.stop()
+    gaps = path.with_name(path.name.replace(".pt.trace.json", ".gaps.json"))
+    assert sorted((tmp_path / "prof").iterdir()) == sorted([path, gaps])
+    assert path.name.endswith(".pt.trace.json") and json.loads(gaps.read_text()) == {"idle_gaps": []}  # no device
     names = {e.get("name") for e in _events(path)}
     assert "inside" in names and any("mm" in str(n) for n in names)
 
 
-def test_rate_meter_counts_items_over_its_window():
-    meter = RateMeter()
-    meter.tick(500)
-    meter.tick(500)
-    time.sleep(0.05)
-    rate = meter.window()
-    assert 0 < rate <= 1000 / 0.05
-    assert meter._items == 0
-
-
-def test_cli_traces_steps_20_to_24_once(tmp_path, capsys):
+def test_cli_traces_steps_20_to_24_once(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     generate_synthetic_dataset(tmp_path, SyntheticSceneConfig(num_cameras=6, width=40, height=40, num_frames=2,
                                                               grid_resolution=32))
     profile_dir = tmp_path / "profile"
@@ -61,7 +53,9 @@ def test_cli_traces_steps_20_to_24_once(tmp_path, capsys):
         "--tpu.profile_dir", str(profile_dir),
     ])
     assert result["train"]["end_step"] == 27
-    (path,) = profile_dir.iterdir()
-    steps = sorted(int(e["name"].split()[1]) for e in _events(path) if str(e.get("name")).startswith("train_step "))
-    assert steps == [20, 21, 22, 23, 24]
+    (path,) = profile_dir.glob("*.pt.trace.json")
+    assert sum(e.get("name") == "train.step" for e in _events(path)) == 5
+    steps = profiling.snapshot()["spans"]["train.step"]
+    assert [s.id for s in steps] == list(range(1, 28))
+    assert [s.id for s in steps if s.annotated] == [20, 21, 22, 23, 24]
     assert capsys.readouterr().out.count("profiler trace written to") == 1
