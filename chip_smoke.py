@@ -54,21 +54,18 @@ Phases, each of which raises on failure:
    memory and spills from `-Xptxas -v`);
 3. kernels: each (idx, w) kernel against its plain version at KERNEL_SHAPES,
    with its time, bound and the time of `F.embedding_bag`, the one PyTorch
-   call that computes the same function; each `field_interp` kernel against
-   its plain version at the r4 grid, the r4 vectors and a reference-capacity
-   grid (T = 2^19, dense and hashed levels), at uniform random positions and
-   at real ones (the samples that the step-0 field query of phase 5's first
-   batch serves), with its time beside its plain version's, the old path's
-   (eager corner math plus the (idx, w) kernel, timed in turns) and its
-   bound; and at the r4 shapes, each kernel with its skip inputs (the
-   segment id, the valid count) over that query's whole buffer against its
-   plain version with the same inputs (the call the main path makes, and
-   the kernel table's time), timed beside the same kernel on the served
-   samples alone. Bars: max|err| / max|ref| < 1e-5 (the forward is
-   also reported bit for bit);
-4. the render through its graphs: kernel launches counted over it (2
-   `field_interp` forward per batch and segment: every batch queries both
-   segments, no backward, no `fused_interp`), kernel render vs plain render
+   call that computes the same function; then the field query's kernels
+   (`query_checks`) at the render pass's query of phase 5's step 0 (the
+   model's two segments over the whole buffer, with its skip inputs, one
+   launch each way as the main path makes them): the forward bit for bit
+   against the per-pair kernels followed by PyTorch's segment sum and
+   composition, and within KERNEL_TOL of the scale of the plain version;
+   the backward's every table and vector within KERNEL_TOL of its scale
+   against the plain version summed in fp64; each timed beside both, with
+   its bound;
+4. the render through its graphs: kernel launches counted over it (one
+   field query forward per batch, over both segments; no backward, no
+   `fused_interp`), kernel render vs plain render
    (PSNR ≥ 50 dB), ROI-PSNR against the ground truth within 0.5 dB of the
    JAX package's banked render of the same view, warm renders of the plain
    and the old path once and of the eager render and the graphs in turns
@@ -81,7 +78,7 @@ Phases, each of which raises on failure:
    its warm-up, the eager body) against the eager body from the same state,
    batch and key (loss bit-equal, gradient cosine ≥ GRAPH_GRAD_COSINE per
    parameter); TRAIN_STEPS graph steps with launches
-   counted (2 forward + 2 backward per segment per step, no
+   counted (one field query forward and backward per step, no
    `fused_interp`), finite losses, no skipped update and falling mse; ms
    per step beside the eager step's before the graphs, supervised rays/s,
    peak memory and
@@ -116,13 +113,13 @@ Phases, each of which raises on failure:
    plain, eager and graph renders, ms per batch, the sampler's counts per
    view and the ROI-PSNR beside phase 4's;
    (b) the dense step (DENSE_STEP_CONFIG) on a fresh model with the paper's
-   field, fed from phase 5's pool: each field_interp kernel against its
-   plain version at the samples that step 0's render-pass and prune-pass
-   queries serve and, with the skip inputs, over the budgets' whole
-   buffers (bars as phase 3's; time, bound and share of it), a step-0
+   field, fed from phase 5's pool: the field query's kernels at step 0's
+   render-pass and prune-pass queries over the budgets' whole buffers
+   (`query_checks`, the prune pass's forward only), a step-0
    kernel-vs-plain A/B (loss within 1e-5, gradient cosine ≥ 0.9999), the
    sync check and graph-vs-eager first replay as phase 5's, DENSE_STEPS timed
-   graph steps (8 forward + 4 backward launches each)
+   graph steps (2 forward + 1 backward launches each: the prune and render
+   passes' field queries, the render pass's backward)
    (ms per step, rays/s, supervised rays/s, launches, peak memory, one
    profiled step's busy share; no skipped update; mse falling to ≤ ½), and
    the sampler's counts over DENSE_STATS_STEPS more batches;
@@ -240,33 +237,31 @@ Phases, each of which raises on failure:
    (c) `multiseg` at MULTISEG_SIZE², 100 frames, MULTISEG_STEPS steps and
    one validation: segments [25, 25, 25, 25], finite losses, the mean of the
    last 10 below that of the first 10, the checkpoint reloaded into a fresh
-   model; ms and launches per step beside phase 6's two-segment step;
+   model, the field query's kernels at step 0's render query over the four
+   segments (`query_checks`); ms and launches per step beside phase 6's
+   two-segment step;
    (d) `quality_at_capacity`'s gather-ref-capacity arm (T = 2^22) at
    CAPACITY_SIZE², CAPACITY_FRAMES frames, CAPACITY_STEPS steps without
-   validation or saves: each field_interp kernel at step 0's render query
-   against its plain version (phase 3's bars), a finite step-0 loss, no
-   skipped update; peak memory and ms per step;
+   validation or saves: the field query's kernels at step 0's render query
+   (`query_checks`), a finite step-0 loss, no skipped update; peak memory
+   and ms per step;
    (e) `throughput_probe`, THROUGHPUT_STEPS steps resumed from the banked
    step_00050000.ckpt: ms per step and rays/s.
 
-The last three lines of output are the kernel table as JSON (the six
-kernels: `field_interp` forward and backward, with `launches` counted over
-phase 11, each phase's counts beside them, their phase-3 times at the r4
-shapes, their phase-7(b) times at the dense ones under "dense" and their
-11(d) times at T = 2^22 under "ref_capacity"; the phase-3 and 7(b) times
-are the calls with the skip inputs over the whole buffer, as the main path
-makes them, with the served samples alone under "served_only"; the
-earlier `fused_interp` design, launched by phase 3 only; `mesh_project`,
-`mesh_bin` and `mesh_raster`, with `launches` counted over 10(b), their
-times per view at 10(b)'s frames, 10(d)'s under "rig_ms" and 10(e)'s under
-"rig_12mp_ms"), the card's name and power limit from nvidia-smi, and
-`{"ok": true, "device": {...}}`.
-Usage: python3 chip_smoke.py [--mesh-only | --kernel-ab OTHER_FIELD_INTERP_CU]
+The last three lines of output are the kernel table as JSON (the field
+query's kernels, `field_query_fwd` and `field_query_bwd`, with `launches`
+counted over phase 11 and each phase's counts beside them, their phase-3
+rows at the r4 query, their phase-7(b) rows at the dense queries under
+"dense", 11(c)'s under "multiseg" and 11(d)'s at T = 2^22 under
+"ref_capacity"; the earlier `fused_interp` design, launched by phase 3
+only; `mesh_project`, `mesh_bin` and `mesh_raster`, with `launches` counted
+over 10(b), their times per view at 10(b)'s frames, 10(d)'s under
+"rig_ms" and 10(e)'s under "rig_12mp_ms"), the card's name and power limit
+from nvidia-smi, and `{"ok": true, "device": {...}}`.
+Usage: python3 chip_smoke.py [--mesh-only]
 (--mesh-only: phases 1, 2 and 10 alone, on a freshly written r4 scene; the
-kernel table then holds the mesh kernels only. --kernel-ab: phases 1 and 2,
-then `kernel_ab`, this tree's field_interp kernels without skip inputs
-against another build of them; the kernel table is then empty. The script
-runs itself with --breakdown INPUTS for `device_breakdown`'s fresh process)
+kernel table then holds the mesh kernels only. The script runs itself with
+--breakdown INPUTS for `device_breakdown`'s fresh process)
 """
 from __future__ import annotations
 
@@ -279,7 +274,6 @@ import os
 os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 import contextlib
-import ctypes
 import dataclasses
 import json
 import re
@@ -307,12 +301,10 @@ from humanrf_torch.core.camera import write_calibration_csv
 from humanrf_torch.core.synthetic import GENERATOR_VERSION, make_cameras, render_cameras, subject_mesh
 from humanrf_torch.evaluation.metrics import LpipsModel
 from humanrf_torch.models import fused_field
-from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops import rasterize as raster
-from humanrf_torch.ops import cuda_build
 from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.parallel import harness
 from humanrf_torch.parallel.launch import launch
@@ -338,6 +330,9 @@ from humanrf_torch.view_inputs import load_dense_inputs, load_train_inputs, load
 REPO = Path(__file__).resolve().parent
 RUN_DIR = REPO / "runs_evidence" / "r4_full_schedule_748"
 
+# The field query's launch counts (`fli.launches` also counts the per-pair
+# kernels, under "pair_fwd"/"pair_bwd").
+QUERY_LAUNCHES = ("fwd", "bwd")
 KERNEL_TOL = 1e-5          # scaled max error, kernel vs plain (both fp32; see check_kernels)
 RENDER_PSNR_MIN = 50.0     # dB, kernel render vs plain render
 ROI_PSNR_SLACK = 0.5       # dB below the banked JAX render's ROI-PSNR
@@ -350,9 +345,6 @@ KERNEL_SHAPES = (
     ("vectors", 4, 2, 32, 2048, 262_144),
     ("capacity", 64, 8, 2, 1 << 19, 65_536),
 )
-# Sample counts of the random positions for the field_interp checks: one
-# field query of a 16,384-ray batch × 16 samples, and fewer at T = 2^19.
-FIELD_RANDOM_N = {"grids": 262_144, "vectors": 262_144, "capacity": 65_536}
 
 # The least time of a call (H100 SXM peak rates): each input
 # read once and each output written once over the HBM rate, or its fp32 and
@@ -613,20 +605,6 @@ def summarize(rows) -> dict:
     return record
 
 
-def field_shapes(view) -> list:
-    """(name, spec, P, F, T) of the field_interp checks: the r4 segment's
-    grids and vectors (segment 0 of the model), and a reference-capacity
-    grid (L16/F2, T = 2^19, base 32, finest 2048; levels 0-3 dense)."""
-    seg = segment_grid_config(view.model_config, view.model_config.segment_sizes[0])
-    grid, capacity = seg.grid, HashGridConfig()
-    return [
-        ("grids", fli.grid_spec(grid), 4 * grid.n_levels, grid.n_features_per_level, grid.table_size),
-        ("vectors", fli.VECTOR_SPEC, 4, grid.feature_dim, seg.vectors_finest_resolution),
-        ("capacity", fli.grid_spec(capacity), 4 * capacity.n_levels, capacity.n_features_per_level,
-         capacity.table_size),
-    ]
-
-
 def fresh_model(device, view, **overrides):
     """Phase 5's fresh model: initialised on the CPU from seed 0, the same
     start on any machine; `overrides` replace fields of its configuration."""
@@ -639,30 +617,48 @@ def train_config(view):
     return dataclasses.replace(view.pipeline_config, **TRAIN_CONFIG)
 
 
+def query_of(fields, xyzt, n_valid, seg) -> dict:
+    """A field query as the field's kernels get it → {"fields" (the model's
+    segments), "xyzt" (N, 4) over the whole buffer, its skip inputs
+    "n_valid" and "seg"}, the inputs copied."""
+    return {"fields": fields, "xyzt": xyzt.detach().clone().contiguous(),
+            "n_valid": None if n_valid is None else n_valid.clone(), "seg": None if seg is None else seg.clone()}
+
+
 def capture_queries(step, batch, pool, key) -> dict:
-    """The grid-mode field query of each pass of one eager training step,
-    as the field's kernels get it: "render" (with autograd) and, under dense
-    sampling, "prune" (without); of each, the call of the segment that
-    serves the most samples → {pass: {"xyzt" (N, 4) over the whole buffer,
-    its skip inputs "n_valid", "seg" and "s", and "served", the (M, 4)
-    coordinates of the samples it serves: the query as it was before the
-    static budgets, which phases 3 and 7(b) time}}."""
-    captured = {"prune": [], "render": []}
-    field = fused_field.field_interp
+    """The field query of each pass of one eager training step (`query_of`):
+    "render" (with autograd) and, under dense sampling, "prune" (without)
+    → {pass: query}, which phases 3 and 7(b) check."""
+    captured = {}
+    query_fn = fused_field.field_query
 
-    def capture(tables, xyzt, spec, n_valid=None, seg=None, s=0):
-        if spec.mode == fli.MODE_GRID:
-            query = {"xyzt": xyzt.detach().clone().contiguous(), "s": s,
-                     "n_valid": None if n_valid is None else n_valid.clone(),
-                     "seg": None if seg is None else seg.clone()}
-            live = fli.served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
-            query["served"] = query["xyzt"] if live is None else query["xyzt"][live].contiguous()
-            captured["render" if torch.is_grad_enabled() else "prune"].append(query)
-        return field(tables, xyzt, spec, n_valid, seg, s)
+    def capture(fields, xyzt, n_valid=None, seg=None):
+        captured["render" if torch.is_grad_enabled() else "prune"] = query_of(fields, xyzt, n_valid, seg)
+        return query_fn(fields, xyzt, n_valid, seg)
 
-    with mock.patch.object(fused_field, "field_interp", capture):
+    with mock.patch.object(fused_field, "field_query", capture):
         step(batch, pool.pool, pool.grids, pool.aabb, key)
-    return {k: max(v, key=lambda q: q["served"].shape[0]) for k, v in captured.items() if v}
+    return captured
+
+
+def served_count(query: dict) -> int:
+    """The samples a query serves: those below its valid count whose
+    segment id names one of its segments."""
+    xyzt, n_valid, seg = query["xyzt"], query["n_valid"], query["seg"]
+    live = xyzt.shape[0] if n_valid is None else min(xyzt.shape[0], int(n_valid))
+    return live if seg is None else int(((seg[:live] >= 0) & (seg[:live] < len(query["fields"]))).sum())
+
+
+@contextlib.contextmanager
+def field_swap(pair):
+    """The field query as it was before its kernels, `field_query_plain`
+    (per-pair lookups, then PyTorch's segment sum and composition), with
+    `pair` in place of the per-pair `field_interp`: `fli.PlainFieldInterp.
+    apply` or `fli.field_interp_plain` for the plain versions, `old_path`
+    for the (idx, w) kernels."""
+    with mock.patch.object(fused_field, "field_query", fli.field_query_plain), \
+            mock.patch.object(fli, "field_interp", pair):
+        yield
 
 
 def capture_real_query(device, view, pool) -> dict:
@@ -683,148 +679,107 @@ def old_path(tables, xyzt, spec, n_valid=None, seg=None, s=0):
     return out if live is None else torch.where(live, out, 0.0)
 
 
-def skip_checks(name: str, positions: str, spec, P: int, F_: int, T: int, query: dict, tables, g=None) -> dict:
-    """The kernels with their skip inputs at a real query over its whole
-    buffer (`query`, from `capture_queries`): the call the main path makes.
-    Each against its plain version with the same inputs (phase 3's bars and
-    references; the forward is also reported bit for bit) → {direction:
-    row}. A row's "ms" and "plain_ms" are the calls with the skip inputs;
-    "served_ms" the same kernel on the served samples alone and without
-    them, the call before the static budgets. The bound counts what the
-    launch needs: the served samples' coordinates, cotangents (backward)
-    and corner math, the segment ids of the slots below the valid count, the
-    tables (or dtab) once, and the forward's whole output (a skipped slot
-    writes its 0). Without `g` (a pass with no backward) only the forward."""
-    xyzt, skip = query["xyzt"], (query["n_valid"], query["seg"], query["s"])
-    served = query["served"]
-    N, M = xyzt.shape[0], served.shape[0]
-    C = 8 if spec.mode == fli.MODE_GRID else 2
-    live = N if query["n_valid"] is None else min(N, int(query["n_valid"]))
-    read = 16 * M + (0 if query["n_valid"] is None else 4) + (0 if query["seg"] is None else 4 * live)
-    ops = P * M * (CORNER_OPS[C] + 2 * C * F_)
-    dims = {"shape": name, "positions": positions, "P": P, "C": C, "F": F_, "T": T, "N": N, "served": M}
-    rows = {"fwd": field_check("fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec, *skip),
-                               lambda: fli.field_interp_plain(tables, xyzt, spec, *skip),
-                               lambda: fli.field_interp_plain(tables, xyzt, spec, *skip),
-                               work=(read + 4 * P * F_ * T + 4 * P * F_ * N, ops))}
-    rows["fwd"]["served_ms"] = time_ms(lambda: fli._launch_fwd(tables, served, spec), iters=10)
-    if g is not None:
-        g_served = g[..., :M].contiguous()
-        rows["bwd"] = field_check("bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T, *skip),
-                                  lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T, *skip),
-                                  lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T, *skip),
-                                  work=(read + 4 * P * F_ * T + 4 * P * F_ * M, ops))
-        rows["bwd"]["served_ms"] = time_ms(lambda: fli._launch_bwd(g_served, served, spec, T), iters=10)
-    for direction, row in rows.items():
-        log(f"kernel field_interp_{direction} {name} ({positions}: n_valid {query['n_valid'] is not None}, "
-            f"seg {query['seg'] is not None}) over {N} slots serving {M}: {row['ms']:.4f} ms; "
-            f"the same kernel on the {M} served samples without them {row['served_ms']:.4f} ms")
-    return rows
+def touched_bytes(fields, xyzt, n_valid, seg) -> int:
+    """The bytes of the table rows that a query's served samples touch, each
+    (table, row) once: per segment its samples' grid corners inside the
+    tables (F floats a row) and vector taps (L·F floats a row)."""
+    total = 0
+    for s, field in enumerate(fields):
+        live = fli.served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
+        pts = xyzt if live is None else xyzt[live]
+        for spec, (P, F_, T) in ((field.spec, (4 * field.spec.n_levels, *field.grids[0].shape[-2:])),
+                                 (fli.VECTOR_SPEC, tuple(field.vectors.shape))):
+            idx = fli.corner_idx_w(pts, spec, T)[0].long()
+            rows = (idx + torch.arange(P, device=idx.device)[:, None, None] * T)[idx < T]
+            total += 4 * F_ * int(torch.unique(rows).numel())
+            del idx, rows
+    return total
 
 
-def field_check(direction: str, dims: dict, kernel, plain, reference, old=None, table_entries=None,
-                work=None) -> dict:
-    """One field_interp kernel call against `reference` (its plain version,
-    the backward's summed in fp64) at `dims` (shape, positions, P, C, F, T,
-    N); raises past KERNEL_TOL. Its time beside its plain version's (`plain`,
-    None: not timed), the old path's when given (in turns: old, new, new,
-    old) and its bound → the row.
-    The bound reads `table_entries` table rows (default all P·T): a forward
-    whose samples touch far fewer rows than the tables hold needs only those.
-    `work` = (bytes, operations) replaces the bound's count of every sample
-    (a call with skip inputs needs only its served samples')."""
-    out, ref = kernel(), reference()
+def query_checks(label: str, query: dict, backward: bool) -> dict:
+    """The field query's kernels at a real query (`query`, from `query_of`:
+    the model's own segments over the whole buffer with its skip inputs),
+    one launch each way as the main path makes them → {direction: row}.
+    The forward against `field_query_plain` on the card (the per-pair
+    kernels, then PyTorch's segment sum and composition: the path it
+    replaces) bit for bit, and against the plain version (the same with
+    `PlainFieldInterp`, plain PyTorch throughout) within KERNEL_TOL of its
+    scale; the backward against the plain version summed in fp64, every
+    table and vector within KERNEL_TOL of its scale; else it raises. Each is
+    timed beside the path it replaces ("present_ms"; the backward's as its
+    autograd (forward + backward) − forward) and the plain version
+    ("plain_ms"), with its bound: the served samples' coordinates and
+    corner math, the segment ids below the valid count, the features
+    written over the whole buffer, the table rows the samples touch read
+    once (`touched_bytes`); the backward reads the served cotangents,
+    zeroes every table's gradient (the launch allocates them) and writes
+    the touched rows once."""
+    fields = [fli.SegmentField(tuple(t.detach() for t in f.grids), f.vectors.detach(), f.spec)
+              for f in query["fields"]]
+    xyzt, n_valid, seg = query["xyzt"], query["n_valid"], query["seg"]
+    N, L, F_ = xyzt.shape[0], fields[0].spec.n_levels, fields[0].grids[0].shape[1]
+    live, M = N if n_valid is None else min(N, int(n_valid)), served_count(query)
+    table_bytes = 4 * sum(t.numel() for t in fli._flat(fields))
+    touched = touched_bytes(fields, xyzt, n_valid, seg)
+    read = 16 * M + (0 if n_valid is None else 4) + (0 if seg is None else 4 * live)
+    ops = M * L * 4 * (CORNER_OPS[8] + CORNER_OPS[2] + 2 * 8 * F_ + 2 * 2 * F_ + 2 * F_)
+    dims = {"shape": "query", "positions": label, "segments": len(fields), "L": L, "F": F_,
+            "T": [int(f.grids[0].shape[2]) for f in fields], "N": N, "served": M}
+
+    def plain_query():
+        with mock.patch.object(fli, "field_interp", fli.PlainFieldInterp.apply):
+            return fli.field_query_plain(fields, xyzt, n_valid, seg)
+
+    out, ref = fli._launch_query_fwd(fields, xyzt, n_valid, seg), fli.field_query_plain(fields, xyzt, n_valid, seg)
+    plain = plain_query()
     torch.cuda.synchronize()
-    err = float((out.double() - ref).abs().max())
-    scaled = err / float(ref.abs().max())
-    exact = bool(torch.equal(out, ref)) if direction == "fwd" else False
-    P, C, F_, T, N = (dims[k] for k in ("P", "C", "F", "T", "N"))
-    where = f"{dims['shape']} ({dims['positions']} positions) P={P} F={F_} T={T} N={N}"
+    scaled = float((out.double() - plain.double()).abs().max() / plain.abs().max())
+    rows = {"fwd": dict(dims, max_abs_err=float((out - ref).abs().max()), bit_exact=bool(torch.equal(out, ref)),
+                        plain_scaled_err=scaled, plain_bit_exact=bool(torch.equal(out, plain)))}
+    if not rows["fwd"]["bit_exact"]:
+        raise AssertionError(f"field_query_fwd at {label} differs from the per-pair kernels' composition by "
+                             f"{rows['fwd']['max_abs_err']:.3e}")
     if not scaled < KERNEL_TOL:
-        raise AssertionError(f"field_interp_{direction} kernel disagrees at {where}: scaled err {scaled:.3e}")
-    plain_ms = None if plain is None else time_ms(plain, iters=5)
-    turns = {"old": [], "new": []}
-    for which in ("old", "new", "new", "old") if old is not None else ("new",):
-        turns[which].append(time_ms(kernel if which == "new" else old, iters=10))
-    ms = float(np.mean(turns["new"]))
-    # xyzt 16 B per sample, tables or g in, out or dtab out.
-    rows = P * T if table_entries is None else table_entries
-    if work is None:
-        work = (16 * N + 4 * F_ * rows + 4 * P * F_ * N, P * N * (CORNER_OPS[C] + 2 * C * F_))
-    bound_ms, bound_by = bound(*work)
-    log(f"kernel field_interp_{direction} {where}: max|err| {err:.3e} (scaled {scaled:.3e}"
-        f"{f', bit-exact {exact}' if direction == 'fwd' else ' against the fp64 sum'}), kernel "
-        f"{', '.join(f'{t:.4f}' for t in turns['new'])} ms"
-        + (f", old path {', '.join(f'{t:.4f}' for t in turns['old'])} ms" if old is not None else "")
-        + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
-        + f", bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
-    row = {**dims, "max_abs_err": err, "bit_exact": exact, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    if old is not None:
-        row["old_path_ms"] = float(np.mean(turns["old"]))
-    return row
-
-
-def check_field_kernels(device, view, real_query) -> dict:
-    """Each field_interp kernel against its plain version at field_shapes,
-    at uniform random and at real positions; its time beside its plain
-    version's, the old path's (taken in turns: old, new, new, old) and its
-    bound. The forward sums as its plain version does, without fma, and its
-    bit-equality is reported. The backward is held to its plain version
-    summed in fp64 (the same fp32 corner weights and cotangents): at real
-    positions an entry sums up to ~10^5 terms (a segment's samples share one
-    time, so the time vector's two taps take every sample), and an fp32 sum
-    of n terms in sequence, as the plain scatter_add on the card makes it,
-    moves by ~eps·√n ≈ 2e-5 of its size, more than the bar; the kernel's
-    sums are hierarchical (runs, blocks, then the table) and stay within it.
-    "Real" positions are the samples phase 5's query serves; at the r4
-    shapes the kernels are also held with their skip inputs over the
-    query's whole buffer (`skip_checks`)."""
-    rng = np.random.default_rng(0)
-    positions = {
-        "random": {name: torch.tensor(rng.uniform(0, 1, (n, 4)).astype(np.float32), device=device)
-                   for name, n in FIELD_RANDOM_N.items()},
-        "real": real_query["served"],
-    }
-    per_shape = {"fwd": [], "bwd": []}
-    skip_rows = {"fwd": [], "bwd": []}
-    for name, spec, P, F_, T in field_shapes(view):
-        C = 8 if spec.mode == fli.MODE_GRID else 2
-        tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
-        for where in ("random", "real"):
-            xyzt = positions[where][name] if where == "random" else positions[where]
-            N = xyzt.shape[0]
-            g = torch.tensor(rng.normal(size=(P, F_, N)).astype(np.float32), device=device)
-            dims = {"shape": name, "positions": where, "P": P, "C": C, "F": F_, "T": T, "N": N}
-            per_shape["fwd"].append(field_check(
-                "fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
-                lambda: fli.field_interp_plain(tables, xyzt, spec),
-                old=lambda: fi._launch_fwd(tables, *fli.corner_idx_w(xyzt, spec, T))))
-            per_shape["bwd"].append(field_check(
-                "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T), lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
-                lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T),
-                old=lambda: fi._launch_bwd(g, *fli.corner_idx_w(xyzt, spec, T), T)))
-        if name != "capacity":
-            g_full = torch.tensor(rng.normal(size=(P, F_, real_query["xyzt"].shape[0])).astype(np.float32), device=device)
-            for direction, row in skip_checks(name, "real, skip inputs", spec, P, F_, T, real_query, tables,
-                                              g_full).items():
-                skip_rows[direction].append(row)
-    return {d: headline(rows, skip_rows[d], "real") for d, rows in per_shape.items()}
-
-
-def headline(rows: list, skip_rows: list, positions: str) -> dict:
-    """A kernel's record at one field query (grids + vectors): its times and
-    bound are the calls with the skip inputs over the whole buffer, as the
-    main path makes them; the same kernel on the served samples alone (the
-    call before the static budgets, with the old path's time where it was
-    taken) is under "served_only"."""
-    record = summarize(skip_rows)
-    record["max_abs_err"] = max(r["max_abs_err"] for r in rows + skip_rows)
-    served_only = summarize([r for r in rows if r["positions"] == positions])
-    record["served_only"] = {k: v for k, v in served_only.items() if k != "per_shape"}
-    record["per_shape"] = rows
-    record["skip_inputs"] = skip_rows
-    return record
+        raise AssertionError(f"field_query_fwd at {label} disagrees with the plain version: scaled err {scaled:.3e}")
+    with torch.no_grad():
+        rows["fwd"].update(ms=time_ms(lambda: fli._launch_query_fwd(fields, xyzt, n_valid, seg), iters=10),
+                           present_ms=time_ms(lambda: fli.field_query_plain(fields, xyzt, n_valid, seg), iters=5),
+                           plain_ms=time_ms(plain_query, iters=2))
+    rows["fwd"]["bound_ms"], rows["fwd"]["bound_by"] = bound(read + 4 * N * L * F_ + touched, ops)
+    del out, ref, plain
+    if backward:
+        g = torch.randn((N, L * F_), generator=torch.Generator(xyzt.device).manual_seed(0), device=xyzt.device)
+        grads = fli._launch_query_bwd(fields, xyzt, g, n_valid, seg)
+        refs = fli.field_query_bwd_plain(fields, xyzt, g.double(), n_valid, seg)
+        torch.cuda.synchronize()
+        scaled = max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(grads, refs))
+        del grads, refs
+        if not scaled < KERNEL_TOL:
+            raise AssertionError(f"field_query_bwd at {label} disagrees with the fp64 plain sum: "
+                                 f"scaled err {scaled:.3e}")
+        leaves = [t.clone().requires_grad_() for t in fli._flat(fields)]
+        leaf_fields = fli._unflat([(f.spec, len(f.grids)) for f in fields], leaves)
+        present_fwd = rows["fwd"]["present_ms"]
+        present = time_ms(lambda: torch.autograd.grad(fli.field_query_plain(leaf_fields, xyzt, n_valid, seg),
+                                                      leaves, g), iters=5) - present_fwd
+        rows["bwd"] = dict(dims, max_abs_err=scaled, bit_exact=False,
+                           ms=time_ms(lambda: fli._launch_query_bwd(fields, xyzt, g, n_valid, seg), iters=10),
+                           present_ms=present,
+                           plain_ms=time_ms(lambda: fli.field_query_bwd_plain(fields, xyzt, g, n_valid, seg), iters=2))
+        rows["bwd"]["bound_ms"], rows["bwd"]["bound_by"] = bound(read + 4 * M * L * F_ + table_bytes + touched,
+                                                                 2 * ops)
+        del leaves, leaf_fields, g
+    for direction, row in rows.items():
+        check = (f"bit-exact against the per-pair path, scaled err {row['plain_scaled_err']:.2e} against the plain "
+                 f"version (bit-exact {row['plain_bit_exact']})" if direction == "fwd"
+                 else f"scaled err {row['max_abs_err']:.2e} against the fp64 sum")
+        log(f"kernel field_query_{direction} {label}: {len(fields)} segments, L={L} F={F_} T={dims['T']}, {N} slots "
+            f"serving {M}: {check}; "
+            f"kernel {row['ms']:.4f} ms, the per-pair kernels with PyTorch's composition {row['present_ms']:.4f} ms "
+            f"({row['present_ms'] / row['ms']:.2f}×), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def ptxas_summary(log_text: str) -> list:
@@ -910,8 +865,7 @@ def step0_kernel_vs_plain(label: str, grads_step, model, batch, pool, key) -> No
     STEP0_LOSS_REL, each parameter's gradient at cosine ≥ STEP0_GRAD_COSINE."""
     runs = {}
     for which in ("kernel", "plain"):
-        patch = (mock.patch.object(fused_field, "field_interp", fli.PlainFieldInterp.apply) if which == "plain"
-                 else contextlib.nullcontext())
+        patch = field_swap(fli.PlainFieldInterp.apply) if which == "plain" else contextlib.nullcontext()
         with patch:
             loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
         runs[which] = (float(loss), {n: p.grad.clone() for n, p in model.named_parameters()})
@@ -1027,14 +981,14 @@ def train(device, view, pool) -> dict:
         before = dict(fli.launches)
         b = sample_batch(cfg, pool.pixel_rgba, generator)
         loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
-        per_step_launches.append({d: fli.launches[d] - before[d] for d in before})
+        per_step_launches.append({d: fli.launches[d] - before[d] for d in QUERY_LAUNCHES})
         # The graph's outputs are overwritten by its next replay: kept as copies.
         losses.append(loss.clone())
         mses.append(aux["mse"].clone())
         supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches("training")
     peak = torch.cuda.max_memory_allocated(device)
 
     losses, mses = torch.stack(losses).cpu(), torch.stack(mses).cpu()
@@ -1048,8 +1002,8 @@ def train(device, view, pool) -> dict:
         f"before the graphs: {EAGER_MS_PER_STEP['train step (5)']} ms), "
         f"{float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised "
         f"rays/s ({float(supervised.float().mean()):.0f} supervised rays per step), peak memory {peak / 2**30:.2f} GiB")
-    # Both segments run on every step (each over all samples, the other's skipped).
-    expected = {"fwd": 2 * 2, "bwd": 2 * 2}
+    # One field query a step (the render pass, over both segments), forward and backward.
+    expected = {"fwd": 1, "bwd": 1}
     bad = [i for i, n in enumerate(per_step_launches) if n != expected]
     if bad or launches != {d: n * TRAIN_STEPS for d, n in expected.items()}:
         raise AssertionError(f"training launched field_interp {launches}; steps {bad[:5]} differ from {expected} per step")
@@ -1091,7 +1045,7 @@ def step_windows(label: str, steps: dict, cfg, pool, generator, key, device) -> 
     and one profiled step's kernel count, device time and busy share each."""
     results = {"old": [], "eager": [], "graph": []}
     for turn, which in enumerate(("old", "eager", "graph", "graph", "eager")):
-        patch = mock.patch.object(fused_field, "field_interp", old_path) if which == "old" else contextlib.nullcontext()
+        patch = field_swap(old_path) if which == "old" else contextlib.nullcontext()
         step = steps["graph" if which == "graph" else "eager"]
         warm_steps, timed_steps = OLD_WINDOW if which == "old" else (AB_WARM_STEPS, AB_STEPS)
         with patch:
@@ -1233,7 +1187,7 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     result = cli.main(flags(total_steps, half) + evaluate)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches(name)
     stats = result["train"]
     blocks = validation_blocks(ws)
     means = {step: float(np.mean(v)) for step, v in blocks.items()}
@@ -1335,11 +1289,10 @@ def dense_render(device, view, model, proposal_roi: float) -> dict:
     fli.reset_launches()
     fi.reset_launches()
     img, first_s = timed_render(model, view, pcfg)
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches("the dense render")
     times, images = {"plain": [], "eager": [], "graph": []}, {}
     for which in ("plain", "eager", "graph", "graph", "eager"):
-        patch = (mock.patch.object(fused_field, "field_interp", fli.field_interp_plain) if which == "plain"
-                 else contextlib.nullcontext())
+        patch = field_swap(fli.field_interp_plain) if which == "plain" else contextlib.nullcontext()
         with patch:
             images[which], seconds = timed_render(model, view, pcfg, graph=which == "graph")
         times[which].append(seconds)
@@ -1396,50 +1349,10 @@ def paper_model(device, **overrides):
     return model.to(device)
 
 
-def check_dense_kernels(device, model, queries) -> dict:
-    """Each field_interp kernel against its plain version at the dense step's
-    shapes and real positions: the grids (P = 64, F = 2, T = 2^17) and the
-    vectors (P = 4, F = 32, R = 2048) at the render pass's query (forward and
-    backward) and the prune pass's (forward; it has no backward), at the
-    samples each serves and, with the skip inputs, over the budgets' whole
-    buffers (`skip_checks`). Bars and references as phase 3's."""
-    seg = model.segment_grid_configs[0]
-    shapes = [("grids", fli.grid_spec(seg.grid), 4 * seg.grid.n_levels, seg.grid.n_features_per_level,
-               seg.grid.table_size),
-              ("vectors", fli.VECTOR_SPEC, 4, seg.feature_dim, seg.vectors_finest_resolution)]
-    rng = np.random.default_rng(1)
-    rows = {"fwd": [], "bwd": []}
-    skip_rows = {"fwd": [], "bwd": []}
-    for name, spec, P, F_, T in shapes:
-        tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
-        for where, query in queries.items():
-            xyzt = query["served"]
-            N = xyzt.shape[0]
-            dims = {"shape": name, "positions": where, "P": P, "C": 8 if spec.mode == fli.MODE_GRID else 2,
-                    "F": F_, "T": T, "N": N}
-            rows["fwd"].append(field_check(
-                "fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
-                lambda: fli.field_interp_plain(tables, xyzt, spec)))
-            if where == "render":
-                g = torch.tensor(rng.normal(size=(P, F_, N)).astype(np.float32), device=device)
-                rows["bwd"].append(field_check(
-                    "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, T),
-                    lambda: fli.field_interp_bwd_plain(g, xyzt, spec, T),
-                    lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, T)))
-            g_full = (torch.tensor(rng.normal(size=(P, F_, query["xyzt"].shape[0])).astype(np.float32), device=device)
-                      if where == "render" else None)
-            for direction, row in skip_checks(name, f"{where}, skip inputs", spec, P, F_, T, query, tables,
-                                              g_full).items():
-                skip_rows[direction].append(row)
-            del g_full
-    # A record per direction: one field query (grids + vectors) of the render pass.
-    return {d: headline(rs, [r for r in skip_rows[d] if r["positions"] == "render, skip inputs"], "render")
-            | {"skip_inputs": skip_rows[d]} for d, rs in rows.items()}
-
-
 def dense_train(device, pool) -> tuple:
     """Phase 7(b): the dense step at the paper's field width (see the module
-    docstring). → (its launches, the kernels' dense records)."""
+    docstring). → (its launches, the field query's rows {pass: {direction:
+    row}})."""
     model = paper_model(device)
     cfg = pipeline.PipelineConfig(**DENSE_STEP_CONFIG)
     log(f"dense step: fresh paper-width model, {sum(p.numel() for p in model.parameters())} parameters, "
@@ -1451,10 +1364,10 @@ def dense_train(device, pool) -> tuple:
     batch = sample_batch(cfg, pool.pixel_rgba, generator)
     grads_step = make_train_step(cfg, model, _GradientsOnly(model), width, height, graph=False)
     queries = capture_queries(grads_step, batch, pool, key)
-    log(f"dense step-0 queries: render pass {queries['render']['served'].shape[0]} of "
-        f"{queries['render']['xyzt'].shape[0]} slots, prune pass {queries['prune']['served'].shape[0]} of "
-        f"{queries['prune']['xyzt'].shape[0]} (the segment that serves the most of each)")
-    records = check_dense_kernels(device, model, queries)
+    log(f"dense step-0 queries: render pass {served_count(queries['render'])} of "
+        f"{queries['render']['xyzt'].shape[0]} slots, prune pass {served_count(queries['prune'])} of "
+        f"{queries['prune']['xyzt'].shape[0]}")
+    query_rows = {where: query_checks(f"dense {where}", query, where == "render") for where, query in queries.items()}
     del queries
     step0_kernel_vs_plain("dense", grads_step, model, batch, pool, key)
     graph_vs_eager("dense", lambda: paper_model(device), cfg, batch, pool, key)
@@ -1474,13 +1387,13 @@ def dense_train(device, pool) -> tuple:
         before = dict(fli.launches)
         b = sample_batch(cfg, pool.pixel_rgba, generator)
         loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
-        per_step.append({d: fli.launches[d] - before[d] for d in before})
+        per_step.append({d: fli.launches[d] - before[d] for d in QUERY_LAUNCHES})
         losses.append(loss.clone())
         mses.append(aux["mse"].clone())
         supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches("the dense step")
     peak = torch.cuda.max_memory_allocated(device)
     losses, mses, supervised = torch.stack(losses).cpu(), torch.stack(mses).cpu(), torch.stack(supervised).cpu()
     warm = DENSE_STEPS - WARM_STEPS
@@ -1512,9 +1425,9 @@ def dense_train(device, pool) -> tuple:
         f"of a {ms_per_step:.2f} ms warm step; top: {prof['top']}")
     step_windows("dense", {"graph": step, "eager": make_train_step(cfg, model, optimizer, width, height, graph=False)},
                  cfg, pool, generator, key, device)
-    # Per step: the prune and the render pass each query both segments (grids
-    # and vectors), and the render pass's backward runs for both.
-    expected = {"fwd": 2 * 2 * 2, "bwd": 2 * 2}
+    # Per step: the prune and the render pass each make one field query, and
+    # the render pass's takes one backward.
+    expected = {"fwd": 2, "bwd": 1}
     if old_launches != {"fwd": 0, "bwd": 0} or any(n != expected for n in per_step):
         raise AssertionError(f"the dense step launched field_interp {launches} (not {expected} in every step) and "
                              f"fused_interp {old_launches}")
@@ -1524,7 +1437,7 @@ def dense_train(device, pool) -> tuple:
         raise AssertionError(f"{int(optimizer.skipped)} dense updates skipped as non-finite")
     if not float(mses[-20:].mean()) <= MSE_DROP * float(mses[:5].mean()):
         raise AssertionError("dense training mse did not fall to half its start")
-    return launches, records
+    return launches, query_rows
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1626,7 +1539,7 @@ def trajectory_phase(scene: Path, tmp: Path, device) -> dict:
     cli.main(flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches("the trajectory phases")
 
     results = ws / "results"
     # Both paths ping-pong their cameras against the 50 frames (`data/trajectory.py::_ping_pong_sequence`).
@@ -1770,7 +1683,7 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
             wall = time.perf_counter() - t0
     finally:
         annotations.write_bytes(original)
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches("the light-bloom run")
 
     share = pixels["filtered"] / max(pixels["all"], 1)
     (events_file,) = (ws / "run").glob("events.out.tfevents.*")
@@ -2576,31 +2489,41 @@ def recorded_losses():
 
 @contextlib.contextmanager
 def first_render_query():
-    """The (N, 4) coordinates of the samples that the first field query made
-    with autograd on (step 0's render pass, in the graph's warm-up) serves →
-    a dict that holds them under "xyzt"."""
-    captured, field = {}, fused_field.field_interp
+    """The first field query made with autograd on (step 0's render pass, in
+    the graph's warm-up) → a dict that `query_of` fills."""
+    captured, query_fn = {}, fused_field.field_query
 
-    def capture(tables, xyzt, spec, n_valid=None, seg=None, s=0):
-        if torch.is_grad_enabled() and "xyzt" not in captured:
-            live = fli.served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
-            captured["xyzt"] = (xyzt if live is None else xyzt[live]).detach().clone().contiguous()
-        return field(tables, xyzt, spec, n_valid, seg, s)
+    def capture(fields, xyzt, n_valid=None, seg=None):
+        if torch.is_grad_enabled() and not captured:
+            captured.update(query_of(fields, xyzt, n_valid, seg))
+        return query_fn(fields, xyzt, n_valid, seg)
 
-    with mock.patch.object(fused_field, "field_interp", capture):
+    with mock.patch.object(fused_field, "field_query", capture):
         yield captured
+
+
+def read_launches(name: str) -> tuple:
+    """The launches since the last reset → (the field query's {"fwd",
+    "bwd"}, `fused_interp`'s); raises if a per-pair `field_interp` kernel
+    launched: no path of the program calls one."""
+    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    pair = {d: launches.pop(f"pair_{d}") for d in QUERY_LAUNCHES}
+    if any(pair.values()):
+        raise AssertionError(f"{name} launched the per-pair field_interp kernels {pair}")
+    return launches, old_launches
 
 
 def counted(name: str, fn, backward: bool):
     """`fn()` with the field_interp counts set to 0 before and read after →
-    (its result, the launches); raises unless both directions (or, without
-    `backward`, the forward alone) launched and `fused_interp` did not."""
+    (its result, the field query's launches); raises unless both directions
+    (or, without `backward`, the forward alone) launched and neither the
+    per-pair kernels nor `fused_interp` did."""
     torch.cuda.synchronize()
     fli.reset_launches()
     fi.reset_launches()
     result = fn()
     torch.cuda.synchronize()
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches(name)
     if not (launches["fwd"] > 0 and (launches["bwd"] > 0) == backward) or old_launches != {"fwd": 0, "bwd": 0}:
         raise AssertionError(f"{name} launched field_interp {launches}, fused_interp {old_launches}")
     return result, launches
@@ -2696,12 +2619,13 @@ def per_step(launches: dict, steps: int) -> str:
     return f"{launches['fwd'] / steps:.1f} forward + {launches['bwd'] / steps:.1f} backward"
 
 
-def multiseg_phase(tmp: Path, device, r4_stats: dict) -> dict:
+def multiseg_phase(tmp: Path, device, r4_stats: dict) -> tuple:
     """11(c): `multiseg` at MULTISEG_SIZE² over 100 frames, MULTISEG_STEPS
-    steps and one validation → the launches."""
+    steps and one validation; the field query's kernels at step 0's render
+    query over the four segments → (the launches, {direction: row})."""
     root = tmp / "multiseg"
     t0 = time.perf_counter()
-    with drivers_in_process() as runs, recorded_losses() as losses:
+    with drivers_in_process() as runs, recorded_losses() as losses, first_render_query() as query:
         result, launches = counted("11(c) multiseg", lambda: multiseg.main(
             ["--steps", str(MULTISEG_STEPS), "--size", str(MULTISEG_SIZE), "--validate-every", str(MULTISEG_STEPS),
              "--root", str(root), "--device", device.type]), backward=True)
@@ -2732,15 +2656,16 @@ def multiseg_phase(tmp: Path, device, r4_stats: dict) -> dict:
         raise AssertionError(f"the step-{step} checkpoint did not reload into a finite model")
     log(f"11(c): step_{MULTISEG_STEPS:08d}.ckpt reloaded into a fresh 4-segment model "
         f"({sum(p.numel() for p in fresh.parameters())} parameters)")
-    return launches
+    if len(query["fields"]) != 4:
+        raise AssertionError(f"11(c)'s render query has {len(query['fields'])} segments")
+    return launches, query_checks("multiseg render", query, backward=True)
 
 
 def capacity_phase(tmp: Path, device) -> tuple:
     """11(d): `quality_at_capacity`'s gather-ref-capacity arm (L16/F2, log2
     24: T = 2^22 on one 25-frame segment) at CAPACITY_SIZE² for
-    CAPACITY_STEPS steps, no validation and no save; each field_interp
-    kernel at step 0's render query against its plain version → (the
-    launches, {direction: [rows]})."""
+    CAPACITY_STEPS steps, no validation and no save; the field query's
+    kernels at step 0's render query → (the launches, {direction: row})."""
     root = tmp / "quality_sweep"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2771,29 +2696,9 @@ def capacity_phase(tmp: Path, device) -> tuple:
     if not np.isfinite(stats["first_loss"]) or stats["skipped_nonfinite"] != 0:
         raise AssertionError(f"step-0 loss {stats['first_loss']}, {stats['skipped_nonfinite']} updates skipped")
 
-    xyzt = query["xyzt"]
-    N = xyzt.shape[0]
-    gen = torch.Generator(device).manual_seed(0)
-    rows = {"fwd": [], "bwd": []}
-    for name, spec, P, F_, table in (
-            ("grids", fli.grid_spec(seg.grid), 4 * seg.grid.n_levels, seg.grid.n_features_per_level, T),
-            ("vectors", fli.VECTOR_SPEC, 4, seg.grid.feature_dim, seg.vectors_finest_resolution)):
-        C = 8 if spec.mode == fli.MODE_GRID else 2
-        tables = torch.randn((P, F_, table), generator=gen, device=device)
-        g = torch.randn((P, F_, N), generator=gen, device=device)
-        idx, _ = fli.corner_idx_w(xyzt, spec, table)
-        touched = int(torch.unique(idx.long() + torch.arange(P, device=device)[:, None, None] * table).numel())
-        dims = {"shape": name, "positions": "real", "P": P, "C": C, "F": F_, "T": table, "N": N}
-        rows["fwd"].append(field_check(
-            "fwd", dims, lambda: fli._launch_fwd(tables, xyzt, spec), lambda: fli.field_interp_plain(tables, xyzt, spec),
-            lambda: fli.field_interp_plain(tables, xyzt, spec), table_entries=touched))
-        rows["bwd"].append(field_check(
-            "bwd", dims, lambda: fli._launch_bwd(g, xyzt, spec, table),
-            lambda: fli.field_interp_bwd_plain(g, xyzt, spec, table),
-            lambda: fli.field_interp_bwd_plain(g.double(), xyzt, spec, table)))
-        log(f"11(d): the {name}' samples touch {touched} of {P * table} table rows")
-        del tables, g
-    return launches, rows
+    if [int(f.grids[0].shape[-1]) for f in query["fields"]] != [CAPACITY_T]:
+        raise AssertionError(f"11(d)'s render query reads tables of {[f.grids[0].shape for f in query['fields']]}")
+    return launches, query_checks("ref capacity render", query, backward=True)
 
 
 def throughput_phase(scene: Path, tmp: Path, device) -> dict:
@@ -2817,15 +2722,17 @@ def throughput_phase(scene: Path, tmp: Path, device) -> dict:
 
 
 def protocol_phase(scene: Path, tmp: Path, device, r4_stats: dict) -> tuple:
-    """Phase 11 → ({sub-phase: launches}, {direction: T = 2^22 rows})."""
+    """Phase 11 → ({sub-phase: launches}, {"multiseg" (11(c)), "ref_capacity"
+    (11(d), T = 2^22): the field query's {direction: row}})."""
     t0 = time.perf_counter()
     frame0_psnr, eval_launches = evaluate_phase(scene, tmp, device)
-    launches = {"evaluate": eval_launches, "parallax": parallax_phase(tmp, frame0_psnr, device),
-                "multiseg": multiseg_phase(tmp, device, r4_stats)}
-    launches["ref_capacity"], capacity_rows = capacity_phase(tmp, device)
+    launches = {"evaluate": eval_launches, "parallax": parallax_phase(tmp, frame0_psnr, device)}
+    rows = {}
+    launches["multiseg"], rows["multiseg"] = multiseg_phase(tmp, device, r4_stats)
+    launches["ref_capacity"], rows["ref_capacity"] = capacity_phase(tmp, device)
     launches["throughput"] = throughput_phase(scene, tmp, device)
     log(f"11: protocol phase in {time.perf_counter() - t0:.1f} s")
-    return launches, capacity_rows
+    return launches, rows
 
 
 def finish(records: list, smi: str) -> int:
@@ -2850,8 +2757,8 @@ def render_phase(device, view) -> tuple:
     num_pixels = width * height
     num_batches = -(-num_pixels // view.rays_batch_size)
     frame = view.frame_number
-    # Every batch queries both segments (each over all samples, the other's skipped).
-    expected_launches = 2 * num_batches * model.config.num_segments
+    # Every batch makes one field query, over both segments.
+    expected_launches = num_batches
     log(f"model: best.ckpt step {step}, segments {view.model_config.segment_sizes}, "
         f"{sum(p.numel() for p in model.parameters())} parameters; view {view.camera_name} frame {frame}, "
         f"{width}x{height}, {num_batches} batches of {view.rays_batch_size} rays")
@@ -2859,7 +2766,7 @@ def render_phase(device, view) -> tuple:
     fli.reset_launches()
     fi.reset_launches()
     img, first_s = timed_render(model, view)
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
+    launches, old_launches = read_launches("the render")
     log(f"render (graph, first: warm-up and capture included): {first_s:.3f} s, {num_pixels / first_s:.0f} rays/s, "
         f"field_interp launches {launches}, fused_interp {old_launches}")
     if launches != {"fwd": expected_launches, "bwd": 0} or old_launches != {"fwd": 0, "bwd": 0}:
@@ -2875,7 +2782,7 @@ def render_phase(device, view) -> tuple:
     swaps = {"plain": fli.field_interp_plain, "old": old_path}
     for which in ("plain", "old", "eager", "graph", "graph", "eager"):
         if which in swaps:
-            with mock.patch.object(fused_field, "field_interp", swaps[which]):
+            with field_swap(swaps[which]):
                 out, seconds = timed_render(model, view, graph=False)
             if which == "plain":
                 img_plain = out
@@ -2913,82 +2820,12 @@ def render_phase(device, view) -> tuple:
     return model, launches, port_roi
 
 
-def kernel_ab(device, source: Path) -> None:
-    """`--kernel-ab SOURCE`: this tree's field_interp kernels, called without
-    skip inputs, against a build of SOURCE, a `field_interp.cu` with the C
-    interface from before the skip inputs (in, xyzt, out; spec; P, F; T, N;
-    stream), such as the parent commit's (`git show <rev>:humanrf_torch/
-    csrc/field_interp.cu`), on the same inputs in this process: the forward
-    bit-equal, and each direction's time in turns (other, this, this,
-    other; CUDA events over 20 launches) at phase 3's r4 shapes (the samples
-    phase 5's step-0 query serves, and random positions) and at the samples
-    7(b)'s step-0 queries serve."""
-    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
-        lib_path = Path(tmp) / "other_field_interp.so"
-        subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path), str(source)], check=True,
-                       capture_output=True)
-        other = ctypes.CDLL(str(lib_path))
-    for name in ("field_interp_fwd", "field_interp_bwd"):
-        fn = getattr(other, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [fli.FieldSpec] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-
-    def other_call(name, first, xyzt, out, spec, F_, T):
-        err = getattr(other, name)(first.data_ptr(), xyzt.data_ptr(), out.data_ptr(), spec, first.shape[0], F_, T,
-                                   xyzt.shape[0], torch.cuda.current_stream(device).cuda_stream)
-        if err:
-            raise RuntimeError(f"{name} of {source} failed: cudaError {err}")
-        return out
-
-    view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
-    pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
-    model, cfg = paper_model(device), pipeline.PipelineConfig(**DENSE_STEP_CONFIG)
-    dense = capture_queries(make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height, graph=False),
-                            sample_batch(cfg, pool.pixel_rgba, torch.Generator(device).manual_seed(2)), pool,
-                            make_key(0, device))
-    seg = model.segment_grid_configs[0]
-    r4_shapes = field_shapes(view)[:2]
-    dense_shapes = [("grids", fli.grid_spec(seg.grid), 4 * seg.grid.n_levels, seg.grid.n_features_per_level,
-                     seg.grid.table_size), ("vectors", fli.VECTOR_SPEC, 4, seg.feature_dim, seg.vectors_finest_resolution)]
-    cases = [("r4 real", capture_real_query(device, view, pool)["served"], r4_shapes),
-             ("r4 random", torch.rand((FIELD_RANDOM_N["grids"], 4), generator=torch.Generator(device).manual_seed(0),
-                                      device=device), r4_shapes),
-             ("dense render", dense["render"]["served"], dense_shapes),
-             ("dense prune", dense["prune"]["served"], dense_shapes)]
-    gen = torch.Generator(device).manual_seed(1)
-    for label, xyzt, shapes in cases:
-        N = xyzt.shape[0]
-        for name, spec, P, F_, T in shapes:
-            tables = torch.randn((P, F_, T), generator=gen, device=device)
-            g = torch.randn((P, F_, N), generator=gen, device=device)
-            calls = {
-                ("other", "fwd"): lambda: other_call("field_interp_fwd", tables, xyzt, torch.empty((P, F_, N), device=device),
-                                                     spec, F_, T),
-                ("this", "fwd"): lambda: fli._launch_fwd(tables, xyzt, spec),
-                ("other", "bwd"): lambda: other_call("field_interp_bwd", g, xyzt, torch.zeros((P, F_, T), device=device),
-                                                     spec, F_, T),
-                ("this", "bwd"): lambda: fli._launch_bwd(g, xyzt, spec, T),
-            }
-            if not torch.equal(calls["other", "fwd"](), calls["this", "fwd"]()):
-                raise AssertionError(f"kernel A/B {label} {name}: the forwards differ")
-            turns = {key: [] for key in calls}
-            for who in ("other", "this", "this", "other"):
-                for direction in ("fwd", "bwd"):
-                    turns[who, direction].append(time_ms(calls[who, direction]))
-            mean = {key: float(np.mean(v)) for key, v in turns.items()}
-            log(f"kernel A/B {label} {name} (P={P} F={F_} T={T} N={N}): "
-                + "; ".join(f"{d} other {mean['other', d]:.4f} ms, this {mean['this', d]:.4f} ms "
-                            f"({100 * (mean['this', d] / mean['other', d] - 1):+.1f}%; turns "
-                            f"{', '.join(f'{t:.4f}' for t in turns['other', d] + turns['this', d])})"
-                            for d in ("fwd", "bwd")))
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--breakdown"] and len(argv) == 2:
         return breakdown_child(Path(argv[1]))
-    if not (argv in ([], ["--mesh-only"]) or (len(argv) == 2 and argv[0] == "--kernel-ab")):
-        raise SystemExit(f"usage: python3 chip_smoke.py [--mesh-only | --kernel-ab OTHER_FIELD_INTERP_CU]; got {argv}")
+    if argv not in ([], ["--mesh-only"]):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--mesh-only]; got {argv}")
     mesh_only = argv == ["--mesh-only"]
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -3011,9 +2848,6 @@ def main(argv=None) -> int:
         log(f"build: {lib.path.name} in {lib.build_seconds:.2f} s; per kernel, from -Xptxas -v (shared memory is "
             f"dynamic, set at launch): " + "; ".join(ptxas_summary(lib.ptxas_log)))
 
-    if argv[:1] == ["--kernel-ab"]:
-        kernel_ab(device, Path(argv[1]))
-        return finish([], smi)
     if mesh_only:
         with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
             records = mesh_phase(write_r4_scene(device, Path(tmp)), Path(tmp), device, smi)
@@ -3024,16 +2858,10 @@ def main(argv=None) -> int:
     train_pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
     old_kernels = check_kernels(device)
     real_query = capture_real_query(device, view, train_pool)
-    log(f"real positions: the {real_query['served'].shape[0]} samples that phase 5's step-0 field query serves "
-        f"(of {real_query['xyzt'].shape[0]} slots; the segment that serves the most)")
-    new_kernels = check_field_kernels(device, view, real_query)
-    for direction, record in new_kernels.items():
-        served = record["served_only"]
-        log(f"field_interp_{direction} at phase 5's query, one field query (grids + vectors): with the skip inputs "
-            f"over the whole buffer {record['ms']:.4f} ms, bound {record['bound_ms']:.4f} ms "
-            f"({100 * record['bound_ms'] / record['ms']:.1f}% of it); on the served samples alone "
-            f"{served['ms']:.4f} ms against the old path's {served['old_path_ms']:.4f} ms "
-            f"({served['old_path_ms'] / served['ms']:.2f}×)")
+    log(f"real positions: phase 5's step-0 render query serves {served_count(real_query)} samples of "
+        f"{real_query['xyzt'].shape[0]} slots")
+    r4_query = query_checks("r4 render", real_query, backward=True)
+    del real_query
 
     # Phase 4: the render.
     model, launches, port_roi = render_phase(device, view)
@@ -3050,7 +2878,7 @@ def main(argv=None) -> int:
 
         # Phase 7: dense sampling.
         dense_render_launches = dense_render(device, view, model, port_roi)
-        dense_step_launches, dense_records = dense_train(device, train_pool)
+        dense_step_launches, dense_query = dense_train(device, train_pool)
         dense_ws = Path(tmp) / "dense_workspace"
         dense_cli_launches, _ = cli_phase(
             "dense cli", scene, dense_ws,
@@ -3069,7 +2897,7 @@ def main(argv=None) -> int:
         mesh_records = mesh_phase(scene, Path(tmp), device, smi)
 
         # Phase 11: the protocol drivers.
-        protocol_launches, capacity_rows = protocol_phase(scene, Path(tmp), device, cli_stats)
+        protocol_launches, protocol_query = protocol_phase(scene, Path(tmp), device, cli_stats)
 
     by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches,
                 "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches,
@@ -3077,16 +2905,17 @@ def main(argv=None) -> int:
                 **protocol_launches}
     records = [
         {
-            "name": f"field_interp_{direction}",
+            "name": f"field_query_{direction}",
             "route": "cuda",
             "source": "humanrf_torch/csrc/field_interp.cu",
-            "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
+            "replaces": f"humanrf_tpu/ops/fused_interp.py:{line} with the composition of "
+                        "humanrf_tpu/models/fused_field.py",
             "launches": sum(counts[direction] for counts in protocol_launches.values()),
             "launches_by_phase": {phase: counts[direction] for phase, counts in by_phase.items()},
-            "library_ms": None,  # no one PyTorch call computes the corners and the lookup
-            **new_kernels[direction],
-            "dense": dense_records[direction],
-            "ref_capacity": summarize(capacity_rows[direction]),
+            "library_ms": None,  # no one PyTorch call computes the corners, the lookups and their composition
+            **r4_query[direction],
+            "dense": {where: rows[direction] for where, rows in dense_query.items() if direction in rows},
+            **{where: rows[direction] for where, rows in protocol_query.items()},
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
     ] + [

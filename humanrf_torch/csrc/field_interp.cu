@@ -4,6 +4,14 @@
 //     out[p, f, n]  = sum_c  w_c(p, xyzt[n]) * tables[p, f, idx_c(p, xyzt[n])]        (forward)
 //     dtab[p, f, t] = sum_{n, c} g[p, f, n] * w_c(p, xyzt[n]) * [idx_c(p, xyzt[n]) == t] (backward)
 //
+// Two pairs of entry points. The per-pair kernels (field_interp_fwd/_bwd)
+// look up one mode, the grids or the vectors, of one segment, and write
+// every (pair, feature, sample). The field query (field_query_fwd/_bwd,
+// "The field query" below) is the main path: one launch each way for a
+// whole query over every segment and both modes, with the 4D composition
+// inside. The notes that follow are the per-pair kernels'; the query reuses
+// their corner math.
+//
 // Replaces the TPU kernels of humanrf_tpu/ops/fused_interp.py, the forward
 // _fwd_kernel (:87) and the backward _bwd_kernel (:97), together with the
 // corner math that humanrf_tpu/models/fused_field.py runs before each call
@@ -92,8 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Tuning knobs, measured by scripts/field_interp_variants.py on the H100
-// (see PERF.md): the backward's run length (samples per thread), the
+// Tuning knobs, measured on the H100 with builds of `-D` variants (see
+// PERF.md): the backward's run length (samples per thread), the
 // blocks per SM that ptxas must fit in registers (__launch_bounds__' second
 // argument; 4 lets the backward hide its shared-memory atomics, which are
 // compare-and-swap loops, ATOMS.CAST.SPIN, for fp32) and the waves of
@@ -120,6 +128,32 @@ struct FieldSpec {
   float scale[kMaxLevels];
   int32_t resolution[kMaxLevels];
   int32_t dense[kMaxLevels];
+};
+
+// The field query's limit on segments per launch (its parameters take
+// 88 B a segment; see "The field query" below).
+constexpr int kMaxSegments = 128;
+
+// One segment's tables and, for the backward, their gradients (zeroed).
+struct SegmentTables {
+  const float* grid[4];  // (L, F, T) each: xyz, xyt, yzt, xzt
+  const float* vectors;  // (4, L*F, R)
+  float* dgrid[4];       // backward: (L, F, T) each
+  float* dvectors;       // backward: (4, L*F, R)
+  uint32_t T;
+  uint32_t dense;  // bit l: level l indexes densely (res^3 <= T)
+};
+
+// The field query's, passed by value (ctypes.Structure in
+// humanrf_torch/ops/field_interp.py).
+struct FieldQuery {
+  int32_t n_segments;
+  int32_t n_levels;  // L
+  int32_t F;         // features per level, 1..8
+  int32_t R;         // the vectors' resolution
+  float scale[kMaxLevels];
+  int32_t resolution[kMaxLevels];
+  SegmentTables seg[kMaxSegments];
 };
 
 namespace {
@@ -563,6 +597,304 @@ int run_entry(const float* a, const float* xyzt, float* o, const FieldSpec& spec
   return static_cast<int>(err);
 }
 
+// ---- The field query ------------------------------------------------------
+//
+//     out[n, l*F + f] = sum_g  f_g[l, f](n) * v_{p(g)}[l*F + f](n),  p = (3, 2, 0, 1)
+//
+// where f_g is grid g's lookup at level l and v_p vector p's, read from the
+// tables of the sample's own segment. It does in one launch what the
+// per-pair kernels leave to PyTorch: per segment a grid call and a vector
+// call, each writing (4, L*F, N) fp32 lookups over the whole budget, then
+// the sum over segments and the composition's products and sums; in the
+// backward the cotangents grad * v_p and grad * f_g, another (4, L*F, N)
+// tensor each, with their zero-filled selects and sums. The JAX package
+// never has those tensors either: XLA fuses the composition into the
+// lookups' consumers.
+//
+// Forward: a thread per (sample, level), levels fastest, so that the L
+// threads of a sample write its L*F features as one coalesced row. It
+// computes the four grids' corners and lookups at its level and the partner
+// vectors' taps in registers, then the products and their sum in the order
+// ((f0*v + f1*v) + f2*v) + f3*v, each step rounded on its own
+// (__fmul_rn/__fadd_rn), and each lookup summed corner by corner as the
+// per-pair forward sums it: the features equal the per-pair kernels followed
+// by PyTorch's segment sum and composition bit for bit. It reads the tables
+// where they lie, through L1 and L2 (__ldg): a thread needs the four grids
+// of its level, which at the r4 width (4 x 32 KB per segment) do not fit
+// beside other blocks in shared memory, and at the paper's T = 2^17 no
+// table does. What bounds it: the gathers, 4 x 8 corners of F features and
+// 4 x 2 taps per (sample, level), against an output of 4*L*F bytes a slot
+// (128 B at L*F = 32), written once.
+//
+// Backward: a thread per (run of kBwdRun consecutive samples, level). For
+// each grid g in turn it recomputes the sample's lookup f_g and the partner
+// vector's v_p (nothing is kept from the forward), forms grad * v_p and
+// grad * f_g in registers and adds w_c * grad * v_p into grid g's gradient
+// and w_tap * grad * f_g into vector p's with global atomics. As in the
+// per-pair backward, a corner's or tap's sum stays in registers while its
+// index (and the segment) stays the same along the run, so the consecutive
+// samples of a ray, which share their coarse corners and the time vector's
+// taps, add once. Atomics add in a run-dependent order.
+//
+// Segments: `seg` (N,) int32 routes each sample to its segment; every
+// segment's table pointers, table size and dense levels come in FieldQuery,
+// passed by value (__grid_constant__: read in place, never copied per
+// thread; over 4 KB of parameters, which CUDA 12.1 and later take). A
+// sample of no segment (seg outside [0, n_segments)), or at or past
+// *n_valid, writes zeros and adds nothing. One launch serves every segment,
+// and its grid is sized by N, so a CUDA graph replays it unchanged.
+
+// Blocks per SM that the backward must fit in registers: its run sums take
+// ~100 registers a thread at F = 4.
+constexpr int kQueryBwdMinBlocks = 2;
+
+// The vector each grid is multiplied with, and the axis the grid drops:
+// grids xyz, xyt, yzt, xzt pair with vectors t, z, x, y.
+__device__ __forceinline__ int partner(int g) { return g == 0 ? 3 : g == 1 ? 2 : g == 2 ? 0 : 1; }
+
+__device__ __forceinline__ PairSetup grid_pair(const FieldQuery& q, const SegmentTables& st, int g, int l) {
+  PairSetup s;
+  s.T = st.T;
+  s.pow2 = (st.T & (st.T - 1)) == 0;
+  s.coord = partner(g);
+  s.scale = q.scale[l];
+  s.res = static_cast<uint32_t>(q.resolution[l]);
+  s.dense = ((st.dense >> l) & 1u) != 0;
+  return s;
+}
+
+__device__ __forceinline__ PairSetup vector_pair(int p, uint32_t R) {
+  PairSetup s;
+  s.T = R;
+  s.pow2 = (R & (R - 1)) == 0;
+  s.coord = p;
+  s.scale = static_cast<float>(R);
+  s.res = R;
+  s.dense = true;
+  return s;
+}
+
+// The lookup of kC corners (or taps) of F <= kF features, feature k in the
+// row at `row + k * stride`: summed corner by corner in order, each product
+// and sum rounded on its own, as field_fwd_kernel sums them.
+template <int kC, int kF>
+__device__ __forceinline__ void lookup(const float* row, int F, uint32_t stride, const uint32_t (&idx)[kC],
+                                       const float (&w)[kC], float (&out)[kF]) {
+#pragma unroll
+  for (int k = 0; k < kF; ++k) out[k] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    if (idx[c] == kOutside) continue;
+#pragma unroll
+    for (int k = 0; k < kF; ++k) {
+      if (k < F) out[k] = __fadd_rn(out[k], __fmul_rn(w[c], __ldg(row + static_cast<int64_t>(k) * stride + idx[c])));
+    }
+  }
+}
+
+// Adds one corner's (or tap's) run sum of F <= kF features at index t.
+template <int kF>
+__device__ __forceinline__ void add_run(float* row, int F, uint32_t stride, uint32_t t, const float (&sum)[kF]) {
+  if (t == kOutside) return;
+#pragma unroll
+  for (int k = 0; k < kF; ++k) {
+    if (k < F) atomicAdd(row + static_cast<int64_t>(k) * stride + t, sum[k]);
+  }
+}
+
+// The samples below *n_valid (all N without it).
+__device__ __forceinline__ int64_t live_count(const int32_t* n_valid, int64_t N) {
+  return n_valid == nullptr ? N : min(N, static_cast<int64_t>(max(__ldg(n_valid), 0)));
+}
+
+// The segment of sample n, or -1 for none (without seg, the one segment).
+__device__ __forceinline__ int segment_of(const FieldQuery& q, const int32_t* seg, int64_t n) {
+  if (seg == nullptr) return 0;
+  const int s = __ldg(seg + n);
+  return s >= 0 && s < q.n_segments ? s : -1;
+}
+
+// kF: F rounded up to 1, 2, 4 or 8.
+template <int kF>
+__global__ void __launch_bounds__(kThreads)
+fused_field_fwd_kernel(const __grid_constant__ FieldQuery q, const float4* __restrict__ xyzt,
+                       float* __restrict__ out,  // (N, L*F)
+                       int64_t N, const int32_t* __restrict__ n_valid, const int32_t* __restrict__ seg) {
+  const int L = q.n_levels, F = q.F, D = L * F;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= N * L) return;
+  const int64_t n = t / L;
+  const int l = static_cast<int>(t - n * L);
+  float acc[kF];
+#pragma unroll
+  for (int k = 0; k < kF; ++k) acc[k] = 0.0f;
+  const int s = n < live_count(n_valid, N) ? segment_of(q, seg, n) : -1;
+  if (s >= 0) {
+    const SegmentTables& st = q.seg[s];
+    const float4 x = __ldg(xyzt + n);
+    const uint32_t R = static_cast<uint32_t>(q.R);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int p = partner(g);
+      uint32_t idx[8], vi[2];
+      float w[8], vw[2], f[kF], v[kF];
+      corners<8>(grid_pair(q, st, g, l), x, idx, w);
+      lookup<8, kF>(st.grid[g] + static_cast<int64_t>(l) * F * st.T, F, st.T, idx, w, f);
+      corners<2>(vector_pair(p, R), x, vi, vw);
+      lookup<2, kF>(st.vectors + (static_cast<int64_t>(p) * D + l * F) * R, F, R, vi, vw, v);
+#pragma unroll
+      for (int k = 0; k < kF; ++k) {
+        const float prod = __fmul_rn(f[k], v[k]);
+        acc[k] = g == 0 ? prod : __fadd_rn(acc[k], prod);
+      }
+    }
+  }
+  float* dst = out + n * D + l * F;
+  if (F == kF && kF == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+  } else if (F == kF && kF >= 4) {
+#pragma unroll
+    for (int k = 0; k < kF; k += 4) {
+      *reinterpret_cast<float4*>(dst + k) = make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kF; ++k) {
+      if (k < F) dst[k] = acc[k];
+    }
+  }
+}
+
+// kF as the forward's.
+template <int kF>
+__global__ void __launch_bounds__(kThreads, kQueryBwdMinBlocks)
+fused_field_bwd_kernel(const __grid_constant__ FieldQuery q, const float4* __restrict__ xyzt,
+                       const float* __restrict__ grad,  // (N, L*F)
+                       int64_t N, const int32_t* __restrict__ n_valid, const int32_t* __restrict__ seg) {
+  const int L = q.n_levels, F = q.F, D = L * F;
+  const uint32_t R = static_cast<uint32_t>(q.R);
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t runs = (N + kBwdRun - 1) / kBwdRun;
+  if (t >= runs * L) return;
+  const int64_t r = t / L;
+  const int l = static_cast<int>(t - r * L);
+  const int64_t n0 = r * kBwdRun;
+  const int64_t live = live_count(n_valid, N);
+  if (n0 >= live) return;
+  const int len = static_cast<int>(min(static_cast<int64_t>(kBwdRun), live - n0));
+
+  for (int g = 0; g < 4; ++g) {
+    const int p = partner(g);
+    uint32_t cur[8], vcur[2];
+    float run[8][kF], vrun[2][kF];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      cur[c] = kOutside;
+#pragma unroll
+      for (int k = 0; k < kF; ++k) run[c][k] = 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      vcur[c] = kOutside;
+#pragma unroll
+      for (int k = 0; k < kF; ++k) vrun[c][k] = 0.0f;
+    }
+    int cur_s = -1;
+    // Adds every open sum into segment cur_s's gradients; the next sample starts new runs.
+    auto flush = [&]() {
+      if (cur_s < 0) return;
+      const SegmentTables& st = q.seg[cur_s];
+      float* dg = st.dgrid[g] + static_cast<int64_t>(l) * F * st.T;
+      float* dv = st.dvectors + (static_cast<int64_t>(p) * D + l * F) * R;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        add_run<kF>(dg, F, st.T, cur[c], run[c]);
+        cur[c] = kOutside;
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        add_run<kF>(dv, F, R, vcur[c], vrun[c]);
+        vcur[c] = kOutside;
+      }
+    };
+    for (int j = 0; j < len; ++j) {
+      const int64_t n = n0 + j;
+      const int s = segment_of(q, seg, n);
+      if (s < 0) continue;
+      if (s != cur_s) {
+        flush();
+        cur_s = s;
+      }
+      const SegmentTables& st = q.seg[s];
+      const float4 x = __ldg(xyzt + n);
+      const float* grow = grad + n * D + l * F;
+      uint32_t idx[8], vi[2];
+      float gr[kF], w[8], vw[2], f[kF], v[kF];
+#pragma unroll
+      for (int k = 0; k < kF; ++k) gr[k] = k < F ? __ldg(grow + k) : 0.0f;
+      corners<8>(grid_pair(q, st, g, l), x, idx, w);
+      lookup<8, kF>(st.grid[g] + static_cast<int64_t>(l) * F * st.T, F, st.T, idx, w, f);
+      corners<2>(vector_pair(p, R), x, vi, vw);
+      lookup<2, kF>(st.vectors + (static_cast<int64_t>(p) * D + l * F) * R, F, R, vi, vw, v);
+      float* dg = st.dgrid[g] + static_cast<int64_t>(l) * F * st.T;
+      float* dv = st.dvectors + (static_cast<int64_t>(p) * D + l * F) * R;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (idx[c] != cur[c]) {
+          add_run<kF>(dg, F, st.T, cur[c], run[c]);
+          cur[c] = idx[c];
+#pragma unroll
+          for (int k = 0; k < kF; ++k) run[c][k] = 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kF; ++k) run[c][k] = fmaf(w[c], __fmul_rn(gr[k], v[k]), run[c][k]);
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (vi[c] != vcur[c]) {
+          add_run<kF>(dv, F, R, vcur[c], vrun[c]);
+          vcur[c] = vi[c];
+#pragma unroll
+          for (int k = 0; k < kF; ++k) vrun[c][k] = 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kF; ++k) vrun[c][k] = fmaf(vw[c], __fmul_rn(gr[k], f[k]), vrun[c][k]);
+      }
+    }
+    flush();
+  }
+}
+
+bool valid_query(const FieldQuery& q, long long N) {
+  if (q.n_segments < 1 || q.n_segments > kMaxSegments || q.n_levels < 1 || q.n_levels > kMaxLevels || q.F < 1 ||
+      q.F > 8 || q.R < 1 || N < 0) {
+    return false;
+  }
+  for (int s = 0; s < q.n_segments; ++s) {
+    if (q.seg[s].T < 1 || q.seg[s].T >= (1u << 31)) return false;
+  }
+  return true;
+}
+
+unsigned query_blocks(int64_t threads) { return static_cast<unsigned>((threads + kThreads - 1) / kThreads); }
+
+template <int kF>
+cudaError_t launch_query_fwd(const FieldQuery& q, const float* xyzt, float* out, int64_t N, const int32_t* n_valid,
+                             const int32_t* seg, cudaStream_t stream) {
+  fused_field_fwd_kernel<kF><<<query_blocks(N * q.n_levels), kThreads, 0, stream>>>(
+      q, reinterpret_cast<const float4*>(xyzt), out, N, n_valid, seg);
+  return cudaGetLastError();
+}
+
+template <int kF>
+cudaError_t launch_query_bwd(const FieldQuery& q, const float* xyzt, const float* grad, int64_t N,
+                             const int32_t* n_valid, const int32_t* seg, cudaStream_t stream) {
+  const int64_t runs = (N + kBwdRun - 1) / kBwdRun;
+  fused_field_bwd_kernel<kF><<<query_blocks(runs * q.n_levels), kThreads, 0, stream>>>(
+      q, reinterpret_cast<const float4*>(xyzt), grad, N, n_valid, seg);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // out (P, F, N) f32; xyzt (N, 4) f32; tables (P, F, T) f32. n_valid (one
@@ -578,4 +910,42 @@ extern "C" int field_interp_bwd(const float* g, const float* xyzt, float* dtab, 
                                 long long T, long long N, const int32_t* n_valid, const int32_t* seg, int seg_id,
                                 void* stream) {
   return run_entry<BwdLaunch>(g, xyzt, dtab, spec, P, F, T, N, n_valid, seg, seg_id, stream);
+}
+
+// The field query's forward: out (N, L*F) f32, every slot's features (0 for
+// a skipped slot); xyzt (N, 4) f32, 16-byte aligned; q.seg[s].grid and
+// .vectors the tables of segment s. n_valid (one int32) and seg ((N,)
+// int32) may be null.
+extern "C" int field_query_fwd(FieldQuery q, const float* xyzt, float* out, long long N, const int32_t* n_valid,
+                               const int32_t* seg, void* stream) {
+  if (!valid_query(q, N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (cover(q.F)) {
+    case 1: err = launch_query_fwd<1>(q, xyzt, out, N, n_valid, seg, st); break;
+    case 2: err = launch_query_fwd<2>(q, xyzt, out, N, n_valid, seg, st); break;
+    case 4: err = launch_query_fwd<4>(q, xyzt, out, N, n_valid, seg, st); break;
+    case 8: err = launch_query_fwd<8>(q, xyzt, out, N, n_valid, seg, st); break;
+  }
+  return static_cast<int>(err);
+}
+
+// The field query's backward: grad (N, L*F) f32, the features' cotangent;
+// q.seg[s].dgrid and .dvectors, shaped as the tables, must hold zeros on
+// entry (the caller allocates them with torch.zeros). The rest as the
+// forward's.
+extern "C" int field_query_bwd(FieldQuery q, const float* xyzt, const float* grad, long long N,
+                               const int32_t* n_valid, const int32_t* seg, void* stream) {
+  if (!valid_query(q, N)) return static_cast<int>(cudaErrorInvalidValue);
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (cover(q.F)) {
+    case 1: err = launch_query_bwd<1>(q, xyzt, grad, N, n_valid, seg, st); break;
+    case 2: err = launch_query_bwd<2>(q, xyzt, grad, N, n_valid, seg, st); break;
+    case 4: err = launch_query_bwd<4>(q, xyzt, grad, N, n_valid, seg, st); break;
+    case 8: err = launch_query_bwd<8>(q, xyzt, grad, N, n_valid, seg, st); break;
+  }
+  return static_cast<int>(err);
 }

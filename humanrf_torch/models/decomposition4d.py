@@ -2,8 +2,8 @@
 
 Counterpart of `humanrf_tpu/models/decomposition4d.py`. The JAX package has
 three lookup backends (gather, onehot, fused) because a TPU has no fast
-gather; the port has one, `models/fused_field.py` (`field_lookups`, then
-`compose`) on the CUDA `field_interp` kernels, which take any table size.
+gather; the port has one, `models/fused_field.py` on the CUDA field query
+kernels (`ops/field_interp.py::field_query`), which take any table size.
 
     out = f_xyz ⊙ v_t + f_xyt ⊙ v_z + f_yzt ⊙ v_x + f_xzt ⊙ v_y
 """
@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from humanrf_torch.models.fused_field import _GRID_AXES, field_lookups
+from humanrf_torch.models.fused_field import _GRID_AXES, SegmentField, segment_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.mlp import normal
 
@@ -61,10 +61,8 @@ class Decomposition4D(nn.Module):
             table.copy_(u * 2e-4 - 1e-4)
         self.vectors.copy_(0.1 * normal(self.vectors.shape, generator))
 
-    def lookups(self, xyz: torch.Tensor, times: torch.Tensor, tables: Optional[torch.Tensor] = None,
-                n_valid: Optional[torch.Tensor] = None, seg: Optional[torch.Tensor] = None, s: int = 0):
-        """→ the grids' and vectors' lookups, which `models/fused_field.py::
-        compose` turns into features, with the skip inputs
-        (`models/fused_field.py::field_lookups`)."""
+    def field(self, tables: Optional[torch.Tensor] = None) -> SegmentField:
+        """This segment's part of a field query (`models/fused_field.py::
+        segment_field`): its own tables, or `tables`, their gathered stack."""
         params = {name: getattr(self, name) for name in (*GRID_NAMES, "vectors")}
-        return field_lookups(params, xyz, times, self.cfg, tables, n_valid, seg, s)
+        return segment_field(params, self.cfg, tables)

@@ -1,16 +1,14 @@
-"""The 4D decomposition on the CUDA `field_interp` kernels.
+"""The 4D decomposition on the CUDA field query kernels.
 
-Counterpart of `humanrf_tpu/models/fused_field.py`. A field query is two
-`field_interp` calls: the grid mode over all 4·L grid level-pairs, then the
-vector mode over the four 1-D vectors. The kernels compute each sample's
-corners themselves (the corner math lives in `ops/field_interp.py`, with
-the plain versions), so a field query launches the forward kernel twice and
-its backward the backward kernel twice. Layouts follow the JAX package:
-samples on the last axis, (P, F, N) features, one (D, N) → (N, D) transpose
-at the end (`compose`). The skip inputs `n_valid` and `seg`/`s` go to both
-calls (`field_lookups`; see `ops/field_interp.py`): a skipped sample's
-lookups are exact zeros, so a multi-segment model sums its segments'
-lookups and composes once (`models/humanrf.py::features`).
+Counterpart of `humanrf_tpu/models/fused_field.py`. A field query is one
+`field_query` call (`ops/field_interp.py`) over every segment's tables: on
+the card one forward kernel launch, which computes each sample's corners,
+the four grids' and vectors' lookups, their products and sum, and writes
+the (N, L·F) features, and one backward launch; no (4, L·F, N) lookup
+tensor exists. The skip inputs `n_valid` and `seg` route and skip samples
+inside the kernels (see `ops/field_interp.py`). The plain version,
+`field_query_plain`, is the per-pair `field_interp` calls, the sum over
+segments and `compose`.
 """
 from __future__ import annotations
 
@@ -20,48 +18,28 @@ import torch
 
 from humanrf_torch.ops.field_interp import (  # noqa: F401  (corner math re-exported for the tests)
     _GRID_AXES,
-    _PARTNER_VECTOR,
-    VECTOR_SPEC,
+    SegmentField,
     _grid_corner_idx_w,
     _vector_idx_w,
-    field_interp,
+    field_query,
     grid_spec,
 )
 
 
-def field_lookups(params: Mapping[str, torch.Tensor], xyz, times, cfg, tables: Optional[torch.Tensor] = None,
-                  n_valid: Optional[torch.Tensor] = None, seg: Optional[torch.Tensor] = None, s: int = 0):
-    """xyz (N, 3) in [0,1]; times (N, 1) in [0,1] → the grids' and the
-    vectors' lookups, each (4, L·F, N) fp32. `tables` is the (4L, F, T) stack
-    of the four grids when the caller has it (the FSDP step gathers it once
-    per step); else it is concatenated from `params`. Samples past
-    `n_valid`, or whose `seg` is not `s`, look up zeros."""
-    grid_cfg = cfg.grid
-    n = xyz.shape[0]
-    L, F = grid_cfg.n_levels, grid_cfg.n_features_per_level
-    xyzt = torch.cat([xyz, times], dim=-1).detach()  # (N, 4); positions get no gradient, as in JAX
-
-    # A dense level's far corner can index past the table (res³ ≤ T <
-    # res³ + res² + res); field_interp gives it no weight, as the TPU kernel does.
-    if tables is None:
-        tables = torch.cat([params[name] for name, _ in _GRID_AXES], dim=0)  # (4L, F, T)
-    feats = field_interp(tables, xyzt, grid_spec(grid_cfg), n_valid, seg, s)  # (4L, F, N)
-    v = field_interp(params["vectors"], xyzt, VECTOR_SPEC, n_valid, seg, s)  # (4, D, N), D == L·F
-    return feats.reshape(4, L * F, n), v
-
-
-def compose(f: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The grids' and vectors' lookups (4, D, N) → (N, D) features,
-    f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x + f_xzt⊙v_y."""
-    out = f[0] * v[_PARTNER_VECTOR[0]]
-    for g in range(1, 4):
-        out = out + f[g] * v[_PARTNER_VECTOR[g]]
-    return out.T
+def segment_field(params: Mapping[str, torch.Tensor], cfg, tables: Optional[torch.Tensor] = None) -> SegmentField:
+    """One segment's part of a field query from its parameters: the four
+    grids `xyz`, `xyt`, `yzt`, `xzt`, or `tables`, their (4L, F, T) stack
+    where the caller holds it (the FSDP step gathers it once per step), and
+    `vectors`."""
+    grids = (tables,) if tables is not None else tuple(params[name] for name, _ in _GRID_AXES)
+    return SegmentField(grids, params["vectors"], grid_spec(cfg.grid))
 
 
 def apply_decomposition4d_fused(params: Mapping[str, torch.Tensor], xyz, times, cfg,
                                 tables: Optional[torch.Tensor] = None, n_valid: Optional[torch.Tensor] = None,
-                                seg: Optional[torch.Tensor] = None, s: int = 0) -> torch.Tensor:
+                                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """xyz (N, 3) in [0,1]; times (N, 1) in [0,1] → (N, L·F) fp32 features
-    (`field_lookups`, then `compose`)."""
-    return compose(*field_lookups(params, xyz, times, cfg, tables, n_valid, seg, s))
+    of one segment (`field_query`; samples whose `seg` is not 0, or past
+    `n_valid`, get zeros)."""
+    xyzt = torch.cat([xyz, times], dim=-1).detach()  # positions get no gradient, as in JAX
+    return field_query([segment_field(params, cfg, tables)], xyzt, n_valid, seg)

@@ -10,11 +10,9 @@ params pytree leaf for leaf:
 
 Samples are routed to their segment on the device, with static shapes and
 no host read, as the JAX package routes them (`humanrf_tpu/models/
-humanrf.py:243-276`, its where-masking without the `lax.cond`): every
-segment's table lookups run over all N samples, their kernels skipping the
-samples of other segments (`seg`/`s` of `ops/field_interp.py`); the
-per-segment lookups, exact zeros outside each segment, are summed and
-composed into features once. The
+humanrf.py:243-276`, its where-masking without the `lax.cond`): one field
+query over all N samples reads each sample's own segment's tables inside
+its kernels (`seg` of `ops/field_interp.py::field_query`). The
 proposal field, plain PyTorch ops, reads each sample's own segment's
 factors in one gather over the segments' stacked factors (evaluating every
 segment on all N and selecting with `torch.where` would repeat its gathers
@@ -39,7 +37,7 @@ from torch import nn
 
 from humanrf_torch.models.activation import truncated_exp
 from humanrf_torch.models.decomposition4d import Decomposition4D, Decomposition4DConfig
-from humanrf_torch.models.fused_field import compose
+from humanrf_torch.models import fused_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.mlp import MLP, normal
 from humanrf_torch.models.proposal import ProposalField, ProposalFieldConfig, apply_proposal_field
@@ -179,13 +177,9 @@ class HumanRFModel(nn.Module):
         tables = tables or {}
         frame_numbers = frame_numbers.long()
         times = self.frame_to_local_time[frame_numbers][:, None]
-        xyz = positions + 0.5
-        seg = self._segment_ids(frame_numbers)
-        grid = vectors = None
-        for s, segment in enumerate(self.segments):
-            f, v = segment.lookups(xyz, times, tables.get(s), n_valid, seg, s)
-            grid, vectors = (f, v) if grid is None else (grid + f, vectors + v)
-        return compose(grid, vectors)
+        xyzt = torch.cat([positions + 0.5, times], dim=-1).detach()  # positions get no gradient, as in JAX
+        fields = [segment.field(tables.get(s)) for s, segment in enumerate(self.segments)]
+        return fused_field.field_query(fields, xyzt, n_valid, self._segment_ids(frame_numbers))
 
     def proposal_density(self, positions: torch.Tensor, frame_numbers: torch.Tensor) -> torch.Tensor:
         """positions (N, 3) in [-0.5, 0.5]; frame_numbers (N,) → sigma (N,) fp32."""

@@ -1,7 +1,19 @@
-"""The field's table lookups with their corner math: `field_interp(tables, xyzt, spec)`.
+"""The field's table lookups with their corner math: the field query
+`field_query(fields, xyzt)`, the main path, and the per-pair lookup
+`field_interp(tables, xyzt, spec)` it is built from and checked against.
 
-Counterpart of what `humanrf_tpu/models/fused_field.py` does around each
-`fused_interp` call: the corner indices and weights of every sample
+`field_query` computes a sample's features from every segment's tables in
+one CUDA kernel launch each way (`FieldQueryKernel`): the four grids' and
+vectors' lookups, the composition f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x +
+f_xzt⊙v_y and the routing of each sample to its own segment (`seg`), so no
+(4, L·F, N) lookup exists; the backward recomputes the lookups. Its plain
+version, `field_query_plain`, is what the model did before the kernels
+took over: per segment a grid and a vector `field_interp` call, their sum
+over segments, `compose`. CPU tensors take it; on CUDA tensors it runs the
+per-pair kernels, which the query's forward equals bit for bit.
+
+The rest of this docstring is the per-pair lookup's. Counterpart of what
+`humanrf_tpu/models/fused_field.py` does around each `fused_interp` call: the corner indices and weights of every sample
 (`_grid_corner_idx_w`, `_vector_idx_w`), then the interpolating lookup
 `out[p, f, n] = Σ_c w[p, c, n] · tables[p, f, idx[p, c, n]]`. On the card
 the hand-written CUDA kernels of `humanrf_torch/csrc/field_interp.cu`
@@ -42,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -101,13 +113,15 @@ def grid_spec(cfg: HashGridConfig) -> FieldSpec:
 
 VECTOR_SPEC = FieldSpec(mode=MODE_VECTOR, n_levels=0)
 
-# Kernel launches since the last reset, per direction (each wrapper adds one
-# where it launches its kernel).
-launches = {"fwd": 0, "bwd": 0}
+# Kernel launches since the last reset (each wrapper adds one where it
+# launches its kernel): "fwd"/"bwd" the field query's kernels, the main path;
+# "pair_fwd"/"pair_bwd" the per-pair `field_interp` kernels.
+launches = {"fwd": 0, "bwd": 0, "pair_fwd": 0, "pair_bwd": 0}
 
 
 def reset_launches() -> None:
-    launches["fwd"] = launches["bwd"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _grid_corner_idx_w(pts: torch.Tensor, level_scales, level_resolutions, table_size: int, dense=None):
@@ -263,7 +277,7 @@ def _launch_fwd(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_val
     if xyzt.shape[0] == 0:
         return out  # nothing to launch
     _run("field_interp_fwd", tables.contiguous(), xyzt, out, spec, F, T, n_valid, seg, s)
-    launches["fwd"] += 1
+    launches["pair_fwd"] += 1
     return out
 
 
@@ -276,7 +290,7 @@ def _launch_bwd(g: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, table_size
     if N == 0:
         return dtab  # nothing to launch
     _run("field_interp_bwd", g.contiguous(), xyzt, dtab, spec, F, table_size, n_valid, seg, s)
-    launches["bwd"] += 1
+    launches["pair_bwd"] += 1
     return dtab
 
 
@@ -343,3 +357,261 @@ def field_interp(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_va
     if tables.device.type == "cpu":
         return PlainFieldInterp.apply(tables, xyzt, spec, n_valid, seg, s)
     raise ValueError(f"field_interp runs on cuda or cpu tensors, not {tables.device}")
+
+
+# ------------------------------------------------------------ the field query
+
+MAX_SEGMENTS = 128
+
+
+class SegmentTables(ctypes.Structure):
+    """`struct SegmentTables` of `csrc/field_interp.cu`."""
+
+    _fields_ = [
+        ("grid", ctypes.c_void_p * 4),
+        ("vectors", ctypes.c_void_p),
+        ("dgrid", ctypes.c_void_p * 4),
+        ("dvectors", ctypes.c_void_p),
+        ("T", ctypes.c_uint32),
+        ("dense", ctypes.c_uint32),
+    ]
+
+
+class FieldQuery(ctypes.Structure):
+    """`struct FieldQuery` of `csrc/field_interp.cu`, passed by value."""
+
+    _fields_ = [
+        ("n_segments", ctypes.c_int32),
+        ("n_levels", ctypes.c_int32),
+        ("F", ctypes.c_int32),
+        ("R", ctypes.c_int32),
+        ("scale", ctypes.c_float * MAX_LEVELS),
+        ("resolution", ctypes.c_int32 * MAX_LEVELS),
+        ("seg", SegmentTables * MAX_SEGMENTS),
+    ]
+
+
+class SegmentField(NamedTuple):
+    """One segment's part of a field query: `grids`, its four (L, F, T)
+    tables xyz, xyt, yzt, xzt, or one (4L, F, T) stack of them (the FSDP
+    step's gathered tables); `vectors` (4, L·F, R); `spec`, the grid spec of
+    its hash-grid configuration (`grid_spec`)."""
+
+    grids: Tuple[torch.Tensor, ...]
+    vectors: torch.Tensor
+    spec: FieldSpec
+
+
+def compose(f: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The grids' and vectors' lookups (4, D, N) → (N, D) features,
+    f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x + f_xzt⊙v_y."""
+    out = f[0] * v[_PARTNER_VECTOR[0]]
+    for g in range(1, 4):
+        out = out + f[g] * v[_PARTNER_VECTOR[g]]
+    return out.T
+
+
+def _stack(field: SegmentField) -> torch.Tensor:
+    return field.grids[0] if len(field.grids) == 1 else torch.cat(field.grids, dim=0)
+
+
+def field_query_plain(fields: Sequence[SegmentField], xyzt: torch.Tensor, n_valid=None,
+                      seg=None) -> torch.Tensor:
+    """The field query as `field_interp` calls: per segment s a grid call and
+    a vector call serving the samples whose `seg` is s (all of them without
+    `seg`), each (4, L·F, N) with zeros elsewhere; the sum over segments;
+    `compose`. Differentiable in the tables through `field_interp`, so on
+    CPU tensors it is plain PyTorch both ways, and on CUDA tensors the
+    per-pair kernels with PyTorch's sum and composition, which the field
+    query's kernels equal bit for bit forward."""
+    n = xyzt.shape[0]
+    grid = vectors = None
+    for s, field in enumerate(fields):
+        f = field_interp(_stack(field), xyzt, field.spec, n_valid, seg, s).reshape(4, -1, n)
+        v = field_interp(field.vectors, xyzt, VECTOR_SPEC, n_valid, seg, s)
+        grid, vectors = (f, v) if grid is None else (grid + f, vectors + v)
+    return compose(grid, vectors)
+
+
+def field_query_bwd_plain(fields: Sequence[SegmentField], xyzt: torch.Tensor, grad: torch.Tensor, n_valid=None,
+                          seg=None) -> list:
+    """The field query's backward in PyTorch, in `grad`'s type (fp32, or
+    fp64 sums as a reference): the lookups recomputed in fp32 by
+    `field_interp_plain`, the cotangents grad⊙v_p of grid g and grad⊙f_g of
+    its partner vector p, then `field_interp_bwd_plain`. → the gradients of
+    every field's grids (as given: four tables or one stack) and vectors, in
+    that order."""
+    n = xyzt.shape[0]
+    g = grad.T
+    out = []
+    for s, field in enumerate(fields):
+        stack = _stack(field)
+        L = stack.shape[0] // 4
+        f = field_interp_plain(stack, xyzt, field.spec, n_valid, seg, s).reshape(4, -1, n).to(g.dtype)
+        v = field_interp_plain(field.vectors, xyzt, VECTOR_SPEC, n_valid, seg, s).to(g.dtype)
+        df = torch.stack([g * v[_PARTNER_VECTOR[i]] for i in range(4)])
+        dv = torch.empty_like(df)
+        for i in range(4):
+            dv[_PARTNER_VECTOR[i]] = g * f[i]
+        dstack = field_interp_bwd_plain(df.reshape(stack.shape[0], stack.shape[1], n).contiguous(), xyzt, field.spec,
+                                        stack.shape[2], n_valid, seg, s)
+        out.extend(dstack.split(L) if len(field.grids) == 4 else (dstack,))
+        out.append(field_interp_bwd_plain(dv.contiguous(), xyzt, VECTOR_SPEC, field.vectors.shape[2], n_valid, seg, s))
+    return out
+
+
+def _check_query(fields: Sequence[SegmentField], xyzt: torch.Tensor, n_valid=None, seg=None) -> None:
+    if not 1 <= len(fields) <= MAX_SEGMENTS:
+        raise ValueError(f"a field query takes 1..{MAX_SEGMENTS} segments, got {len(fields)}")
+    if len(fields) > 1 and seg is None:
+        raise ValueError(f"a field query over {len(fields)} segments needs `seg` to route its samples")
+    first = fields[0].spec
+    for s, field in enumerate(fields):
+        spec = field.spec
+        if spec.mode != MODE_GRID or (spec.n_levels, spec.levels()[:2]) != (first.n_levels, first.levels()[:2]):
+            raise ValueError(f"segment {s}'s grid spec differs from segment 0's in its levels or mode")
+        L, first_grid = spec.n_levels, field.grids[0]
+        shape = (4 * L if len(field.grids) == 1 else L, *first_grid.shape[1:])
+        if len(field.grids) not in (1, 4) or first_grid.dim() != 3 or any(t.shape != shape for t in field.grids):
+            raise ValueError(f"segment {s}'s grids {[tuple(t.shape) for t in field.grids]} are not four "
+                             f"(L, F, T) tables or one (4L, F, T) stack at L = {L}")
+        F = first_grid.shape[1]
+        if field.vectors.dim() != 3 or field.vectors.shape[:2] != (4, L * F):
+            raise ValueError(f"segment {s}'s vectors {tuple(field.vectors.shape)} are not (4, {L * F}, R)")
+        if field.vectors.shape[2] != fields[0].vectors.shape[2] or F != fields[0].grids[0].shape[1]:
+            raise ValueError(f"segment {s}'s vector resolution or features differ from segment 0's")
+        for t in (*field.grids, field.vectors):
+            if t.dtype != torch.float32 or t.device != xyzt.device:
+                raise TypeError(f"segment {s}'s tables must be float32 on {xyzt.device}, got {t.dtype} on {t.device}")
+    if xyzt.dim() != 2 or xyzt.shape[1] != 4 or xyzt.dtype != torch.float32:
+        raise ValueError(f"expected float32 xyzt (N, 4), got {tuple(xyzt.shape)} {xyzt.dtype}")
+    _check(fields[0].vectors, xyzt, VECTOR_SPEC, n_valid, seg)  # the skip inputs
+
+
+def _query_struct(fields: Sequence[SegmentField], grads=None) -> FieldQuery:
+    """The kernels' FieldQuery: levels from segment 0's spec, each segment's
+    table pointers (a stack's four grids at their offsets), size and dense
+    levels, and with `grads` (one tensor per table, as `_flat` orders them)
+    the gradients' pointers."""
+    spec = fields[0].spec
+    F = fields[0].grids[0].shape[1]
+    q = FieldQuery(n_segments=len(fields), n_levels=spec.n_levels, F=F, R=fields[0].vectors.shape[2])
+    scales, resolutions, _ = spec.levels()
+    for level in range(spec.n_levels):
+        q.scale[level], q.resolution[level] = scales[level], resolutions[level]
+    def grid_ptrs(tensors):  # four tables, or a stack's four grids at their offsets
+        if len(tensors) == 4:
+            return [t.data_ptr() for t in tensors]
+        return [tensors[0].data_ptr() + g * (tensors[0].numel() // 4) * tensors[0].element_size() for g in range(4)]
+
+    it = iter(grads) if grads is not None else None
+    for s, field in enumerate(fields):
+        st = q.seg[s]
+        st.T = field.grids[0].shape[2]
+        st.dense = sum(1 << level for level, d in enumerate(field.spec.levels()[2]) if d)
+        st.grid[:], st.vectors = grid_ptrs(field.grids), field.vectors.data_ptr()
+        if it is not None:
+            st.dgrid[:] = grid_ptrs([next(it) for _ in field.grids])
+            st.dvectors = next(it).data_ptr()
+    return q
+
+
+def _query_fn(name: str):
+    fn = getattr(load_library("field_interp").lib, name)
+    if fn.argtypes is None:
+        # q; xyzt, out or grad; N; n_valid, seg; stream.
+        fn.argtypes = [FieldQuery, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _run_query(name: str, fields, xyzt: torch.Tensor, second: torch.Tensor, n_valid, seg, grads=None) -> None:
+    q = _query_struct(fields, grads)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(xyzt.device):
+        stream = torch.cuda.current_stream(xyzt.device).cuda_stream
+        err = _query_fn(name)(q, xyzt.data_ptr(), second.data_ptr(), xyzt.shape[0], ptr(n_valid), ptr(seg), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed at {len(fields)} segments, L={q.n_levels}, F={q.F}, R={q.R}, "
+                           f"N={xyzt.shape[0]}: cudaError {err}")
+
+
+def _launch_query_fwd(fields: Sequence[SegmentField], xyzt: torch.Tensor, n_valid=None, seg=None) -> torch.Tensor:
+    """One forward launch: (N, L·F) features."""
+    fields = [SegmentField(tuple(t.contiguous() for t in f.grids), f.vectors.contiguous(), f.spec) for f in fields]
+    xyzt = _aligned(xyzt)
+    out = torch.empty((xyzt.shape[0], fields[0].vectors.shape[1]), dtype=torch.float32, device=xyzt.device)
+    if xyzt.shape[0] == 0:
+        return out  # nothing to launch
+    _run_query("field_query_fwd", fields, xyzt, out, n_valid, seg)
+    launches["fwd"] += 1
+    return out
+
+
+def _launch_query_bwd(fields: Sequence[SegmentField], xyzt: torch.Tensor, grad: torch.Tensor, n_valid=None,
+                      seg=None) -> list:
+    """One backward launch → the gradients of every field's grids (as
+    given) and vectors, in that order."""
+    fields = [SegmentField(tuple(t.contiguous() for t in f.grids), f.vectors.contiguous(), f.spec) for f in fields]
+    xyzt = _aligned(xyzt)
+    if grad.dtype != torch.float32 or tuple(grad.shape) != (xyzt.shape[0], fields[0].vectors.shape[1]):
+        raise ValueError(f"expected a float32 cotangent {(xyzt.shape[0], fields[0].vectors.shape[1])}, got "
+                         f"{tuple(grad.shape)} {grad.dtype}")
+    grads = [torch.zeros_like(t) for t in _flat(fields)]
+    if xyzt.shape[0] == 0:
+        return grads  # nothing to launch
+    _run_query("field_query_bwd", fields, xyzt, grad.contiguous(), n_valid, seg, grads)
+    launches["bwd"] += 1
+    return grads
+
+
+def _flat(fields: Sequence[SegmentField]) -> list:
+    return [t for f in fields for t in (*f.grids, f.vectors)]
+
+
+def _unflat(layout, tensors) -> list:
+    """The fields again from `_flat`'s tensors and their (spec, number of grid tensors) layout."""
+    it = iter(tensors)
+    return [SegmentField(tuple(next(it) for _ in range(k)), next(it), spec) for spec, k in layout]
+
+
+class FieldQueryKernel(torch.autograd.Function):
+    """Both directions of a field query on its CUDA kernels, one launch
+    each; the forward saves `xyzt`, the skip inputs and the tables, no
+    lookup."""
+
+    @staticmethod
+    def forward(ctx, layout, xyzt, n_valid, seg, *tensors):
+        xyzt = _aligned(xyzt)
+        ctx.layout, ctx.skips = layout, (n_valid is not None, seg is not None)
+        ctx.save_for_backward(xyzt, *(t for t in (n_valid, seg) if t is not None), *tensors)
+        return _launch_query_fwd(_unflat(layout, tensors), xyzt, n_valid, seg)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        saved = iter(ctx.saved_tensors)
+        xyzt = next(saved)
+        n_valid, seg = (next(saved) if given else None for given in ctx.skips)
+        grads = _launch_query_bwd(_unflat(ctx.layout, list(saved)), xyzt, grad, n_valid, seg)
+        return (None, None, None, None, *grads)
+
+
+def field_query(fields: Sequence[SegmentField], xyzt: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The 4D field's features: `fields`, one `SegmentField` per segment;
+    xyzt (N, 4) f32 in [0, 1] → (N, L·F) f32, differentiable in every
+    segment's grids and vectors. `seg` ((N,) int32) routes sample n to
+    segment seg[n] (a sample of no segment, seg outside [0, len(fields)),
+    gets zeros; without `seg` every sample is segment 0's); samples at or
+    past `n_valid` (one int32) get zeros.
+
+    CUDA tensors go through the field query's kernels (one launch each
+    way), CPU tensors through `field_query_plain`; anything else raises."""
+    _check_query(fields, xyzt, n_valid, seg)
+    if xyzt.device.type == "cuda":
+        layout = tuple((f.spec, len(f.grids)) for f in fields)
+        return FieldQueryKernel.apply(layout, xyzt, n_valid, seg, *_flat(fields))
+    if xyzt.device.type == "cpu":
+        return field_query_plain(fields, xyzt, n_valid, seg)
+    raise ValueError(f"field_query runs on cuda or cpu tensors, not {xyzt.device}")

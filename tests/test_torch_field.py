@@ -159,3 +159,175 @@ def test_proposal_field_matches_jax():
         {"factors": torch.tensor(params["factors"])}, torch.tensor(coords), TProposalConfig(resolution=32, rank=8)
     ).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=0)
+
+
+# ------------------------------------------------------- the field query
+
+from humanrf_torch.ops import field_interp as fli  # noqa: E402
+
+# Two adaptive segments: T = 2^9 (its dense level's far corners leave the
+# table) and T = 2^11, both over the same levels.
+_QUERY_GRIDS = (dict(n_levels=3, n_features_per_level=2, log2_hashmap_size=9, base_resolution=8, finest_resolution=64),
+                dict(n_levels=3, n_features_per_level=2, log2_hashmap_size=11, base_resolution=8, finest_resolution=64))
+
+
+def _query_fields(segments, seed=0):
+    rng = np.random.default_rng(seed)
+    fields = []
+    for grid in _QUERY_GRIDS[:segments]:
+        cfg = THashGridConfig(**grid)
+        L, F, T = cfg.n_levels, cfg.n_features_per_level, cfg.table_size
+        grids = tuple(torch.tensor(rng.normal(size=(L, F, T)).astype(np.float32)) for _ in range(4))
+        fields.append(fli.SegmentField(grids, torch.tensor(rng.normal(size=(4, L * F, 64)).astype(np.float32)),
+                                       fli.grid_spec(cfg)))
+    return fields
+
+
+def _query_skips(n, segments, skips, seed=1):
+    """`n_valid` at 70% of n and/or a segment id per sample, with -1 (a
+    frame of no segment) among them."""
+    rng = np.random.default_rng(seed)
+    xyzt = torch.tensor(rng.uniform(-0.05, 1.05, (n, 4)).astype(np.float32))
+    n_valid = torch.tensor([int(0.7 * n)], dtype=torch.int32) if "n_valid" in skips else None
+    seg = torch.tensor(rng.integers(-1, segments, n).astype(np.int32)) if "seg" in skips else None
+    return xyzt, n_valid, seg
+
+
+def _present_query(fields, xyzt, n_valid, seg):
+    """The model's query before the field query kernels: per segment its
+    grids concatenated, a grid and a vector `field_interp` call, the sum
+    over segments, then f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x + f_xzt⊙v_y."""
+    grid = vectors = None
+    for s, field in enumerate(fields):
+        f = fli.field_interp(torch.cat(field.grids), xyzt, field.spec, n_valid, seg, s).reshape(4, -1, xyzt.shape[0])
+        v = fli.field_interp(field.vectors, xyzt, fli.VECTOR_SPEC, n_valid, seg, s)
+        grid, vectors = (f, v) if grid is None else (grid + f, vectors + v)
+    out = grid[0] * vectors[3]
+    for g, p in ((1, 2), (2, 0), (3, 1)):
+        out = out + grid[g] * vectors[p]
+    return out.T
+
+
+def _with_grad(fields):
+    """The fields' tables as fresh leaves, and the fields over them."""
+    leaves = [t.clone().requires_grad_() for t in fli._flat(fields)]
+    return leaves, fli._unflat([(f.spec, len(f.grids)) for f in fields], leaves)
+
+
+_QUERY_CASES = [(1, ("n_valid",)), (1, ("seg",)), (2, ("seg",)), (2, ("n_valid", "seg"))]
+
+
+@pytest.mark.parametrize("segments,skips", _QUERY_CASES, ids=["1-n_valid", "1-seg", "2-seg", "2-both"])
+def test_field_query_equals_the_present_composition(segments, skips):
+    """`field_query` on CPU tensors (its plain version) against the model's
+    query as it was: the features bit for bit, a sample past `n_valid` or of
+    no segment exactly 0, and every table's and vector's gradient bit for
+    bit."""
+    fields = _query_fields(segments)
+    xyzt, n_valid, seg = _query_skips(600, segments, skips)
+    leaves, query_fields = _with_grad(fields)
+    out = fli.field_query(query_fields, xyzt, n_valid, seg)
+    ref_leaves, ref_fields = _with_grad(fields)
+    ref = _present_query(ref_fields, xyzt, n_valid, seg)
+    assert torch.equal(out, ref) and torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    dead = torch.zeros(600, dtype=torch.bool)
+    if n_valid is not None:
+        dead |= torch.arange(600) >= n_valid
+    if seg is not None:
+        dead |= seg < 0
+    assert dead.any() and not out[dead].any() and out[~dead].abs().min() > 0
+    grad = torch.tensor(np.random.default_rng(2).normal(size=out.shape).astype(np.float32))
+    out.backward(grad)
+    ref.backward(grad)
+    for a, b in zip(leaves, ref_leaves):
+        assert a.grad.abs().max() > 0 and torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("segments", [1, 2])
+def test_field_query_takes_a_gathered_stack(segments):
+    """The FSDP step's form: a segment's grids as one (4L, F, T) stack give
+    the features of its four tables bit for bit, and the stack's gradient is
+    the four tables' gradients stacked."""
+    fields = _query_fields(segments, seed=3)
+    xyzt, n_valid, seg = _query_skips(500, segments, ("n_valid", "seg"), seed=4)
+    stacked = [fli.SegmentField((torch.cat(f.grids),), f.vectors, f.spec) for f in fields]
+    leaves, query_fields = _with_grad(fields)
+    stack_leaves, stack_fields = _with_grad(stacked)
+    out = fli.field_query(query_fields, xyzt, n_valid, seg)
+    out_stacked = fli.field_query(stack_fields, xyzt, n_valid, seg)
+    assert torch.equal(out, out_stacked)
+    grad = torch.tensor(np.random.default_rng(5).normal(size=out.shape).astype(np.float32))
+    out.backward(grad)
+    out_stacked.backward(grad)
+    for s in range(segments):
+        tables, stack = leaves[5 * s:5 * s + 4], stack_leaves[2 * s]
+        assert torch.equal(stack.grad, torch.cat([t.grad for t in tables]))
+        assert torch.equal(stack_leaves[2 * s + 1].grad, leaves[5 * s + 4].grad)
+
+
+@pytest.mark.parametrize("segments,skips", _QUERY_CASES, ids=["1-n_valid", "1-seg", "2-seg", "2-both"])
+def test_field_query_bwd_plain_equals_autograd(segments, skips):
+    """The backward's plain version (the cards' reference, there summed in
+    fp64) in fp32 equals autograd through the plain query bit for bit, and
+    in fp64 within 1e-6 of the scale."""
+    fields = _query_fields(segments, seed=6)
+    xyzt, n_valid, seg = _query_skips(400, segments, skips, seed=7)
+    leaves, query_fields = _with_grad(fields)
+    out = fli.field_query(query_fields, xyzt, n_valid, seg)
+    grad = torch.tensor(np.random.default_rng(8).normal(size=out.shape).astype(np.float32))
+    out.backward(grad)
+    plain = fli.field_query_bwd_plain(fields, xyzt, grad, n_valid, seg)
+    plain64 = fli.field_query_bwd_plain(fields, xyzt, grad.double(), n_valid, seg)
+    for leaf, a, b in zip(leaves, plain, plain64):
+        assert torch.equal(leaf.grad, a)
+        assert float((b - a.double()).abs().max() / b.abs().max()) < 1e-6
+
+
+def test_model_features_route_each_sample_to_its_segment():
+    """`HumanRFModel.features` over two segments: each sample's features are
+    its own segment's, as a one-segment query of that segment's tables
+    gives them, and a frame of no segment reads zeros; with the FSDP form's
+    gathered stacks the same bit for bit."""
+    from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
+
+    model = HumanRFModel(HumanRFConfig(sorted_frame_numbers=(0, 1, 2, 3), segment_sizes=(2, 2), n_levels=2,
+                                       log2_hashmap_size=12, coarsest_resolution=4, finest_resolution=64))
+    model.init_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for segment in model.segments:
+            for name in ("xyz", "xyt", "yzt", "xzt"):
+                getattr(segment, name).mul_(3e3)
+    model.frame_to_segment[3] = -1  # frame 3 belongs to no segment
+    rng = np.random.default_rng(9)
+    positions = torch.tensor(rng.uniform(-0.5, 0.5, (300, 3)).astype(np.float32))
+    frames = torch.tensor(rng.integers(0, 4, 300))
+    out = model.features(positions, frames)
+    stacks = {s: torch.cat([getattr(segment, name) for name in ("xyz", "xyt", "yzt", "xzt")])
+              for s, segment in enumerate(model.segments)}
+    assert torch.equal(model.features(positions, frames, stacks), out)
+    times = model.frame_to_local_time[frames][:, None]
+    xyzt = torch.cat([positions + 0.5, times], dim=-1)
+    for s, segment in enumerate(model.segments):
+        mine = model.frame_to_segment[frames] == s
+        alone = fli.field_query([segment.field()], xyzt[mine])
+        assert mine.any() and torch.equal(out[mine], alone)
+    assert not out[frames == 3].any()
+
+
+@pytest.mark.parametrize("bad", ["two-segments-no-seg", "levels-differ", "vectors-shape", "three-grids", "f64"])
+def test_field_query_rejects_bad_fields(bad):
+    fields = _query_fields(2)
+    xyzt, _, seg = _query_skips(50, 2, ("seg",))
+    if bad == "two-segments-no-seg":
+        seg = None
+    elif bad == "levels-differ":
+        cfg = THashGridConfig(**dict(_QUERY_GRIDS[1], finest_resolution=128))
+        fields[1] = fields[1]._replace(spec=fli.grid_spec(cfg))
+    elif bad == "vectors-shape":
+        fields[1] = fields[1]._replace(vectors=fields[1].vectors[:, :-1])
+    elif bad == "three-grids":
+        fields[0] = fields[0]._replace(grids=fields[0].grids[:3])
+    else:
+        fields[0] = fields[0]._replace(vectors=fields[0].vectors.double())
+    with pytest.raises((TypeError, ValueError)):
+        fli.field_query(fields, xyzt, seg=seg)

@@ -8,6 +8,7 @@ On the CPU the wrapper runs the plain PyTorch versions; the CUDA kernels
 (humanrf_torch/csrc/field_interp.cu) are checked against them by the
 `cuda`-marked tests, on the card only.
 """
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -244,11 +245,11 @@ def test_forward_kernel_matches_plain_on_card(cuda_device, name):
     the same order without fma: equal up to 1e-5 of the scale (bit for bit in
     practice; one wrong corner would show far above that)."""
     spec, tables, xyzt, _ = _card_inputs(name, cuda_device)
-    before = fli.launches["fwd"]
+    before = fli.launches["pair_fwd"]
     out = fli.field_interp(tables, xyzt, spec)
     ref = fli.field_interp_plain(tables, xyzt, spec)
     torch.cuda.synchronize()
-    assert fli.launches["fwd"] == before + 1
+    assert fli.launches["pair_fwd"] == before + 1
     assert float((out - ref).abs().max() / ref.abs().max()) < 1e-5
 
 
@@ -260,10 +261,122 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, name):
     few thousand terms here; its fp32 sums, taken in runs, blocks and then the
     table, stay within 1e-5 of the scale."""
     spec, tables, xyzt, g = _card_inputs(name, cuda_device)
-    before = fli.launches["bwd"]
+    before = fli.launches["pair_bwd"]
     t = tables.clone().requires_grad_()
     fli.field_interp(t, xyzt, spec).backward(g)
     ref = fli.field_interp_bwd_plain(g.double(), xyzt, spec, tables.shape[-1])
     torch.cuda.synchronize()
-    assert fli.launches["bwd"] == before + 1
+    assert fli.launches["pair_bwd"] == before + 1
     assert float((t.grad.double() - ref).abs().max() / ref.abs().max()) < 1e-5
+
+
+# ------------------------------------------------------- the field query
+
+# The main path's two fields, each over two 25-frame segments with R = 2048
+# vectors: the paper's dense L16/F2 (T = 2^17 a segment; levels 0-3 dense)
+# and the r4 L8/F4 (T = 2^11; every level hashed). N is the dense render
+# budget and the r4 step's fine samples.
+QUERY_FIELDS = {
+    "dense": (dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=17, base_resolution=32,
+                   finest_resolution=2048), 640_000),
+    "r4": (dict(n_levels=8, n_features_per_level=4, log2_hashmap_size=11, base_resolution=32,
+                finest_resolution=2048), 131_072),
+}
+
+
+def _query_inputs(name, device):
+    """Two segments' fields (tables ±1 so that no product underflows), N
+    samples on rays of 64 consecutive samples 4e-4 apart (runs share their
+    coarse corners, as the samplers' are), a segment id per ray (-1 on one
+    ray in eight: a frame of no segment) and `n_valid` at 70% of N."""
+    grid, n = QUERY_FIELDS[name]
+    cfg = THashGridConfig(**grid)
+    rng = np.random.default_rng(5)
+    L, F, T, R = cfg.n_levels, cfg.n_features_per_level, cfg.table_size, 2048
+    fields = [fli.SegmentField(tuple(torch.tensor(rng.uniform(-1, 1, (L, F, T)).astype(np.float32), device=device)
+                                     for _ in range(4)),
+                               torch.tensor(rng.uniform(-1, 1, (4, L * F, R)).astype(np.float32), device=device),
+                               fli.grid_spec(cfg)) for _ in range(2)]
+    rays = n // 64
+    origin = rng.uniform(0.1, 0.9, (rays, 1, 4))
+    direction = rng.normal(size=(rays, 1, 4)) * np.array([1, 1, 1, 0])
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    xyzt = (origin + direction * 4e-4 * np.arange(64)[None, :, None]).reshape(n, 4).astype(np.float32)
+    seg = np.repeat(rng.integers(0, 2, rays), 64).astype(np.int32)
+    seg[np.repeat(rng.uniform(size=rays) < 0.125, 64)] = -1
+    grad = torch.tensor(rng.normal(size=(n, L * F)).astype(np.float32), device=device)
+    return (fields, torch.tensor(xyzt, device=device), torch.tensor([int(0.7 * n)], dtype=torch.int32, device=device),
+            torch.tensor(seg, device=device), grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(QUERY_FIELDS))
+def test_query_kernels_match_plain_on_card(cuda_device, name):
+    """The field query's forward kernel against the per-pair kernels
+    followed by PyTorch's segment sum and composition (`field_query_plain`
+    on the card): bit for bit, and one launch, whose allocations stay under
+    twice its (N, L·F) output (no (4, L·F, N) lookup). Its backward, one
+    launch beside its forward's, against the plain version summed in fp64: every table's and
+    vector's gradient within 1e-5 of its scale (atomics add in a
+    run-dependent order; the bound of the per-pair backward's test)."""
+    fields, xyzt, n_valid, seg, grad = _query_inputs(name, cuda_device)
+    before = dict(fli.launches)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    out = fli.field_query(fields, xyzt, n_valid, seg)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < 2 * out.numel() * 4
+    assert fli.launches == dict(before, fwd=before["fwd"] + 1)
+    ref = fli.field_query_plain(fields, xyzt, n_valid, seg)
+    assert torch.equal(out, ref) and torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    live = torch.arange(xyzt.shape[0], device=cuda_device) < n_valid
+    assert ref[live & (seg >= 0)].abs().max() > 0.1 and not out[~live | (seg < 0)].any()
+
+    tensors = [t.clone().requires_grad_() for t in fli._flat(fields)]
+    layout = [(f.spec, len(f.grids)) for f in fields]
+    before = dict(fli.launches)
+    fli.field_query(fli._unflat(layout, tensors), xyzt, n_valid, seg).backward(grad)
+    torch.cuda.synchronize()
+    assert fli.launches == dict(before, fwd=before["fwd"] + 1, bwd=before["bwd"] + 1)
+    refs = fli.field_query_bwd_plain(fields, xyzt, grad.double(), n_valid, seg)
+    for t, r in zip(tensors, refs):
+        assert float((t.grad.double() - r).abs().max() / r.abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["dense", "proposal"])
+def test_graphed_step_launches_one_query_kernel_each_way_on_card(cuda_device, sampling):
+    """A two-segment model at the main path's widths (dense: the paper's
+    L16/F2, log2 T 19; proposal: r4's L8/F4, log2 T 13) trained through its
+    captured step on the baked pool: every step, the eager first one and the
+    replays, launches one forward kernel per field query, the dense step's
+    prune and render passes and the proposal step's render pass, and one
+    backward for the render pass; no per-pair kernel."""
+    from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
+    from humanrf_torch.train.pipeline import PipelineConfig, make_train_step
+    from humanrf_torch.train.trainer import make_optimizer, sample_batch
+    from humanrf_torch.utils.rngs import fold_in, make_key
+    from humanrf_torch.view_inputs import load_train_inputs
+
+    inputs = load_train_inputs(Path(__file__).resolve().parent.parent / "runs_evidence" / "r4_full_schedule_748"
+                               / "torch_train_inputs.npz", cuda_device)
+    width = dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19) if sampling == "dense" else dict(
+        n_levels=8, n_features_per_level=4, log2_hashmap_size=13, proposal_rank=32)
+    model = HumanRFModel(HumanRFConfig(sorted_frame_numbers=tuple(range(50)), segment_sizes=(25, 25),
+                                       camera_embedding_dim=2, **width))
+    model.init_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda_device)
+    extra = (dict(samples_per_ray=1024, candidate_budget=160_000, sample_budget=80_000) if sampling == "dense"
+             else dict(proposal_samples_per_ray=32, render_samples_per_ray=16))
+    cfg = PipelineConfig(sampling=sampling, num_rays=1024, candidate_rays_factor=2, **extra)
+    optimizer = make_optimizer(model.named_parameters(), 1e-2, 0.5, 50_001, 0.03)
+    step = make_train_step(cfg, model, optimizer, inputs.width, inputs.height, graph=True)
+    generator = torch.Generator(cuda_device).manual_seed(1)
+    expected = {"fwd": 2 if sampling == "dense" else 1, "bwd": 1, "pair_fwd": 0, "pair_bwd": 0}
+    for i in range(4):
+        before = dict(fli.launches)
+        loss, _ = step(sample_batch(cfg, inputs.pixel_rgba, generator), inputs.pool, inputs.grids, inputs.aabb,
+                       fold_in(make_key(0, cuda_device), torch.tensor(i, device=cuda_device)))
+        assert {d: fli.launches[d] - before[d] for d in before} == expected, i
+        assert torch.isfinite(loss)

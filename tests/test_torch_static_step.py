@@ -507,16 +507,16 @@ def test_graph_step_matches_the_eager_step_on_card(train_inputs, jax_small, cuda
     assert lg[0] == le[0] and lg[1] == l1 and gg[1].keys() == g1[1].keys()
     assert all(_cosine(_np(gg[1][k]).astype(np.float64), _np(g1[1][k]).astype(np.float64)) >= 0.99999 for k in g1[1])
     assert all(_rel(a, b) <= 1e-4 for a, b in zip(lg, le))
-    # Per step both segments' grids and vectors: forward in the render pass
-    # (and, dense, the prune pass), backward once.
-    assert ng == ne and ne[0] == {"fwd": 8 if sampling == "dense" else 4, "bwd": 4}
+    # Per step one field query kernel forward in the render pass (and,
+    # dense, the prune pass), backward once; no per-pair kernel.
+    assert ng == ne and ne[0] == {"fwd": 2 if sampling == "dense" else 1, "bwd": 1, "pair_fwd": 0, "pair_bwd": 0}
 
 
 @pytest.mark.cuda
 def test_graph_render_matches_the_eager_render_on_card(view, cuda_device):
     """A 48×48 view of the tiny two-segment model, graph against eager, bit
     for bit, with launches counted per replayed batch: 9 batches, each with
-    a prune and a render pass over both segments' grids and vectors."""
+    a prune and a render pass, one field query kernel each."""
     _, _, model = _two_segment_render_models()
     model = model.to(cuda_device)
     inputs = ViewInputs(*(t_pipeline.PoolArrays(*(a.to(cuda_device) for a in view.inputs.pool)),
@@ -529,7 +529,7 @@ def test_graph_render_matches_the_eager_render_on_card(view, cuda_device):
         images[graph] = render_image(model, pcfg, inputs, 256, graph=graph)
         launches[graph] = {d: fli.launches[d] - before[d] for d in before}
     assert torch.equal(images[True], images[False])
-    assert launches[True] == launches[False] == {"fwd": 9 * 2 * 2 * 2, "bwd": 0}
+    assert launches[True] == launches[False] == {"fwd": 9 * 2, "bwd": 0, "pair_fwd": 0, "pair_bwd": 0}
 
 
 @pytest.mark.cuda
