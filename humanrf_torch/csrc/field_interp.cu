@@ -130,9 +130,11 @@ struct FieldSpec {
   int32_t dense[kMaxLevels];
 };
 
-// The field query's limit on segments per launch (its parameters take
-// 88 B a segment; see "The field query" below).
-constexpr int kMaxSegments = 128;
+// The field query's limit on segments per launch: its parameters take 88 B
+// a segment, 22.8 KB in all at 256, under the 32 KB that a kernel's
+// parameters may hold on Hopper (see "The field query" below). 256 holds any
+// partitioning of 1000 frames (167 segments at the ladder's smallest, 6).
+constexpr int kMaxSegments = 256;
 
 // One segment's tables and, for the backward, their gradients (zeroed).
 struct SegmentTables {
@@ -639,7 +641,7 @@ int run_entry(const float* a, const float* xyzt, float* o, const FieldSpec& spec
 // Segments: `seg` (N,) int32 routes each sample to its segment; every
 // segment's table pointers, table size and dense levels come in FieldQuery,
 // passed by value (__grid_constant__: read in place, never copied per
-// thread; over 4 KB of parameters, which CUDA 12.1 and later take). A
+// thread; up to 22.8 KB of parameters, which CUDA 12.1 and later take). A
 // sample of no segment (seg outside [0, n_segments)), or at or past
 // *n_valid, writes zeros and adds nothing. One launch serves every segment,
 // and its grid is sized by N, so a CUDA graph replays it unchanged.

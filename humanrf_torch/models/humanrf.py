@@ -20,6 +20,11 @@ and their sorting backward once per segment). Each sample's features and
 gradients are those of the reference's index selection (`humanrf.py:
 172-177`).
 
+Building a model sets, in the recorder (`utils/profiling.py`), its
+segments (`field.segments`) and its segments' hash-table entries, the four
+(L, F, T) tables without the vectors (`field.table_params`): gauges of the
+latest build.
+
 A model is built with zero parameters; `init_parameters` draws a fresh one
 from an explicit `torch.Generator` with the JAX package's distributions
 (its numbers differ from JAX's), and `load_state_dict(convert_params(...))`
@@ -36,12 +41,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from humanrf_torch.models.activation import truncated_exp
-from humanrf_torch.models.decomposition4d import Decomposition4D, Decomposition4DConfig
+from humanrf_torch.models.decomposition4d import GRID_NAMES, Decomposition4D, Decomposition4DConfig
 from humanrf_torch.models import fused_field
 from humanrf_torch.models.hash_encoding import HashGridConfig
 from humanrf_torch.models.mlp import MLP, normal
 from humanrf_torch.models.proposal import ProposalField, ProposalFieldConfig, apply_proposal_field
 from humanrf_torch.models.sh import sh_encode
+from humanrf_torch.utils import profiling
 
 # Matches humanrf/adaptive_temporal_partitioning.py:8.
 PREDEFINED_SEGMENT_SIZES = [6, 12, 25, 50, 100]
@@ -101,6 +107,9 @@ class HumanRFModel(nn.Module):
             segment_grid_config(cfg, size) for size in cfg.segment_sizes
         ]
         self.segments = nn.ModuleList(Decomposition4D(c, device) for c in self.segment_grid_configs)
+        profiling.gauge("field.segments", cfg.num_segments)
+        profiling.gauge("field.table_params", sum(getattr(segment, name).numel() for segment in self.segments
+                                                  for name in GRID_NAMES))
         self.sigma_net = MLP(
             cfg.total_feature_dim, 1 + cfg.geometry_feature_dim, cfg.n_neurons, cfg.n_hidden_layers_density, device
         )

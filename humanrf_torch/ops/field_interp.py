@@ -361,7 +361,7 @@ def field_interp(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_va
 
 # ------------------------------------------------------------ the field query
 
-MAX_SEGMENTS = 128
+MAX_SEGMENTS = 256  # kMaxSegments of csrc/field_interp.cu
 
 
 class SegmentTables(ctypes.Structure):

@@ -36,10 +36,21 @@ with a CUDA event pair (`graph.device_ms`, same id). It counts
 `graph.captures`, `graph.input_copies`, `graph.input_copies_skipped` and
 `graph.input_bytes`. The spans stay outside the captured body: Python does
 not run on a replay.
+
+A part of the body inside `timed(name)` is timed on the device per replay,
+under `name` and the call's id. A pair of events recorded inside a graph
+holds only its latest replay's times, and a replay's cannot be read before
+the next is launched without waiting for the device; so the capture is cut
+before and after the part, into graphs that share one memory pool and
+replay back to back, and the part's graph replays inside a pair of events
+of its own, resolved like `graph.device_ms`'s.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+import contextlib
+import gc
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
@@ -48,13 +59,51 @@ from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.utils import profiling
 
 
+# The capture under way on this thread, for `timed`.
+_active = threading.local()
+
+
+class _Capture:
+    """The graphs one capture of a body is cut into, in order: (the name a
+    part is timed under, or None; its graph), all in the first one's pool."""
+
+    def __init__(self):
+        self.parts: List[Tuple[Optional[str], torch.cuda.CUDAGraph]] = []
+
+    def begin(self, name: Optional[str]) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self.parts[0][1].pool() if self.parts else None)
+        self.parts.append((name, graph))
+
+    def end(self) -> None:
+        self.parts[-1][1].capture_end()
+
+    def cut(self, name: Optional[str]) -> None:
+        self.end()
+        self.begin(name)
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Time the device work of the block, inside a step's body, per replay
+    under `name` (see the module docstring). Outside a capture (the CPU, a
+    signature's first call, the eager multi-rank steps) it does nothing."""
+    capture = getattr(_active, "capture", None)
+    if capture is None:
+        yield
+        return
+    capture.cut(name)
+    yield
+    capture.cut(None)
+
+
 class _Captured:
-    """One input signature's graph: static inputs, outputs and launches."""
+    """One input signature's graphs: static inputs, outputs and launches."""
 
     def __init__(self, static: List[Optional[torch.Tensor]]):
         self.static = static
         self.seen: List = [None] * len(static)  # (tensor, version) last copied per leaf
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.graphs: List[Tuple[Optional[str], torch.cuda.CUDAGraph]] = []  # `_Capture.parts`
         self.out = None
         self.launches: Dict[str, int] = {}
 
@@ -110,7 +159,12 @@ class GraphedStep:
         with profiling.span("graph.copy_inputs"):
             entry.copy_inputs(leaves)
         with profiling.span("graph.replay"), profiling.device_time("graph.device_ms", call, device):
-            entry.graph.replay()
+            for name, graph in entry.graphs:
+                if name is None:
+                    graph.replay()
+                else:
+                    with profiling.device_time(name, call, device):
+                        graph.replay()
         for direction, n in entry.launches.items():
             fli.launches[direction] += n
         return entry.out
@@ -125,15 +179,28 @@ class GraphedStep:
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
             out = self.body(*args, **kwargs)  # this call's step
-        graph = torch.cuda.CUDAGraph()
+        capture = _Capture()
         before = dict(fli.launches)
+        torch.cuda.synchronize(device)  # as `torch.cuda.graph` readies a capture
+        gc.collect()
+        torch.cuda.empty_cache()
+        _active.capture = capture
         try:
-            with torch.cuda.graph(graph, stream=stream):
-                entry.out = self.body(*args, **kwargs)
+            with torch.cuda.stream(stream):
+                capture.begin(None)
+                try:
+                    entry.out = self.body(*args, **kwargs)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        capture.end()
+                    raise
+                capture.end()
         except Exception as e:
             raise RuntimeError(f"capturing {self.name} as a CUDA graph failed (there is no eager fallback): {e}") from e
+        finally:
+            _active.capture = None
         entry.launches = {d: fli.launches[d] - before[d] for d in before}
         fli.launches.update(before)  # the capture launched nothing
         torch.cuda.current_stream(device).wait_stream(stream)
-        entry.graph = graph
+        entry.graphs = capture.parts
         return entry, out

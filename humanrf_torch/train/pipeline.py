@@ -39,7 +39,7 @@ from humanrf_torch.ops.rays import aabb_intersect, pixel_to_ray
 from humanrf_torch.ops.render import RenderOutput, composite_grid, prune_samples, render, render_weights_grid
 from humanrf_torch.ops.resample import proposal_distillation_per_ray, sample_intervals, stratified_bins, weights_to_cdf
 from humanrf_torch.ops.sampling import SampleSet, generate_samples
-from humanrf_torch.train.graphs import GraphedStep
+from humanrf_torch.train.graphs import GraphedStep, timed
 from humanrf_torch.train.losses import bce_loss, huber_loss, masked_mean
 from humanrf_torch.utils import profiling
 from humanrf_torch.utils.rngs import split, uniform_per_id
@@ -363,6 +363,16 @@ def training_loss(
     return total, aux
 
 
+def count_segments(model: HumanRFModel, rays: RayData) -> torch.Tensor:
+    """The number of segments that the frames of the valid `rays` fall in
+    (one int64 on the device, no host read)."""
+    seg = model.frame_to_segment[rays.frame_numbers.long()]
+    slot = torch.where(rays.valid & (seg >= 0), seg + 1, 0)  # 0: no segment
+    hits = torch.zeros(model.config.num_segments + 1, device=slot.device)
+    hits.index_add_(0, slot, torch.ones_like(slot, dtype=hits.dtype))
+    return (hits[1:] > 0).sum()
+
+
 def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: int, height: int,
                     graph: bool = True):
     """Returns train_step(batch, pool, grids, aabb, rng, ray_ids=None) → (loss, aux).
@@ -388,12 +398,16 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
     (`utils/profiling.py`): `sampler.candidate_rays_valid` (the valid
     candidates), `sampler.rays_valid` (the valid rays in the `num_rays`
     slots), `sampler.rays_overflowed` (valid rays left out of the loss, those
-    whose samples overflow a dense budget), `sampler.samples` and
-    `sampler.steps`.
+    whose samples overflow a dense budget), `sampler.samples`,
+    `sampler.steps` and `train.segments_reached` (the segments that the
+    frames of the valid rays in the `num_rays` slots fall in). On the card
+    `optimizer.step()` is timed per replay as `train.optimizer_ms`
+    (`graphs.timed`), under the call's id.
     """
     device = next(model.parameters()).device
     counters = {name: profiling.device_counter(f"sampler.{name}", device)
                 for name in ("candidate_rays_valid", "rays_valid", "rays_overflowed", "samples", "steps")}
+    segments_reached = profiling.device_counter("train.segments_reached", device)
 
     def step(batch: HostBatch, pool: PoolArrays, grids, aabb, rng: torch.Tensor, ray_ids=None):
         rays = build_rays(cfg, batch, pool, grids, aabb, width, height)
@@ -402,6 +416,7 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
             if ray_ids is None:
                 ray_ids = torch.arange(cfg.num_rays * cfg.candidate_rays_factor, device=rays.origins.device)
             rays, batch, ray_ids = compact_rays(rays, batch, ray_ids, cfg.num_rays)
+        segments_reached.add_(count_segments(model, rays))
         samples = None
         if cfg.sampling != "proposal":
             samples = build_samples(cfg, rays, pool, grids, batch.buffer_idx)
@@ -410,7 +425,8 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
             cfg, model, rays, batch.rgba, rng, pool, grids, batch.buffer_idx, ray_ids=ray_ids, samples=samples
         )
         loss.backward()
-        optimizer.step()
+        with timed("train.optimizer_ms"):
+            optimizer.step()
         rays_valid = rays.valid.sum()
         counters["rays_valid"] += rays_valid
         counters["rays_overflowed"] += rays_valid - aux["num_rays_supervised"]

@@ -101,11 +101,13 @@ class AdamW:
 
     `named_params` are (name, parameter) pairs as `named_parameters()` gives
     them; the names (the model's state-dict keys) map the state onto optax's
-    tree (`convert.opt_state_to_jax`). `group`, set by the FSDP step
-    (`parallel/fsdp.py`), is the process group over which the skip is
-    agreed: there each rank holds only its shards' gradients, and every rank
-    must apply or skip together, as `apply_if_finite` sees the whole
-    gradient.
+    tree (`convert.opt_state_to_jax`). Building one sets the entries of the
+    parameters it updates in the recorder (`train.optimizer_params`, a
+    gauge of the latest build).
+    `group`, set by the FSDP step (`parallel/fsdp.py`), is the process group
+    over which the skip is agreed: there each rank holds only its shards'
+    gradients, and every rank must apply or skip together, as
+    `apply_if_finite` sees the whole gradient.
     """
 
     b1, b2, eps = 0.9, 0.99, 1e-15
@@ -122,6 +124,7 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.group = None
+        profiling.gauge("train.optimizer_params", sum(p.numel() for p in self.params))
 
     def zero_grad(self) -> None:
         for p in self.params:

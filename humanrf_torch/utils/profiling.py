@@ -17,6 +17,8 @@ one recorder the JAX package does not have.
   `record_function`'s user annotations it puts no range on the device's
   rows, which would count as device work), on the timeline of the kernels.
 - `count(name, n=1)`: a host counter.
+- `gauge(name, n)`: a host count set to `n` (a size, such as what the
+  latest build holds), where `count` adds up.
 - `device_counter(name, device)`: a persistent int64 tensor that code on the
   device adds to in place; inside a captured CUDA graph the add replays with
   the graph, and nothing reads it back until `snapshot()`.
@@ -176,6 +178,12 @@ class Recorder:
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + n
 
+    def gauge(self, name: str, n: int) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._counters[name] = n
+
     def device_counter(self, name: str, device) -> torch.Tensor:
         device = torch.device(device)
         with self._lock:
@@ -277,6 +285,10 @@ def span(name: str, id=None):
 
 def count(name: str, n: int = 1) -> None:
     RECORDER.count(name, n)
+
+
+def gauge(name: str, n: int) -> None:
+    RECORDER.gauge(name, n)
 
 
 def device_counter(name: str, device) -> torch.Tensor:

@@ -314,6 +314,49 @@ def test_model_features_route_each_sample_to_its_segment():
     assert not out[frames == 3].any()
 
 
+def _many_fields(segments, seed):
+    """`segments` fields over the same 2 levels, their tables of 2^6, 2^7
+    or 2^8 entries in turn (the ladder's uneven segments)."""
+    rng = np.random.default_rng(seed)
+    fields = []
+    for s in range(segments):
+        cfg = THashGridConfig(n_levels=2, n_features_per_level=2, log2_hashmap_size=6 + s % 3, base_resolution=4,
+                              finest_resolution=16)
+        grids = tuple(torch.tensor(rng.uniform(-1, 1, (2, 2, cfg.table_size)).astype(np.float32)) for _ in range(4))
+        fields.append(fli.SegmentField(grids, torch.tensor(rng.uniform(-1, 1, (4, 4, 8)).astype(np.float32)),
+                                       fli.grid_spec(cfg)))
+    return fields
+
+
+def test_field_query_takes_167_segments():
+    """The query over 167 segments (1000 frames cut at the ladder's
+    smallest, 6 frames): each sample's features are a one-segment query of
+    its own segment's tables, bit for bit; a sample of no segment or past
+    `n_valid` reads zeros; each segment's tables take a gradient from its
+    own samples alone. One more segment than the kernels hold raises."""
+    fields = _many_fields(167, seed=10)
+    rng = np.random.default_rng(11)
+    n = 3000
+    xyzt = torch.tensor(rng.uniform(0, 1, (n, 4)).astype(np.float32))
+    seg = torch.tensor(rng.integers(-1, 167, n).astype(np.int32))
+    n_valid = torch.tensor([int(0.8 * n)], dtype=torch.int32)
+    leaves, query_fields = _with_grad(fields)
+    out = fli.field_query(query_fields, xyzt, n_valid, seg)
+    live = torch.arange(n) < n_valid
+    assert not out[~live | (seg < 0)].any()
+    out.backward(torch.ones_like(out))
+    for s in (0, 1, 2, 83, 166):
+        mine = live & (seg == s)
+        assert mine.any() and torch.equal(out[mine], fli.field_query([fields[s]], xyzt[mine]))
+        assert all(t.grad.abs().max() > 0 for t in leaves[5 * s:5 * s + 5])
+    empty = set(range(167)) - set(seg[live].tolist())
+    for s in empty:
+        assert not any(t.grad.any() for t in leaves[5 * s:5 * s + 5])
+    assert fli.MAX_SEGMENTS == 256
+    with pytest.raises(ValueError, match="segments"):
+        fli.field_query(_many_fields(257, seed=12), xyzt, n_valid, seg)
+
+
 @pytest.mark.parametrize("bad", ["two-segments-no-seg", "levels-differ", "vectors-shape", "three-grids", "f64"])
 def test_field_query_rejects_bad_fields(bad):
     fields = _query_fields(2)

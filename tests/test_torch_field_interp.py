@@ -345,6 +345,57 @@ def test_query_kernels_match_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
+def test_query_kernels_take_167_segments_on_card(cuda_device):
+    """1000 frames cut at the ladder's smallest size: 167 segments of the
+    paper's L16/F2 levels, their tables of 2^9..2^12 entries in turn, over
+    N = 32,768 samples on rays of 64 (a segment per ray, -1 on one ray in
+    eight): the forward kernel equals the per-pair path
+    (`field_query_plain` on the card) bit for bit and the plain PyTorch
+    version (the same with `PlainFieldInterp`) within 1e-5 of its scale, and
+    the backward holds to the plain version in fp64 within 1e-5 of each
+    gradient's scale, as at two segments."""
+    rng = np.random.default_rng(167)
+    fields = []
+    for s in range(167):
+        cfg = THashGridConfig(n_levels=16, n_features_per_level=2, log2_hashmap_size=9 + s % 4, base_resolution=32,
+                              finest_resolution=2048)
+        fields.append(fli.SegmentField(
+            tuple(torch.tensor(rng.uniform(-1, 1, (16, 2, cfg.table_size)).astype(np.float32), device=cuda_device)
+                  for _ in range(4)),
+            torch.tensor(rng.uniform(-1, 1, (4, 32, 2048)).astype(np.float32), device=cuda_device), fli.grid_spec(cfg)))
+    n = 32_768
+    rays = n // 64
+    origin = rng.uniform(0.1, 0.9, (rays, 1, 4))
+    direction = rng.normal(size=(rays, 1, 4)) * np.array([1, 1, 1, 0])
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    xyzt = torch.tensor((origin + direction * 4e-4 * np.arange(64)[None, :, None]).reshape(n, 4).astype(np.float32),
+                        device=cuda_device)
+    seg = np.repeat(rng.integers(0, 167, rays), 64).astype(np.int32)
+    seg[np.repeat(rng.uniform(size=rays) < 0.125, 64)] = -1
+    seg = torch.tensor(seg, device=cuda_device)
+    n_valid = torch.tensor([int(0.9 * n)], dtype=torch.int32, device=cuda_device)
+    out = fli.field_query(fields, xyzt, n_valid, seg)
+    ref = fli.field_query_plain(fields, xyzt, n_valid, seg)
+    with mock.patch.object(fli, "field_interp", fli.PlainFieldInterp.apply):
+        plain = fli.field_query_plain(fields, xyzt, n_valid, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and ref.abs().max() > 0.1
+    assert float((out.double() - plain.double()).abs().max() / plain.abs().max()) < 1e-5
+    tensors = [t.clone().requires_grad_() for t in fli._flat(fields)]
+    grad = torch.tensor(rng.normal(size=(n, 32)).astype(np.float32), device=cuda_device)
+    fli.field_query(fli._unflat([(f.spec, len(f.grids)) for f in fields], tensors), xyzt, n_valid, seg).backward(grad)
+    refs = fli.field_query_bwd_plain(fields, xyzt, grad.double(), n_valid, seg)
+    torch.cuda.synchronize()
+    served = set(seg[:int(n_valid)].tolist()) - {-1}
+    assert len(served) > 100
+    for i, (t, r) in enumerate(zip(tensors, refs)):
+        if i // 5 in served:
+            assert float((t.grad.double() - r).abs().max() / r.abs().max()) < 1e-5, i
+        else:
+            assert not t.grad.any() and not r.any(), i
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("sampling", ["dense", "proposal"])
 def test_graphed_step_launches_one_query_kernel_each_way_on_card(cuda_device, sampling):
     """A two-segment model at the main path's widths (dense: the paper's

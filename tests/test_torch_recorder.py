@@ -11,8 +11,12 @@ counters of the paths it instruments.
   with what it did; `GraphedStep` on the CPU records its calls and captures
   nothing; a dense step whose budget overflows counts exactly the valid rays
   its loss leaves out;
+- a model counts its segments and hash-table entries, AdamW the
+  parameters it updates, and a step the segments its rays reach;
+  `graphs.timed` outside a capture times nothing;
 - on the card (`-m cuda`): 50 graphed steps fed by the loader make no
-  synchronizing call, and every replay has its device time.
+  synchronizing call, and every replay has its device time and its
+  optimizer's, inside it.
 
 No JAX here: the file runs on the card too.
 """
@@ -35,7 +39,7 @@ from humanrf_torch.core.synthetic import SyntheticSceneConfig, generate_syntheti
 from humanrf_torch.data.loader import DataLoader
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
 from humanrf_torch.train import pipeline
-from humanrf_torch.train.graphs import GraphedStep
+from humanrf_torch.train.graphs import GraphedStep, timed
 from humanrf_torch.train.trainer import make_optimizer
 from humanrf_torch.utils import profiling
 from humanrf_torch.utils.rngs import make_key, split
@@ -303,6 +307,16 @@ def test_graphed_step_on_the_cpu_records_its_calls_and_captures_nothing(recorder
     assert set(snap["spans"]) == {"graph.call"} and snap["counters"] == {} and snap["device_ms"] == {}
 
 
+def test_timed_outside_a_capture_times_nothing(recorder):
+    def body(x):
+        with timed("test.part"):
+            return x + 1
+
+    step = GraphedStep("a cpu step", body)
+    assert torch.equal(step(torch.zeros(3)), torch.ones(3))
+    assert profiling.snapshot()["device_ms"] == {}
+
+
 _SMALL = dict(
     sorted_frame_numbers=tuple(range(50)), segment_sizes=(25, 25), density_scale=10.0, n_levels=2, n_features_per_level=2,
     log2_hashmap_size=11, coarsest_resolution=4, finest_resolution=32, geometry_feature_dim=3,
@@ -347,6 +361,64 @@ def test_a_dense_step_counts_the_valid_rays_its_budget_leaves_out(recorder, monk
     assert counters["sampler.candidate_rays_valid"] >= valid and counters["sampler.samples"] <= 2 * 16_384
 
 
+def test_a_model_counts_its_segments_and_tables_and_an_optimizer_its_parameters(recorder):
+    """`field.segments` and `field.table_params` (the four hash tables of
+    each segment, sized by its frames: 2^8, 2^9 and 2^10 entries at log2 T
+    12 for 6, 12 and 25 frames) counted at build, and what AdamW updates:
+    sizes of the latest build, which a second build sets again and does not
+    add to."""
+    for _ in range(2):
+        model = HumanRFModel(HumanRFConfig(**dict(_SMALL, sorted_frame_numbers=tuple(range(43)),
+                                                  segment_sizes=(6, 12, 25), log2_hashmap_size=12)))
+        counters = profiling.snapshot()["counters"]
+        assert {k: counters[k] for k in ("field.segments", "field.table_params")} == {
+            "field.segments": 3, "field.table_params": 4 * 2 * 2 * (256 + 512 + 1024)}
+        make_optimizer(model.named_parameters(), 1e-2, 0.5, 50_001, 0.03)
+        total = sum(p.numel() for p in model.parameters())
+        assert profiling.snapshot()["counters"]["train.optimizer_params"] == total > 4 * 2 * 2 * 1792
+    model = HumanRFModel(HumanRFConfig(**dict(_SMALL, sorted_frame_numbers=tuple(range(6)), segment_sizes=(6,),
+                                              log2_hashmap_size=12)))
+    make_optimizer(model.named_parameters(), 1e-2, 0.5, 50_001, 0.03)
+    assert profiling.snapshot()["counters"] == {"field.segments": 1, "field.table_params": 4 * 2 * 2 * 256,
+                                                "train.optimizer_params": sum(p.numel() for p in model.parameters())}
+
+
+def test_a_step_counts_the_segments_its_rays_reach(recorder, monkeypatch):
+    """`train.segments_reached`: per step the distinct segments of the frames
+    of the valid rays, over eight 6-frame segments and frames of no segment
+    (48, 49), summed over the steps."""
+    inputs = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", "cpu")
+    frames = torch.tensor([0, 7, 13, 19, 20, 31, 49, 48] * 2, dtype=torch.int32)
+    pool = inputs.pool._replace(frame_numbers=frames)
+    model = HumanRFModel(HumanRFConfig(**dict(_SMALL, segment_sizes=(6,) * 8)))
+    model.init_parameters(torch.Generator().manual_seed(0))
+    cfg = pipeline.PipelineConfig(sampling="dense", num_rays=128, candidate_rays_factor=1, samples_per_ray=256,
+                                  candidate_budget=8192, sample_budget=4096, march_grid_factor=2, huber_delta=0.01)
+    seen = []
+    build_rays = pipeline.build_rays
+
+    def watched(*args, **kwargs):
+        rays = build_rays(*args, **kwargs)
+        seen.append({int(f) // 6 for f, v in zip(rays.frame_numbers, rays.valid) if v and f < 48})
+        return rays
+
+    monkeypatch.setattr(pipeline, "build_rays", watched)
+    step = pipeline.make_train_step(cfg, model, make_optimizer(model.named_parameters(), 1e-2, 0.5, 50_001, 0.03),
+                                    inputs.width, inputs.height)
+    rng = np.random.default_rng(3)
+    rgba = inputs.pixel_rgba.numpy()
+    key = make_key(1)
+    for entries in ([0, 1, 2, 6, 7], [3, 4, 5, 8, 9, 10]):
+        b = rng.choice(entries, 128)
+        p = np.array([rng.choice(np.nonzero(rgba[i, :, 3])[0]) for i in b])
+        batch = pipeline.HostBatch(torch.tensor(b, dtype=torch.int32), torch.tensor(p, dtype=torch.int32),
+                                   torch.tensor(rgba[b, p].astype(np.float32) / 255.0), torch.ones(128, dtype=torch.bool))
+        key, sub = split(key)
+        step(batch, pool, inputs.grids, inputs.aabb, sub)
+    assert len(seen) == 2 and len(seen[0]) >= 3 and len(seen[1]) >= 3 and seen[0] != seen[1]
+    assert profiling.snapshot()["counters"]["train.segments_reached"] == len(seen[0]) + len(seen[1])
+
+
 @pytest.mark.cuda
 def test_fifty_graphed_steps_make_no_synchronizing_call(scene, recorder):
     if not torch.cuda.is_available():
@@ -384,4 +456,7 @@ def test_fifty_graphed_steps_make_no_synchronizing_call(scene, recorder):
     assert len(calls) == 53 and snap["counters"]["graph.captures"] == 1
     assert set(snap["device_ms"]["graph.device_ms"]) == {("the train step", i) for i in range(2, 54)}
     assert all(0 < ms < 1e3 for ms in snap["device_ms"]["graph.device_ms"].values())
+    optimizer_ms = snap["device_ms"]["train.optimizer_ms"]
+    assert set(optimizer_ms) == set(snap["device_ms"]["graph.device_ms"])
+    assert all(0 < ms < snap["device_ms"]["graph.device_ms"][call] for call, ms in optimizer_ms.items())
     assert snap["counters"]["sampler.steps"] == 53
