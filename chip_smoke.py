@@ -49,9 +49,18 @@ eagerly, since a graph replays what it captured.
 Phases, each of which raises on failure:
 
 1. device: a CUDA Hopper card (capability 9.0) is required;
-2. build: `humanrf_torch/csrc/field_interp.cu`, `fused_interp.cu` and
-   `mesh_raster.cu` with nvcc for sm_90a, side by side (registers, shared
-   memory and spills from `-Xptxas -v`);
+2. build: `humanrf_torch/csrc/field_interp.cu`, `fused_interp.cu`,
+   `mesh_raster.cu` and `adamw.cu` with nvcc for sm_90a, side by side
+   (registers, shared memory and spills from `-Xptxas -v`); then 2(b),
+   AdamW's kernels (`adamw_phase`) over the parameter lists of the r4 model,
+   the paper's dense field and the 1000-frame model: two steps of the
+   kernel route bit-equal to two of the plain body from the same state, and
+   the device time of `adamw_finite`, `adamw_update`, the whole step, the
+   plain body and PyTorch's own fused calls (`torch._fused_adamw_`,
+   `torch._amp_foreach_non_finite_check_and_unscale_`), each a CUDA graph
+   replayed, with their bounds. Every later phase of this process counts
+   AdamW's launches (`read_launches`): both kernels as often, some in a
+   phase that trains, none in one that only renders or evaluates;
 3. kernels: each (idx, w) kernel against its plain version at KERNEL_SHAPES,
    with its time, bound and the time of `F.embedding_bag`, the one PyTorch
    call that computes the same function; then the field query's kernels
@@ -256,8 +265,10 @@ rows at the r4 query, their phase-7(b) rows at the dense queries under
 "ref_capacity"; the earlier `fused_interp` design, launched by phase 3
 only; `mesh_project`, `mesh_bin` and `mesh_raster`, with `launches` counted
 over 10(b), their times per view at 10(b)'s frames, 10(d)'s under
-"rig_ms" and 10(e)'s under "rig_12mp_ms"), the card's name and power limit
-from nvidia-smi, and `{"ok": true, "device": {...}}`.
+"rig_ms" and 10(e)'s under "rig_12mp_ms"; `adamw_finite` and
+`adamw_update`, with `launches` counted over this process's phases and
+2(b)'s rows under "r4", "paper-dense" and "paper-1000f"), the card's name
+and power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
 Usage: python3 chip_smoke.py [--mesh-only]
 (--mesh-only: phases 1, 2 and 10 alone, on a freshly written r4 scene; the
 kernel table then holds the mesh kernels only. The script runs itself with
@@ -275,7 +286,9 @@ os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 import contextlib
 import dataclasses
+import gc
 import json
+import math
 import re
 import shutil
 import struct
@@ -302,6 +315,7 @@ from humanrf_torch.core.synthetic import GENERATOR_VERSION, make_cameras, render
 from humanrf_torch.evaluation.metrics import LpipsModel
 from humanrf_torch.models import fused_field
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
+from humanrf_torch.ops import adamw as adamw_kernels
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops import rasterize as raster
@@ -333,6 +347,9 @@ RUN_DIR = REPO / "runs_evidence" / "r4_full_schedule_748"
 # The field query's launch counts (`fli.launches` also counts the per-pair
 # kernels, under "pair_fwd"/"pair_bwd").
 QUERY_LAUNCHES = ("fwd", "bwd")
+# AdamW's launches (of each of its two kernels) per phase of this process's
+# main path, as `read_launches` reads them.
+ADAMW_LAUNCHES: dict = {}
 KERNEL_TOL = 1e-5          # scaled max error, kernel vs plain (both fp32; see check_kernels)
 RENDER_PSNR_MIN = 50.0     # dB, kernel render vs plain render
 ROI_PSNR_SLACK = 0.5       # dB below the banked JAX render's ROI-PSNR
@@ -889,6 +906,111 @@ def adamw(model):
     return make_optimizer(model.named_parameters(), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
 
 
+# Phase 2(b)'s parameter lists: the models of the three training cells (the
+# r4 model's from the view's configuration), as shapes only.
+ADAMW_MODELS = {
+    "paper-dense": dict(sorted_frame_numbers=tuple(range(NUM_FRAMES)), segment_sizes=(25, 25),
+                        camera_embedding_dim=2),
+    "paper-1000f": dict(sorted_frame_numbers=tuple(range(1000)), segment_sizes=(50,) * 20, camera_embedding_dim=2),
+}
+ADAMW_ITERS = 20
+
+
+def graphed(fn):
+    """`fn` run once, then captured as a CUDA graph → its replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def adamw_state(device, shapes):
+    """Parameters N(0, 1) with gradients at 1e-3·N(0, 1), from seed 0 on the card."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen, device=device)) for s in shapes]
+    for p in params:
+        p.grad = 1e-3 * torch.randn(p.shape, generator=gen, device=device)
+    return params
+
+
+def adamw_phase(device, view) -> dict:
+    """Phase 2(b) (see the module docstring) → the AdamW rows' entries,
+    {"finite"/"update": {model: row}}."""
+    configs = {"r4": view.model_config, **{k: HumanRFConfig(**v) for k, v in ADAMW_MODELS.items()}}
+    rows = {"finite": {}, "update": {}}
+    for name, config in configs.items():
+        shapes = [p.shape for p in HumanRFModel(config, device="meta").parameters()]
+        numel = sum(math.prod(s) for s in shapes)
+        params = adamw_state(device, shapes)
+        plain_params = [torch.nn.Parameter(p.detach().clone()) for p in params]
+        for p, q in zip(params, plain_params):
+            q.grad = p.grad
+        names = [f"p{i}" for i in range(len(params))]
+        kernel = make_optimizer(zip(names, params), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
+        plain = make_optimizer(zip(names, plain_params), lr=1e-2, lr_decay=0.5, max_steps=50_001, weight_decay=0.03)
+        plain._update_kernels = plain._update_plain
+        adamw_kernels.reset_launches()
+        for _ in range(2):
+            kernel.step()
+            plain.step()
+        torch.cuda.synchronize()
+        per_step = {k: n // 2 for k, n in adamw_kernels.launches.items()}
+        differ = [i for i, (a, b) in enumerate(zip([*params, *kernel.mu, *kernel.nu],
+                                                   [*plain_params, *plain.mu, *plain.nu]))
+                  if not torch.equal(a.detach().view(torch.int32), b.detach().view(torch.int32))]
+        if differ or (int(kernel.count), int(plain.count)) != (2, 2):
+            raise AssertionError(f"AdamW's kernels differ from the plain body at {name}'s tensors {differ}")
+        tables = len(adamw_kernels.plan([math.prod(s) for s in shapes]))
+        gauge = profiling.snapshot()["counters"].get("train.optimizer_launches")
+        if per_step != {"finite": tables, "update": tables} or gauge != 2 * tables:
+            raise AssertionError(f"AdamW at {name} launched {per_step} a step (train.optimizer_launches {gauge}), "
+                                 f"not one of each per table ({tables})")
+        grads = [p.grad for p in plain_params]
+        plain_ms = time_ms(graphed(plain.step), ADAMW_ITERS)
+        plain_finite_ms = time_ms(graphed(lambda: torch.stack([torch.isfinite(g).all() for g in grads]).all()),
+                                  ADAMW_ITERS)
+        # PyTorch's own fused calls over the same tensors (the plain body's
+        # state, overwritten): the flag that a GradScaler reads, and the
+        # fused AdamW that reads it (decoupled decay p·(1 − lr·wd) first).
+        found_inf, inv_scale = torch.zeros(1, device=device), torch.ones(1, device=device)
+        steps = [torch.ones((), device=device) for _ in grads]
+        library_ms = {
+            "finite": time_ms(graphed(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                grads, found_inf, inv_scale)), ADAMW_ITERS),
+            "update": time_ms(graphed(lambda: torch._fused_adamw_(
+                plain_params, grads, plain.mu, plain.nu, [], steps, lr=1e-2, beta1=0.9, beta2=0.99,
+                weight_decay=0.03, eps=1e-15, amsgrad=False, maximize=False, found_inf=found_inf)), ADAMW_ITERS),
+        }
+        del plain, plain_params, grads, steps
+        tabs = adamw_kernels.tables(params, [p.grad for p in params], kernel.mu, kernel.nu)
+        flag = torch.ones((), dtype=torch.bool, device=device)
+        scalars = [torch.tensor(v, device=device) for v in (-1e-2, 0.1, 0.01)]
+        constants = adamw_kernels.AdamWConstants(0.1, 0.9, 0.01, 0.99, 1e-15, 0.03,
+                                                 *(t.data_ptr() for t in scalars))
+        ms = {"finite": time_ms(graphed(lambda: adamw_kernels.finite(tabs, device)), ADAMW_ITERS),
+              "update": time_ms(graphed(lambda: adamw_kernels.update(tabs, flag, constants)), ADAMW_ITERS)}
+        step_ms = time_ms(graphed(kernel.step), ADAMW_ITERS)
+        for kind, nbytes, ops, plain_kind_ms in (("finite", 4 * numel, numel, plain_finite_ms),
+                                                  ("update", 28 * numel, 15 * numel, plain_ms)):
+            bound_ms, bound_by = bound(nbytes, ops)
+            rows[kind][name] = {"tensors": len(shapes), "params": numel, "launches_per_step": per_step[kind],
+                                "ms": ms[kind], "bound_ms": bound_ms, "bound_by": bound_by,
+                                "plain_ms": plain_kind_ms, "library_ms": library_ms[kind], "step_ms": step_ms}
+        log(f"2(b) AdamW at {name} ({len(shapes)} tensors, {numel} parameters): two steps bit-equal to the plain "
+            f"body; launches a step {per_step} (train.optimizer_launches {gauge}); adamw_finite "
+            f"{ms['finite']:.4f} ms (bound {rows['finite'][name]['bound_ms']:.4f}, PyTorch's "
+            f"_amp_foreach_non_finite_check_and_unscale_ {library_ms['finite']:.4f}), adamw_update "
+            f"{ms['update']:.4f} ms (bound {rows['update'][name]['bound_ms']:.4f}, PyTorch's _fused_adamw_ "
+            f"{library_ms['update']:.4f}), whole step {step_ms:.4f} ms; plain body {plain_ms:.4f} ms (its isfinite "
+            f"stack {plain_finite_ms:.4f} ms)")
+        del kernel, params, tabs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def graph_vs_eager(label: str, make_model, cfg, batch, pool, key) -> None:
     """The captured step against its eager body. First the eager body of a
     fresh model, warmed once, runs one step under
@@ -971,8 +1093,7 @@ def train(device, view, pool) -> dict:
     losses, mses, supervised, per_step_launches = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    fli.reset_launches()
-    fi.reset_launches()
+    reset_launches()
     start = None
     for i in range(TRAIN_STEPS):
         if i == WARM_STEPS:
@@ -988,7 +1109,7 @@ def train(device, view, pool) -> dict:
         supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, old_launches = read_launches("training")
+    launches, old_launches = read_launches("training", trains=True)
     peak = torch.cuda.max_memory_allocated(device)
 
     losses, mses = torch.stack(losses).cpu(), torch.stack(mses).cpu()
@@ -1009,6 +1130,7 @@ def train(device, view, pool) -> dict:
         raise AssertionError(f"training launched field_interp {launches}; steps {bad[:5]} differ from {expected} per step")
     if old_launches != {"fwd": 0, "bwd": 0}:
         raise AssertionError(f"training launched the old fused_interp kernels {old_launches}")
+    check_adamw_per_step("training", model, TRAIN_STEPS)
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss at steps {torch.nonzero(~torch.isfinite(losses)).flatten().tolist()}")
     if int(optimizer.skipped) != 0:
@@ -1180,14 +1302,13 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     half = total_steps // 2
     evaluate = ["--training.checkpoint", "latest", "--evaluate", "true", "--evaluation.frame_numbers", "0"]
     torch.cuda.synchronize()
-    fli.reset_launches()
-    fi.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     cli.main(flags(EARLY_STEPS, EARLY_STEPS))
     result = cli.main(flags(total_steps, half) + evaluate)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, old_launches = read_launches(name)
+    launches, old_launches = read_launches(name, trains=True)
     stats = result["train"]
     blocks = validation_blocks(ws)
     means = {step: float(np.mean(v)) for step, v in blocks.items()}
@@ -1286,10 +1407,9 @@ def dense_render(device, view, model, proposal_roi: float) -> dict:
     pcfg = dataclasses.replace(view.pipeline_config, sampling="dense", **R4_DENSE)
     width, height = view.inputs.width, view.inputs.height
     num_batches = -(-width * height // view.rays_batch_size)
-    fli.reset_launches()
-    fi.reset_launches()
+    reset_launches()
     img, first_s = timed_render(model, view, pcfg)
-    launches, old_launches = read_launches("the dense render")
+    launches, old_launches = read_launches("the dense render", trains=False)
     times, images = {"plain": [], "eager": [], "graph": []}, {}
     for which in ("plain", "eager", "graph", "graph", "eager"):
         patch = field_swap(fli.field_interp_plain) if which == "plain" else contextlib.nullcontext()
@@ -1377,8 +1497,7 @@ def dense_train(device, pool) -> tuple:
     losses, mses, supervised, per_step = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    fli.reset_launches()
-    fi.reset_launches()
+    reset_launches()
     start = None
     for i in range(DENSE_STEPS):
         if i == WARM_STEPS:
@@ -1393,7 +1512,7 @@ def dense_train(device, pool) -> tuple:
         supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, old_launches = read_launches("the dense step")
+    launches, old_launches = read_launches("the dense step", trains=True)
     peak = torch.cuda.max_memory_allocated(device)
     losses, mses, supervised = torch.stack(losses).cpu(), torch.stack(mses).cpu(), torch.stack(supervised).cpu()
     warm = DENSE_STEPS - WARM_STEPS
@@ -1431,6 +1550,7 @@ def dense_train(device, pool) -> tuple:
     if old_launches != {"fwd": 0, "bwd": 0} or any(n != expected for n in per_step):
         raise AssertionError(f"the dense step launched field_interp {launches} (not {expected} in every step) and "
                              f"fused_interp {old_launches}")
+    check_adamw_per_step("the dense step", model, DENSE_STEPS)
     if not torch.isfinite(losses).all():
         raise AssertionError("non-finite dense training loss")
     if int(optimizer.skipped) != 0:
@@ -1533,13 +1653,12 @@ def trajectory_phase(scene: Path, tmp: Path, device) -> dict:
         "--test.trajectory_via_keycams", *(str(c) for c in TRAJ_KEYCAMS),
         "--test.trajectory_num_cameras", str(TRAJ_VIEWS), "--test.trajectory_via_calibration_file", str(csv_path)]
     torch.cuda.synchronize()
-    fli.reset_launches()
-    fi.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     cli.main(flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, old_launches = read_launches("the trajectory phases")
+    launches, old_launches = read_launches("the trajectory phases", trains=False)
 
     results = ws / "results"
     # Both paths ping-pong their cameras against the 50 frames (`data/trajectory.py::_ping_pong_sequence`).
@@ -1675,15 +1794,14 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
         with mock.patch.object(DataLoader, "_light_ok", light_ok), mock.patch.object(Trace, "start", start), \
                 mock.patch.object(Trace, "stop", stop):
             torch.cuda.synchronize()
-            fli.reset_launches()
-            fi.reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             stats = cli.main(flags)["train"]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         annotations.write_bytes(original)
-    launches, old_launches = read_launches("the light-bloom run")
+    launches, old_launches = read_launches("the light-bloom run", trains=True)
 
     share = pixels["filtered"] / max(pixels["all"], 1)
     (events_file,) = (ws / "run").glob("events.out.tfevents.*")
@@ -2502,28 +2620,52 @@ def first_render_query():
         yield captured
 
 
-def read_launches(name: str) -> tuple:
+def reset_launches() -> None:
+    """Sets the launch counts of the field query, `fused_interp` and AdamW to 0."""
+    fli.reset_launches()
+    fi.reset_launches()
+    adamw_kernels.reset_launches()
+
+
+def read_launches(name: str, trains: bool) -> tuple:
     """The launches since the last reset → (the field query's {"fwd",
-    "bwd"}, `fused_interp`'s); raises if a per-pair `field_interp` kernel
-    launched: no path of the program calls one."""
+    "bwd"}, `fused_interp`'s); AdamW's go into ADAMW_LAUNCHES[name]. Raises
+    if a per-pair `field_interp` kernel launched (no path of the program
+    calls one), or unless AdamW's two kernels launched as often as each
+    other, some times in a phase that `trains` and never in one that does
+    not."""
     launches, old_launches = dict(fli.launches), dict(fi.launches)
     pair = {d: launches.pop(f"pair_{d}") for d in QUERY_LAUNCHES}
     if any(pair.values()):
         raise AssertionError(f"{name} launched the per-pair field_interp kernels {pair}")
+    adamw = dict(adamw_kernels.launches)
+    if adamw["finite"] != adamw["update"] or (adamw["update"] > 0) != trains:
+        raise AssertionError(f"{name} launched AdamW's kernels {adamw} ({'a' if trains else 'no'} training phase)")
+    ADAMW_LAUNCHES[name] = adamw["update"]
     return launches, old_launches
 
 
+def check_adamw_per_step(name: str, model, steps: int) -> None:
+    """Raises unless the phase `name` launched each of AdamW's kernels once
+    a step per table of `model`'s parameters (`read_launches` counted them)."""
+    tables = len(adamw_kernels.plan([p.numel() for p in model.parameters()]))
+    log(f"{name}: AdamW's kernels launched {ADAMW_LAUNCHES[name]} times each in {steps} steps ({tables} table)")
+    if ADAMW_LAUNCHES[name] != tables * steps:
+        raise AssertionError(f"{name} launched AdamW's kernels {ADAMW_LAUNCHES[name]} times each, not {tables} a "
+                             f"step over {steps} steps")
+
+
 def counted(name: str, fn, backward: bool):
-    """`fn()` with the field_interp counts set to 0 before and read after →
-    (its result, the field query's launches); raises unless both directions
-    (or, without `backward`, the forward alone) launched and neither the
-    per-pair kernels nor `fused_interp` did."""
+    """`fn()` with the launch counts set to 0 before and read after → (its
+    result, the field query's launches); raises unless both directions (or,
+    without `backward`, the forward alone) launched and neither the per-pair
+    kernels nor `fused_interp` did, or unless AdamW launched where, and only
+    where, a backward did (`read_launches`)."""
     torch.cuda.synchronize()
-    fli.reset_launches()
-    fi.reset_launches()
+    reset_launches()
     result = fn()
     torch.cuda.synchronize()
-    launches, old_launches = read_launches(name)
+    launches, old_launches = read_launches(name, trains=backward)
     if not (launches["fwd"] > 0 and (launches["bwd"] > 0) == backward) or old_launches != {"fwd": 0, "bwd": 0}:
         raise AssertionError(f"{name} launched field_interp {launches}, fused_interp {old_launches}")
     return result, launches
@@ -2763,10 +2905,9 @@ def render_phase(device, view) -> tuple:
         f"{sum(p.numel() for p in model.parameters())} parameters; view {view.camera_name} frame {frame}, "
         f"{width}x{height}, {num_batches} batches of {view.rays_batch_size} rays")
 
-    fli.reset_launches()
-    fi.reset_launches()
+    reset_launches()
     img, first_s = timed_render(model, view)
-    launches, old_launches = read_launches("the render")
+    launches, old_launches = read_launches("the render", trains=False)
     log(f"render (graph, first: warm-up and capture included): {first_s:.3f} s, {num_pixels / first_s:.0f} rays/s, "
         f"field_interp launches {launches}, fused_interp {old_launches}")
     if launches != {"fwd": expected_launches, "bwd": 0} or old_launches != {"fwd": 0, "bwd": 0}:
@@ -2840,8 +2981,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # Phase 2: build, the three libraries side by side.
-    names = {"field_interp": (), "fused_interp": (), "mesh_raster": raster.LIBRARY_DEFINES}
+    # Phase 2: build, the four libraries side by side.
+    names = {"field_interp": (), "fused_interp": (), "mesh_raster": raster.LIBRARY_DEFINES, "adamw": ()}
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(load_library, names, names.values())))
     for name, lib in built.items():
@@ -2853,8 +2994,11 @@ def main(argv=None) -> int:
             records = mesh_phase(write_r4_scene(device, Path(tmp)), Path(tmp), device, smi)
         return finish(records, smi)
 
-    # Phase 3: the kernels against their plain versions, random and real positions.
+    # Phase 2(b): AdamW's kernels at the three training models' parameter lists.
     view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
+    adamw_rows = adamw_phase(device, view)
+
+    # Phase 3: the kernels against their plain versions, random and real positions.
     train_pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
     old_kernels = check_kernels(device)
     real_query = capture_real_query(device, view, train_pool)
@@ -2929,7 +3073,19 @@ def main(argv=None) -> int:
             **old_kernels[direction],
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
-    ] + mesh_records
+    ] + mesh_records + [
+        {
+            "name": f"adamw_{kind}",
+            "route": "cuda",
+            "source": "humanrf_torch/csrc/adamw.cu",
+            "replaces": "the per-tensor eager ops of humanrf_torch/train/trainer.py::AdamW._update_plain "
+                        "(no TPU kernel: optax's adamw, fused by XLA)",
+            "launches": sum(ADAMW_LAUNCHES.values()),
+            "launches_by_phase": dict(ADAMW_LAUNCHES),
+            **rows,
+        }
+        for kind, rows in adamw_rows.items()
+    ]
     return finish(records, smi)
 
 

@@ -19,9 +19,10 @@ tensors, and its other arguments) as a `torch.cuda.CUDAGraph`:
 3. every later call replays the graph and returns its static outputs, which
    the next replay overwrites.
 
-Python counters do not move on a replay, so the field kernels' launches
-(`ops/field_interp.py::launches`) counted while capturing are taken back and
-added per replay: the counts are those of the eager steps. A capture that
+Python counters do not move on a replay, so the launches of the field
+kernels and of AdamW's (`ops/field_interp.py::launches`,
+`ops/adamw.py::launches`) counted while capturing are taken back and added
+per replay: the counts are those of the eager steps. A capture that
 fails raises, with the failing op's error; nothing falls back to the eager
 body. A call whose tensors are all on the CPU runs the body eagerly: CPUs
 have no graphs.
@@ -55,8 +56,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from humanrf_torch.ops import adamw as adamw_kernels
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.utils import profiling
+
+# The launch counters that a replay adds to (see the module docstring).
+COUNTERS = (fli.launches, adamw_kernels.launches)
 
 
 # The capture under way on this thread, for `timed`.
@@ -105,7 +110,7 @@ class _Captured:
         self.seen: List = [None] * len(static)  # (tensor, version) last copied per leaf
         self.graphs: List[Tuple[Optional[str], torch.cuda.CUDAGraph]] = []  # `_Capture.parts`
         self.out = None
-        self.launches: Dict[str, int] = {}
+        self.launches: List[Dict[str, int]] = []  # per counter of COUNTERS
 
     def copy_inputs(self, leaves) -> None:
         copies = skipped = nbytes = 0
@@ -165,8 +170,9 @@ class GraphedStep:
                 else:
                     with profiling.device_time(name, call, device):
                         graph.replay()
-        for direction, n in entry.launches.items():
-            fli.launches[direction] += n
+        for counter, launched in zip(COUNTERS, entry.launches):
+            for name, n in launched.items():
+                counter[name] += n
         return entry.out
 
     def _warm_up_and_capture(self, leaves, spec, device):
@@ -180,7 +186,7 @@ class GraphedStep:
         with torch.cuda.stream(stream):
             out = self.body(*args, **kwargs)  # this call's step
         capture = _Capture()
-        before = dict(fli.launches)
+        before = [dict(counter) for counter in COUNTERS]
         torch.cuda.synchronize(device)  # as `torch.cuda.graph` readies a capture
         gc.collect()
         torch.cuda.empty_cache()
@@ -199,8 +205,9 @@ class GraphedStep:
             raise RuntimeError(f"capturing {self.name} as a CUDA graph failed (there is no eager fallback): {e}") from e
         finally:
             _active.capture = None
-        entry.launches = {d: fli.launches[d] - before[d] for d in before}
-        fli.launches.update(before)  # the capture launched nothing
+        entry.launches = [{k: counter[k] - was[k] for k in was} for counter, was in zip(COUNTERS, before)]
+        for counter, was in zip(COUNTERS, before):
+            counter.update(was)  # the capture launched nothing
         torch.cuda.current_stream(device).wait_stream(stream)
         entry.graphs = capture.parts
         return entry, out

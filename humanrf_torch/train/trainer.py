@@ -54,6 +54,7 @@ from humanrf_torch.convert import convert_params, export_params, load_opt_state,
 from humanrf_torch.core import image_io
 from humanrf_torch.evaluation.metrics import LpipsModel, bounding_rect, compute_psnr, compute_ssim
 from humanrf_torch.models.humanrf import HumanRFModel
+from humanrf_torch.ops import adamw as adamw_kernels
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.parallel import fsdp
 from humanrf_torch.parallel.collectives import all_reduce_, all_true
@@ -93,17 +94,23 @@ class AdamW:
     The state beside the moments is `apply_if_finite`'s: `notfinite_count`
     (consecutive skipped steps), `last_finite` (whether the last step was
     applied) and `skipped` (all skipped steps, optax's `total_notfinite`).
-    Every choice is made on the device with `torch.where`, so a step never
-    waits for the device. Parameters without a gradient take a zero one, as
-    optax does with a zero cotangent. `torch.optim`'s fused Adam is not used:
-    its state and skip semantics differ from optax's. b1, b2 and eps are the
-    reference's (run.py:101).
+    Every choice is made on the device, so a step never waits for it.
+    Parameters without a gradient take a zero one, as optax does with a zero
+    cotangent. On CUDA tensors the update is `csrc/adamw.cu`'s two kernels
+    over every tensor, a finiteness reduction and one pass that reads p, g
+    and both moments and writes p and both moments (`_update_kernels`,
+    `ops/adamw.py`); they raise on a tensor that is not contiguous float32.
+    CPU tensors take the same arithmetic as plain PyTorch ops per tensor
+    (`_update_plain`), which the kernels equal bit for bit. `torch.optim`'s
+    fused Adam is not used: its state and skip semantics differ from
+    optax's. b1, b2 and eps are the reference's (run.py:101).
 
     `named_params` are (name, parameter) pairs as `named_parameters()` gives
     them; the names (the model's state-dict keys) map the state onto optax's
     tree (`convert.opt_state_to_jax`). Building one sets the entries of the
     parameters it updates in the recorder (`train.optimizer_params`, a
-    gauge of the latest build).
+    gauge of the latest build); a step on the card sets its kernel launches
+    (`train.optimizer_launches`).
     `group`, set by the FSDP step (`parallel/fsdp.py`), is the process group
     over which the skip is agreed: there each rank holds only its shards'
     gradients, and every rank must apply or skip together, as
@@ -132,14 +139,39 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        if self.group is not None:
-            finite = all_true(finite, self.group)
         count_inc = (self.count + 1).float()
         step_size = -self.schedule(self.count)
         bc1 = 1.0 - self.b1**count_inc
         bc2 = 1.0 - self.b2**count_inc
+        update = self._update_kernels if self.params[0].device.type == "cuda" else self._update_plain
+        finite = update(step_size, bc1, bc2)
+        self.count += finite.long()
+        self.skipped += (~finite).long()
+        self.notfinite_count.copy_(torch.where(finite, 0, self.notfinite_count + 1))
+        self.last_finite.copy_(finite)
+
+    def _update_kernels(self, step_size, bc1, bc2) -> torch.Tensor:
+        """The update on the card: `csrc/adamw.cu`'s finiteness reduction,
+        then its update pass, one launch each per table of tensors
+        (`ops/adamw.py`), bit-equal to `_update_plain`. → the finite flag."""
+        tabs = adamw_kernels.tables(self.params, [p.grad for p in self.params], self.mu, self.nu)
+        profiling.gauge("train.optimizer_launches", 2 * len(tabs))
+        finite = adamw_kernels.finite(tabs, self.params[0].device)
+        if self.group is not None:
+            finite = all_true(finite, self.group)
+        constants = adamw_kernels.AdamWConstants(1.0 - self.b1, self.b1, 1.0 - self.b2, self.b2, self.eps,
+                                                 self.weight_decay, step_size.data_ptr(), bc1.data_ptr(),
+                                                 bc2.data_ptr())
+        adamw_kernels.update(tabs, finite, constants)
+        return finite
+
+    def _update_plain(self, step_size, bc1, bc2) -> torch.Tensor:
+        """The update in plain PyTorch ops, per tensor (the CPU's, and the
+        kernels' oracle on the card). → the finite flag."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if self.group is not None:
+            finite = all_true(finite, self.group)
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu_new = (1.0 - self.b1) * g + self.b1 * mu
             nu_new = (1.0 - self.b2) * g**2 + self.b2 * nu
@@ -147,10 +179,7 @@ class AdamW:
             p.copy_(torch.where(finite, p + step_size * update, p))
             mu.copy_(torch.where(finite, mu_new, mu))
             nu.copy_(torch.where(finite, nu_new, nu))
-        self.count += finite.long()
-        self.skipped += (~finite).long()
-        self.notfinite_count.copy_(torch.where(finite, 0, self.notfinite_count + 1))
-        self.last_finite.copy_(finite)
+        return finite
 
 
 def make_optimizer(named_params: Iterable, lr: float, lr_decay: float, max_steps: int,

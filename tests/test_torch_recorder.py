@@ -38,6 +38,7 @@ from humanrf_torch.core.dataset import VolumetricDataset
 from humanrf_torch.core.synthetic import SyntheticSceneConfig, generate_synthetic_dataset
 from humanrf_torch.data.loader import DataLoader
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
+from humanrf_torch.ops import adamw as adamw_kernels
 from humanrf_torch.train import pipeline
 from humanrf_torch.train.graphs import GraphedStep, timed
 from humanrf_torch.train.trainer import make_optimizer
@@ -433,6 +434,7 @@ def test_fifty_graphed_steps_make_no_synchronizing_call(scene, recorder):
                                     cli.optimizer_factory(config)(model.named_parameters()), *loader.resolution)
     keys = itertools.count()
     it = iter(loader)
+    adamw_kernels.reset_launches()
     try:
         for _ in range(3):  # the eager body and capture, then a replay
             step(*next(it)[:3], loader.device_aabb, make_key(next(keys)))
@@ -460,3 +462,6 @@ def test_fifty_graphed_steps_make_no_synchronizing_call(scene, recorder):
     assert set(optimizer_ms) == set(snap["device_ms"]["graph.device_ms"])
     assert all(0 < ms < snap["device_ms"]["graph.device_ms"][call] for call, ms in optimizer_ms.items())
     assert snap["counters"]["sampler.steps"] == 53
+    # AdamW's two kernels once a step, the replays' counted as the eager step's
+    assert adamw_kernels.launches == {"finite": 53, "update": 53}
+    assert snap["counters"]["train.optimizer_launches"] == 2
