@@ -3,9 +3,10 @@
 
 Drives the port's paths at the full width of the r4 HumanRF model (2
 segments [25, 25], L8/F4 grids with T=2048 per segment, rank-32 proposal,
-camera embedding 2) through its own entry points, with every field lookup on
-the hand-written CUDA `field_interp` kernels (forward and backward), which
-compute the field's corners from the sample coordinates themselves:
+camera embedding 2) through its own entry points, with every field query on
+the hand-written CUDA kernels of `csrc/field_interp.cu` (forward and
+backward), which compute the field's corners from the sample coordinates
+themselves, the lookups and their composition:
 
 - the render of the trained model `runs_evidence/r4_full_schedule_748/
   best.ckpt` (`load_checkpoint` → `convert_params` → `HumanRFModel` →
@@ -34,23 +35,19 @@ compute the field's corners from the sample coordinates themselves:
   the parallax probe, the four-segment run, the reference-capacity field
   (T = 2^22 per level) and the throughput probe.
 
-The earlier design, the (idx, w) `fused_interp` kernels fed by eager corner
-math ("the old path"), is off the main path; phases 3-5 time it beside the
-new kernels in the same call.
-
 The single-process train step and the render function are CUDA graphs
 (`train/graphs.py`), captured once per input signature and replayed; every
 path below that trains or renders through `make_train_step`,
 `make_render_fn`, `render_image` or the CLI replays them. Phases 4, 5 and
 7(a)-(b) also run the same functions eagerly (`graph=False`) and hold the
-graphs to them; the swaps of the field's call (plain, old path) run
+graphs to them; the swap of the field's query for its plain version runs
 eagerly, since a graph replays what it captured.
 
 Phases, each of which raises on failure:
 
 1. device: a CUDA Hopper card (capability 9.0) is required;
-2. build: `humanrf_torch/csrc/field_interp.cu`, `fused_interp.cu`,
-   `mesh_raster.cu` and `adamw.cu` with nvcc for sm_90a, side by side
+2. build: `humanrf_torch/csrc/field_interp.cu`, `mesh_raster.cu` and
+   `adamw.cu` with nvcc for sm_90a, side by side
    (registers, shared memory and spills from `-Xptxas -v`); then 2(b),
    AdamW's kernels (`adamw_phase`) over the parameter lists of the r4 model,
    the paper's dense field and the 1000-frame model: two steps of the
@@ -61,24 +58,21 @@ Phases, each of which raises on failure:
    replayed, with their bounds. Every later phase of this process counts
    AdamW's launches (`read_launches`): both kernels as often, some in a
    phase that trains, none in one that only renders or evaluates;
-3. kernels: each (idx, w) kernel against its plain version at KERNEL_SHAPES,
-   with its time, bound and the time of `F.embedding_bag`, the one PyTorch
-   call that computes the same function; then the field query's kernels
-   (`query_checks`) at the render pass's query of phase 5's step 0 (the
-   model's two segments over the whole buffer, with its skip inputs, one
-   launch each way as the main path makes them): the forward bit for bit
-   against the per-pair kernels followed by PyTorch's segment sum and
-   composition, and within KERNEL_TOL of the scale of the plain version;
-   the backward's every table and vector within KERNEL_TOL of its scale
-   against the plain version summed in fp64; each timed beside both, with
-   its bound;
+3. kernels: the field query's kernels (`query_checks`) at the render
+   pass's query of phase 5's step 0 (the model's two segments over the
+   whole buffer, with its skip inputs, one launch each way as the main path
+   makes them): the forward bit for bit against its plain version
+   (`field_query_plain`: per segment the plain per-pair lookups, then
+   PyTorch's segment sum and composition); the backward's every table and
+   vector within KERNEL_TOL of its scale against the plain version summed
+   in fp64; each timed beside the plain version, with its bound;
 4. the render through its graphs: kernel launches counted over it (one
-   field query forward per batch, over both segments; no backward, no
-   `fused_interp`), kernel render vs plain render
+   field query forward per batch, over both segments; no backward), kernel
+   render vs plain render
    (PSNR ≥ 50 dB), ROI-PSNR against the ground truth within 0.5 dB of the
    JAX package's banked render of the same view, warm renders of the plain
-   and the old path once and of the eager render and the graphs in turns
-   (s per view), and
+   version once and of the eager render and the graphs in turns (s per
+   view), and
    the graph render bit-equal to the eager one;
 5. training: a step-0 A/B of loss and gradients through the kernels against
    both directions' plain versions (eager); the eager body of a fresh model
@@ -87,12 +81,12 @@ Phases, each of which raises on failure:
    its warm-up, the eager body) against the eager body from the same state,
    batch and key (loss bit-equal, gradient cosine ≥ GRAPH_GRAD_COSINE per
    parameter); TRAIN_STEPS graph steps with launches
-   counted (one field query forward and backward per step, no
-   `fused_interp`), finite losses, no skipped update and falling mse; ms
+   counted (one field query forward and backward per step), finite
+   losses, no skipped update and falling mse; ms
    per step beside the eager step's before the graphs, supervised rays/s,
    peak memory and
-   the device's busy share in one profiled step; then windows of the old
-   path, the eager body and the graph in turns (ms per step, peak memory,
+   the device's busy share in one profiled step; then windows of the eager
+   body and the graph in turns (ms per step, peak memory,
    kernels, device time and busy share of a profiled step each); the
    held-out Cam012 view's ROI-PSNR before and after training;
 6. the CLI: the r4 scene written with the port's generator (its time; one
@@ -105,8 +99,8 @@ Phases, each of which raises on failure:
    the early one in mean PSNR (the CLI's validation PSNR plateaus by step
    ~100 on this scene, so the rise shows against an early block), at most 2
    step checkpoints after the rolling prune and a best.ckpt, the test frame
-   and the CSVs, no skipped update, launches of both `field_interp`
-   directions and none of `fused_interp` counted over these runs; then a
+   and the CSVs, no skipped update, launches of both field query
+   directions counted over these runs; then a
    resume from `latest` for RESUME_STEPS more steps. Prints ms per step
    (beside the eager step's before the graphs), nominal and supervised
    rays/s, the host
@@ -114,7 +108,7 @@ Phases, each of which raises on failure:
 7. dense sampling:
    (a) best.ckpt's 748² view through the dense sampler at the r4 run's
    settings (R4_DENSE, scaled to the 16,384-ray batches): launches counted
-   (forward only, no `fused_interp`), a finite image, kernel render vs
+   (forward only), a finite image, kernel render vs
    plain render ≥ 50 dB, and the baked 128² patch (`torch_dense_inputs.npz`,
    16 batches of 1,024 rays at the baked settings) ≥ DENSE_PATCH_PSNR_MIN
    from the JAX package's dense render of it, both through the graphs, and
@@ -157,7 +151,7 @@ Phases, each of which raises on failure:
    update, supervised rays/s beside phase 6's; the events file read back
    with every record's CRC, holding JAX_SCALAR_TAGS and the comparison
    images; one trace, of steps 20–24 (the recorder's `train.step` spans it
-   holds), whose `field_interp` kernels equal the launches counted in its
+   holds), whose field query kernels equal the launches counted in its
    window, and its idle gaps labelled by the program's spans;
 9. multi-GPU training, every rank a spawned process (`parallel/launch.py`)
    running `parallel/harness.py::run_steps` on inputs saved to a file. The
@@ -262,8 +256,7 @@ query's kernels, `field_query_fwd` and `field_query_bwd`, with `launches`
 counted over phase 11 and each phase's counts beside them, their phase-3
 rows at the r4 query, their phase-7(b) rows at the dense queries under
 "dense", 11(c)'s under "multiseg" and 11(d)'s at T = 2^22 under
-"ref_capacity"; the earlier `fused_interp` design, launched by phase 3
-only; `mesh_project`, `mesh_bin` and `mesh_raster`, with `launches` counted
+"ref_capacity"; `mesh_project`, `mesh_bin` and `mesh_raster`, with `launches` counted
 over 10(b), their times per view at 10(b)'s frames, 10(d)'s under
 "rig_ms" and 10(e)'s under "rig_12mp_ms"; `adamw_finite` and
 `adamw_update`, with `launches` counted over this process's phases and
@@ -302,7 +295,6 @@ from unittest import mock
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from humanrf_torch import run as cli
 from humanrf_torch.convert import convert_params
@@ -317,7 +309,6 @@ from humanrf_torch.models import fused_field
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
 from humanrf_torch.ops import adamw as adamw_kernels
 from humanrf_torch.ops import field_interp as fli
-from humanrf_torch.ops import fused_interp as fi
 from humanrf_torch.ops import rasterize as raster
 from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.parallel import harness
@@ -344,24 +335,12 @@ from humanrf_torch.view_inputs import load_dense_inputs, load_train_inputs, load
 REPO = Path(__file__).resolve().parent
 RUN_DIR = REPO / "runs_evidence" / "r4_full_schedule_748"
 
-# The field query's launch counts (`fli.launches` also counts the per-pair
-# kernels, under "pair_fwd"/"pair_bwd").
-QUERY_LAUNCHES = ("fwd", "bwd")
 # AdamW's launches (of each of its two kernels) per phase of this process's
 # main path, as `read_launches` reads them.
 ADAMW_LAUNCHES: dict = {}
-KERNEL_TOL = 1e-5          # scaled max error, kernel vs plain (both fp32; see check_kernels)
+KERNEL_TOL = 1e-5          # scaled max error, the query's backward vs the plain version summed in fp64
 RENDER_PSNR_MIN = 50.0     # dB, kernel render vs plain render
 ROI_PSNR_SLACK = 0.5       # dB below the banked JAX render's ROI-PSNR
-
-# (name, P, C, F, T, N): one field query of a 16,384-ray batch × 16 samples
-# (4·L grid level-pairs, then the four 1-D vectors), and a table of the
-# reference's capacity (2^19).
-KERNEL_SHAPES = (
-    ("grids", 32, 8, 4, 2048, 262_144),
-    ("vectors", 4, 2, 32, 2048, 262_144),
-    ("capacity", 64, 8, 2, 1 << 19, 65_536),
-)
 
 # The least time of a call (H100 SXM peak rates): each input
 # read once and each output written once over the HBM rate, or its fp32 and
@@ -403,9 +382,8 @@ EAGER_MS_PER_STEP = {"train step (5)": 40.83, "dense step (7(b))": 38.56, "cli (
                    "throughput (11(e))": 75.06}
 EAGER_S_PER_VIEW = "0.44–0.48"  # phase 4's proposal render of a 748² view
 MSE_DROP = 0.5             # mean mse of the last 20 steps ≤ this × that of the first 5
-AB_WARM_STEPS = 2          # phase 5's old/new windows: steps before each timed window
-AB_STEPS = 10              # phase 5's old/new windows: timed steps each
-OLD_WINDOW = (1, 3)        # the old path's window (10–30× slower): steps before it, timed steps
+AB_WARM_STEPS = 2          # phase 5's eager/graph windows: steps before each timed window
+AB_STEPS = 10              # phase 5's eager/graph windows: timed steps each
 
 EARLY_STEPS = 20           # phases 6 and 7(c): the first CLI run, validated and saved at its end
 CLI_STEPS = 200            # phase 6: resumed to this step, validated and saved every CLI_STEPS / 2
@@ -529,99 +507,6 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def embedding_bag_inputs(tables, idx, w):
-    """The (idx, w) lookup as `F.embedding_bag` bags: input (idx + p·T) as
-    (P·N, C) bags, weight the tables as (P·T, F), per-sample weights w in the
-    bags' layout. Its output is (P·N, F), the kernel's (P, F, N) transposed."""
-    P, F_, T = tables.shape
-    _, C, N = idx.shape
-    bags = (idx.long() + torch.arange(P, device=idx.device)[:, None, None] * T).permute(0, 2, 1).reshape(P * N, C)
-    weight = tables.permute(0, 2, 1).reshape(P * T, F_).contiguous()
-    return bags.contiguous(), weight, w.permute(0, 2, 1).reshape(P * N, C).contiguous()
-
-
-def library_times(tables, idx, w, g) -> dict:
-    """`F.embedding_bag` (mode "sum", per-sample weights) on the same inputs,
-    prepared outside the timed window: the forward's time, and the backward
-    into the weight timed as (forward + backward) − forward."""
-    P, F_, _ = tables.shape
-    bags, weight, psw = embedding_bag_inputs(tables, idx, w)
-    weight = weight.requires_grad_()
-    g_bags = g.permute(0, 2, 1).reshape(-1, F_).contiguous()
-    out = F.embedding_bag(bags, weight, mode="sum", per_sample_weights=psw)
-    ref = fi.fused_interp_plain(tables, idx, w).permute(0, 2, 1).reshape(-1, F_)
-    err = float((out.detach() - ref).abs().max() / ref.abs().max())
-    fwd = time_ms(lambda: F.embedding_bag(bags, weight, mode="sum", per_sample_weights=psw))
-    both = time_ms(lambda: torch.autograd.grad(
-        F.embedding_bag(bags, weight, mode="sum", per_sample_weights=psw), weight, g_bags))
-    return {"fwd": fwd, "bwd": both - fwd, "scaled_err": err}
-
-
-def check_kernels(device) -> dict:
-    """Each (idx, w) kernel against its plain version at KERNEL_SHAPES, random
-    inputs with per-sample-normalised corner weights; its time, its plain
-    version's, its bound and the time of `F.embedding_bag` on the same inputs.
-
-    The forward and its plain version sum the same fp32 products in the same
-    order (the kernel with fma). The backward's atomics add in a
-    run-dependent order, and so does the plain scatter_add on the card: an
-    entry of dtab sums ~N·C/T terms (≤ 1,024 here), and reordering an fp32
-    sum of n terms moves it by about eps·√n of its terms' size (~2e-6), so
-    1e-5 of the output's scale bounds both directions.
-    """
-    directions = {
-        "fwd": (lambda t, i, w, g: fi._launch_fwd(t, i, w), lambda t, i, w, g: fi.fused_interp_plain(t, i, w)),
-        "bwd": (lambda t, i, w, g: fi._launch_bwd(g, i, w, t.shape[2]),
-                lambda t, i, w, g: fi.fused_interp_bwd_plain(g, i, w, t.shape[2])),
-    }
-    per_shape = {"fwd": [], "bwd": []}
-    for name, P, C, F_, T, N in KERNEL_SHAPES:
-        rng = np.random.default_rng(0)
-        tables = torch.tensor(rng.normal(size=(P, F_, T)).astype(np.float32), device=device)
-        idx = torch.tensor(rng.integers(0, T, (P, C, N)).astype(np.int32), device=device)
-        w = rng.uniform(0, 1, (P, C, N)).astype(np.float32)
-        w = torch.tensor(w / w.sum(axis=1, keepdims=True), device=device)  # corner weights sum to 1
-        g = torch.tensor(rng.normal(size=(P, F_, N)).astype(np.float32), device=device)
-        library = library_times(tables, idx, w, g)
-        # idx and w, 8 B per corner and sample, then tables or g in, out or dtab out.
-        nbytes = 8 * P * C * N + 4 * P * F_ * T + 4 * P * F_ * N
-        for direction, (kernel, plain) in directions.items():
-            out = kernel(tables, idx, w, g)
-            ref = plain(tables, idx, w, g)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            scaled = err / float(ref.abs().max())
-            if not scaled < KERNEL_TOL:
-                raise AssertionError(f"fused_interp_{direction} kernel disagrees at {name} {(P, C, F_, T, N)}: "
-                                     f"scaled err {scaled:.3e}")
-            plain_ms = time_ms(lambda: plain(tables, idx, w, g))
-            ms = time_ms(lambda: kernel(tables, idx, w, g))
-            bound_ms, bound_by = bound(nbytes, 2 * P * C * F_ * N)
-            log(f"kernel fused_interp_{direction} {name} P={P} C={C} F={F_} T={T} N={N}: max|err| {err:.3e} "
-                f"(scaled {scaled:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"embedding_bag {library[direction]:.4f} ms ({'forward' if direction == 'fwd' else '(forward + backward) − forward'}; "
-                f"its scaled err {library['scaled_err']:.1e}), bound {bound_ms:.4f} ms ({bound_by}), "
-                f"{100 * bound_ms / ms:.1f}% of it")
-            per_shape[direction].append({"shape": name, "P": P, "C": C, "F": F_, "T": T, "N": N,
-                                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                         "library_ms": library[direction], "bound_ms": bound_ms,
-                                         "bound_by": bound_by})
-    return {direction: summarize(rows) for direction, rows in per_shape.items()}
-
-
-def summarize(rows) -> dict:
-    """A kernel's record: one field query is the grid call plus the vector
-    call, so its times and bound are those two shapes' sums."""
-    query = [r for r in rows if r["shape"] in ("grids", "vectors")]
-    record = {"max_abs_err": max(r["max_abs_err"] for r in rows)}
-    for key in ("ms", "plain_ms", "library_ms", "old_path_ms", "bound_ms"):
-        if key in query[0]:
-            record[key] = sum(r[key] for r in query)
-    record["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in query) else "operations"
-    record["per_shape"] = rows
-    return record
-
-
 def fresh_model(device, view, **overrides):
     """Phase 5's fresh model: initialised on the CPU from seed 0, the same
     start on any machine; `overrides` replace fields of its configuration."""
@@ -667,14 +552,11 @@ def served_count(query: dict) -> int:
 
 
 @contextlib.contextmanager
-def field_swap(pair):
-    """The field query as it was before its kernels, `field_query_plain`
-    (per-pair lookups, then PyTorch's segment sum and composition), with
-    `pair` in place of the per-pair `field_interp`: `fli.PlainFieldInterp.
-    apply` or `fli.field_interp_plain` for the plain versions, `old_path`
-    for the (idx, w) kernels."""
-    with mock.patch.object(fused_field, "field_query", fli.field_query_plain), \
-            mock.patch.object(fli, "field_interp", pair):
+def field_swap():
+    """The field query's plain version, `field_query_plain` (per-pair
+    lookups, then PyTorch's segment sum and composition), in place of its
+    kernels."""
+    with mock.patch.object(fused_field, "field_query", fli.field_query_plain):
         yield
 
 
@@ -685,15 +567,6 @@ def capture_real_query(device, view, pool) -> dict:
     batch = sample_batch(cfg, pool.pixel_rgba, torch.Generator(device).manual_seed(1))
     step = make_train_step(cfg, model, _GradientsOnly(model), pool.width, pool.height, graph=False)
     return capture_queries(step, batch, pool, make_key(0, device))["render"]
-
-
-def old_path(tables, xyzt, spec, n_valid=None, seg=None, s=0):
-    """The path the field_interp kernels replace: the eager corner math, then
-    the (idx, w) `fused_interp` kernels (differentiable in the tables); the
-    skipped samples read 0, as `field_interp`'s do."""
-    out = fi.fused_interp(tables, *fli.corner_idx_w(xyzt, spec, tables.shape[2]))
-    live = fli.served(xyzt.shape[0], xyzt.device, n_valid, seg, s)
-    return out if live is None else torch.where(live, out, 0.0)
 
 
 def touched_bytes(fields, xyzt, n_valid, seg) -> int:
@@ -717,20 +590,17 @@ def query_checks(label: str, query: dict, backward: bool) -> dict:
     """The field query's kernels at a real query (`query`, from `query_of`:
     the model's own segments over the whole buffer with its skip inputs),
     one launch each way as the main path makes them → {direction: row}.
-    The forward against `field_query_plain` on the card (the per-pair
-    kernels, then PyTorch's segment sum and composition: the path it
-    replaces) bit for bit, and against the plain version (the same with
-    `PlainFieldInterp`, plain PyTorch throughout) within KERNEL_TOL of its
-    scale; the backward against the plain version summed in fp64, every
-    table and vector within KERNEL_TOL of its scale; else it raises. Each is
-    timed beside the path it replaces ("present_ms"; the backward's as its
-    autograd (forward + backward) − forward) and the plain version
-    ("plain_ms"), with its bound: the served samples' coordinates and
-    corner math, the segment ids below the valid count, the features
-    written over the whole buffer, the table rows the samples touch read
-    once (`touched_bytes`); the backward reads the served cotangents,
-    zeroes every table's gradient (the launch allocates them) and writes
-    the touched rows once."""
+    The forward against its plain version, `field_query_plain` (per-pair
+    lookups, then PyTorch's segment sum and composition), bit for bit; the
+    backward against the plain version summed in fp64, every table and
+    vector within KERNEL_TOL of its scale; else it raises. Each is timed
+    beside the plain version ("plain_ms"; the backward's is
+    `field_query_bwd_plain` in fp32), with its bound: the served samples'
+    coordinates and corner math, the segment ids below the valid count, the
+    features written over the whole buffer, the table rows the samples
+    touch read once (`touched_bytes`); the backward reads the served
+    cotangents, zeroes every table's gradient (the launch allocates them)
+    and writes the touched rows once."""
     fields = [fli.SegmentField(tuple(t.detach() for t in f.grids), f.vectors.detach(), f.spec)
               for f in query["fields"]]
     xyzt, n_valid, seg = query["xyzt"], query["n_valid"], query["seg"]
@@ -743,27 +613,17 @@ def query_checks(label: str, query: dict, backward: bool) -> dict:
     dims = {"shape": "query", "positions": label, "segments": len(fields), "L": L, "F": F_,
             "T": [int(f.grids[0].shape[2]) for f in fields], "N": N, "served": M}
 
-    def plain_query():
-        with mock.patch.object(fli, "field_interp", fli.PlainFieldInterp.apply):
-            return fli.field_query_plain(fields, xyzt, n_valid, seg)
-
     out, ref = fli._launch_query_fwd(fields, xyzt, n_valid, seg), fli.field_query_plain(fields, xyzt, n_valid, seg)
-    plain = plain_query()
     torch.cuda.synchronize()
-    scaled = float((out.double() - plain.double()).abs().max() / plain.abs().max())
-    rows = {"fwd": dict(dims, max_abs_err=float((out - ref).abs().max()), bit_exact=bool(torch.equal(out, ref)),
-                        plain_scaled_err=scaled, plain_bit_exact=bool(torch.equal(out, plain)))}
+    rows = {"fwd": dict(dims, max_abs_err=float((out - ref).abs().max()), bit_exact=bool(torch.equal(out, ref)))}
     if not rows["fwd"]["bit_exact"]:
-        raise AssertionError(f"field_query_fwd at {label} differs from the per-pair kernels' composition by "
+        raise AssertionError(f"field_query_fwd at {label} differs from the plain version by "
                              f"{rows['fwd']['max_abs_err']:.3e}")
-    if not scaled < KERNEL_TOL:
-        raise AssertionError(f"field_query_fwd at {label} disagrees with the plain version: scaled err {scaled:.3e}")
     with torch.no_grad():
         rows["fwd"].update(ms=time_ms(lambda: fli._launch_query_fwd(fields, xyzt, n_valid, seg), iters=10),
-                           present_ms=time_ms(lambda: fli.field_query_plain(fields, xyzt, n_valid, seg), iters=5),
-                           plain_ms=time_ms(plain_query, iters=2))
+                           plain_ms=time_ms(lambda: fli.field_query_plain(fields, xyzt, n_valid, seg), iters=2))
     rows["fwd"]["bound_ms"], rows["fwd"]["bound_by"] = bound(read + 4 * N * L * F_ + touched, ops)
-    del out, ref, plain
+    del out, ref
     if backward:
         g = torch.randn((N, L * F_), generator=torch.Generator(xyzt.device).manual_seed(0), device=xyzt.device)
         grads = fli._launch_query_bwd(fields, xyzt, g, n_valid, seg)
@@ -774,26 +634,18 @@ def query_checks(label: str, query: dict, backward: bool) -> dict:
         if not scaled < KERNEL_TOL:
             raise AssertionError(f"field_query_bwd at {label} disagrees with the fp64 plain sum: "
                                  f"scaled err {scaled:.3e}")
-        leaves = [t.clone().requires_grad_() for t in fli._flat(fields)]
-        leaf_fields = fli._unflat([(f.spec, len(f.grids)) for f in fields], leaves)
-        present_fwd = rows["fwd"]["present_ms"]
-        present = time_ms(lambda: torch.autograd.grad(fli.field_query_plain(leaf_fields, xyzt, n_valid, seg),
-                                                      leaves, g), iters=5) - present_fwd
         rows["bwd"] = dict(dims, max_abs_err=scaled, bit_exact=False,
                            ms=time_ms(lambda: fli._launch_query_bwd(fields, xyzt, g, n_valid, seg), iters=10),
-                           present_ms=present,
                            plain_ms=time_ms(lambda: fli.field_query_bwd_plain(fields, xyzt, g, n_valid, seg), iters=2))
         rows["bwd"]["bound_ms"], rows["bwd"]["bound_by"] = bound(read + 4 * M * L * F_ + table_bytes + touched,
                                                                  2 * ops)
-        del leaves, leaf_fields, g
+        del g
     for direction, row in rows.items():
-        check = (f"bit-exact against the per-pair path, scaled err {row['plain_scaled_err']:.2e} against the plain "
-                 f"version (bit-exact {row['plain_bit_exact']})" if direction == "fwd"
+        check = ("bit-exact against the plain version" if direction == "fwd"
                  else f"scaled err {row['max_abs_err']:.2e} against the fp64 sum")
         log(f"kernel field_query_{direction} {label}: {len(fields)} segments, L={L} F={F_} T={dims['T']}, {N} slots "
-            f"serving {M}: {check}; "
-            f"kernel {row['ms']:.4f} ms, the per-pair kernels with PyTorch's composition {row['present_ms']:.4f} ms "
-            f"({row['present_ms'] / row['ms']:.2f}×), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"serving {M}: {check}; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
+            f"({row['plain_ms'] / row['ms']:.0f}×), bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of it")
     torch.cuda.empty_cache()
     return rows
@@ -801,7 +653,7 @@ def query_checks(label: str, query: dict, backward: bool) -> dict:
 
 def ptxas_summary(log_text: str) -> list:
     """`-Xptxas -v` output → one entry per kernel: its name and template
-    arguments (corners, feature chunk, staged), registers, spilled bytes."""
+    arguments, registers, spilled bytes."""
     rows, name, spill = [], None, "0"
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -882,7 +734,7 @@ def step0_kernel_vs_plain(label: str, grads_step, model, batch, pool, key) -> No
     STEP0_LOSS_REL, each parameter's gradient at cosine ≥ STEP0_GRAD_COSINE."""
     runs = {}
     for which in ("kernel", "plain"):
-        patch = field_swap(fli.PlainFieldInterp.apply) if which == "plain" else contextlib.nullcontext()
+        patch = field_swap() if which == "plain" else contextlib.nullcontext()
         with patch:
             loss, _ = grads_step(batch, pool.pool, pool.grids, pool.aabb, key)
         runs[which] = (float(loss), {n: p.grad.clone() for n, p in model.named_parameters()})
@@ -1102,14 +954,14 @@ def train(device, view, pool) -> dict:
         before = dict(fli.launches)
         b = sample_batch(cfg, pool.pixel_rgba, generator)
         loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
-        per_step_launches.append({d: fli.launches[d] - before[d] for d in QUERY_LAUNCHES})
+        per_step_launches.append({d: fli.launches[d] - before[d] for d in before})
         # The graph's outputs are overwritten by its next replay: kept as copies.
         losses.append(loss.clone())
         mses.append(aux["mse"].clone())
         supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, old_launches = read_launches("training", trains=True)
+    launches = read_launches("training", trains=True)
     peak = torch.cuda.max_memory_allocated(device)
 
     losses, mses = torch.stack(losses).cpu(), torch.stack(mses).cpu()
@@ -1118,7 +970,7 @@ def train(device, view, pool) -> dict:
     ms_per_step = 1e3 * seconds / warm
     log(f"train (graph): {TRAIN_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, "
         f"mse {float(mses[:5].mean()):.5f} (first 5) → {float(mses[-20:].mean()):.5f} (last 20); "
-        f"skipped updates {int(optimizer.skipped)}; field_interp launches {launches}, fused_interp {old_launches}")
+        f"skipped updates {int(optimizer.skipped)}; field query launches {launches}")
     log(f"train (graph): {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included; the eager step "
         f"before the graphs: {EAGER_MS_PER_STEP['train step (5)']} ms), "
         f"{float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised "
@@ -1127,9 +979,7 @@ def train(device, view, pool) -> dict:
     expected = {"fwd": 1, "bwd": 1}
     bad = [i for i, n in enumerate(per_step_launches) if n != expected]
     if bad or launches != {d: n * TRAIN_STEPS for d, n in expected.items()}:
-        raise AssertionError(f"training launched field_interp {launches}; steps {bad[:5]} differ from {expected} per step")
-    if old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"training launched the old fused_interp kernels {old_launches}")
+        raise AssertionError(f"training launched field query {launches}; steps {bad[:5]} differ from {expected} per step")
     check_adamw_per_step("training", model, TRAIN_STEPS)
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss at steps {torch.nonzero(~torch.isfinite(losses)).flatten().tolist()}")
@@ -1147,7 +997,7 @@ def train(device, view, pool) -> dict:
     step_windows("train", {"graph": step, "eager": eager}, cfg, pool, generator, key, device)
 
     roi_after = held_out_roi_psnr(model, view)
-    steps_run = TRAIN_STEPS + 1 + sum(OLD_WINDOW) + 1 + 4 * (AB_WARM_STEPS + AB_STEPS + 1)
+    steps_run = TRAIN_STEPS + 1 + 4 * (AB_WARM_STEPS + AB_STEPS + 1)
     log(f"held-out {view.camera_name} frame {view.frame_number} after {steps_run} steps: "
         f"ROI-PSNR {roi_after:.3f} dB (before {roi_before:.3f} dB)")
     if not roi_after > roi_before:
@@ -1156,36 +1006,30 @@ def train(device, view, pool) -> dict:
 
 
 def step_windows(label: str, steps: dict, cfg, pool, generator, key, device) -> None:
-    """Training windows in turns, old, eager, graph, graph, eager: the old
-    path (the eager body with eager corner math plus the (idx, w) kernels;
-    one short window, OLD_WINDOW, as it is 10–30× slower), the eager body
-    and the captured step,
-    on one model and
-    optimizer: ms per step, peak memory allocated in the window (a graph's
-    private pool, taken at its capture before the window, is not in it;
-    the main window's peak, which includes the capture, is the graph's),
-    and one profiled step's kernel count, device time and busy share each."""
-    results = {"old": [], "eager": [], "graph": []}
-    for turn, which in enumerate(("old", "eager", "graph", "graph", "eager")):
-        patch = field_swap(old_path) if which == "old" else contextlib.nullcontext()
-        step = steps["graph" if which == "graph" else "eager"]
-        warm_steps, timed_steps = OLD_WINDOW if which == "old" else (AB_WARM_STEPS, AB_STEPS)
-        with patch:
-            for i in range(warm_steps):
-                step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
-                     fold_in(key, torch.tensor(10_000 + 100 * turn + i, device=device)))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(device)
-            t0 = time.perf_counter()
-            for i in range(timed_steps):
-                step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
-                     fold_in(key, torch.tensor(10_050 + 100 * turn + i, device=device)))
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0) / timed_steps
-            peak = torch.cuda.max_memory_allocated(device)
-            prof = profile_step(step, sample_batch(cfg, pool.pixel_rgba, generator), pool, key, device)
+    """Training windows in turns, eager, graph, graph, eager: the eager body
+    and the captured step, on one model and optimizer: ms per step, peak
+    memory allocated in the window (a graph's private pool, taken at its
+    capture before the window, is not in it; the main window's peak, which
+    includes the capture, is the graph's), and one profiled step's kernel
+    count, device time and busy share each."""
+    results = {"eager": [], "graph": []}
+    for turn, which in enumerate(("eager", "graph", "graph", "eager")):
+        step = steps[which]
+        for i in range(AB_WARM_STEPS):
+            step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
+                 fold_in(key, torch.tensor(10_000 + 100 * turn + i, device=device)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        for i in range(AB_STEPS):
+            step(sample_batch(cfg, pool.pixel_rgba, generator), pool.pool, pool.grids, pool.aabb,
+                 fold_in(key, torch.tensor(10_050 + 100 * turn + i, device=device)))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / AB_STEPS
+        peak = torch.cuda.max_memory_allocated(device)
+        prof = profile_step(step, sample_batch(cfg, pool.pixel_rgba, generator), pool, key, device)
         results[which].append((ms, peak, prof))
-        log(f"{label} windows ({which}): {ms:.2f} ms per step over {timed_steps}, peak memory allocated in the window "
+        log(f"{label} windows ({which}): {ms:.2f} ms per step over {AB_STEPS}, peak memory allocated in the window "
             f"{peak / 2**30:.3f} GiB; "
             f"profiled step: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms device (span "
             f"{prof['span_vs_events']:.3f}× the events' time), busy "
@@ -1220,7 +1064,7 @@ def profile_step(step, batch, pool, key, device) -> dict:
     time, and the five largest by self device time. The device's busy share
     is that sum over an unprofiled warm step's wall time (the profiler slows
     the host). The window opens PROFILE_LEAD_S early (`device_profile`).
-    Raises unless the profiler holds the whole step: as many field_interp
+    Raises unless the profiler holds the whole step: as many field query
     kernels as the step launched, and its device activities spanning
     0.7-1.3× the CUDA events' time around the step (a window that lost its
     first activities spans less)."""
@@ -1241,7 +1085,7 @@ def profile_step(step, batch, pool, key, device) -> dict:
     span_ms = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
     seen = sum(1 for e in kernels if re.search(r"field_(fwd|bwd)_kernel", e.name))
     if seen != launched or not 0.7 * events_ms <= span_ms <= 1.3 * events_ms:
-        raise AssertionError(f"torch.profiler saw {seen} field_interp kernels of the step's {launched}, its device "
+        raise AssertionError(f"torch.profiler saw {seen} field query kernels of the step's {launched}, its device "
                              f"activities spanning {span_ms:.3f} ms against {events_ms:.3f} ms by CUDA events: it "
                              f"does not hold the whole step in this process")
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:5]
@@ -1308,12 +1152,12 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     result = cli.main(flags(total_steps, half) + evaluate)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, old_launches = read_launches(name, trains=True)
+    launches = read_launches(name, trains=True)
     stats = result["train"]
     blocks = validation_blocks(ws)
     means = {step: float(np.mean(v)) for step, v in blocks.items()}
     log(f"{name}: {EARLY_STEPS} steps, then resumed to {total_steps} + 3 validations + test render + evaluation "
-        f"in {wall:.1f} s wall; field_interp launches {launches}, fused_interp {old_launches}; validation PSNR per "
+        f"in {wall:.1f} s wall; field query launches {launches}; validation PSNR per "
         f"block {blocks}; evaluation {result['averages']}")
     before = EAGER_MS_PER_STEP["cli (6)" if name == "cli" else "dense cli (7(c))"]
     log(f"{name}: trainer scale ({stats['steps']} steps timed, the step a CUDA graph): {stats['ms_per_step']:.2f} ms "
@@ -1338,9 +1182,7 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     if stats["skipped_nonfinite"] != 0:
         raise AssertionError(f"{stats['skipped_nonfinite']} updates skipped as non-finite")
     if not (launches["fwd"] > 0 and launches["bwd"] > 0):
-        raise AssertionError(f"the CLI run launched field_interp {launches}")
-    if old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"the CLI run launched the old fused_interp kernels {old_launches}")
+        raise AssertionError(f"the CLI run launched field query {launches}")
 
     resumed = cli.main(flags(total_steps + RESUME_STEPS, half) + ["--training.checkpoint", "latest"])["train"]
     log(f"{name}: resumed from step {resumed['start_step']} to {resumed['end_step']}")
@@ -1409,10 +1251,10 @@ def dense_render(device, view, model, proposal_roi: float) -> dict:
     num_batches = -(-width * height // view.rays_batch_size)
     reset_launches()
     img, first_s = timed_render(model, view, pcfg)
-    launches, old_launches = read_launches("the dense render", trains=False)
+    launches = read_launches("the dense render", trains=False)
     times, images = {"plain": [], "eager": [], "graph": []}, {}
     for which in ("plain", "eager", "graph", "graph", "eager"):
-        patch = field_swap(fli.field_interp_plain) if which == "plain" else contextlib.nullcontext()
+        patch = field_swap() if which == "plain" else contextlib.nullcontext()
         with patch:
             images[which], seconds = timed_render(model, view, pcfg, graph=which == "graph")
         times[which].append(seconds)
@@ -1428,7 +1270,7 @@ def dense_render(device, view, model, proposal_roi: float) -> dict:
         f"graph, first (warm-up and capture included) {first_s:.3f} s; s per view "
         + "; ".join(f"{which} {', '.join(f'{t:.3f}' for t in runs)} ({1e3 * per_view[which] / num_batches:.1f} ms "
                     f"per batch)" for which, runs in times.items())
-        + f"; field_interp launches {launches}, fused_interp {old_launches}")
+        + f"; field query launches {launches}")
     log(f"dense render: per view {describe_counts(counts)}; PSNR(kernel, plain) = {vs_plain:.2f} dB; PSNR(graph, "
         f"eager) = {vs_eager:.2f} dB (bit-equal {bool(torch.equal(img, img_eager))}); ROI-PSNR vs ground truth "
         f"{roi:.3f} dB (phase 4's proposal render {proposal_roi:.3f} dB)")
@@ -1438,8 +1280,8 @@ def dense_render(device, view, model, proposal_roi: float) -> dict:
         raise AssertionError(f"the dense render is not a finite image of the view's shape: {img_np.shape}")
     if not vs_plain >= RENDER_PSNR_MIN:
         raise AssertionError(f"dense kernel render differs from the plain render: {vs_plain:.2f} dB < {RENDER_PSNR_MIN}")
-    if launches["fwd"] == 0 or launches["bwd"] != 0 or old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"the dense render launched field_interp {launches} and fused_interp {old_launches}")
+    if launches["fwd"] == 0 or launches["bwd"] != 0:
+        raise AssertionError(f"the dense render launched field query {launches}")
 
     # The baked patch, batch by batch at the baked settings.
     dense = load_dense_inputs(RUN_DIR / "torch_dense_inputs.npz", device)
@@ -1506,13 +1348,13 @@ def dense_train(device, pool) -> tuple:
         before = dict(fli.launches)
         b = sample_batch(cfg, pool.pixel_rgba, generator)
         loss, aux = step(b, pool.pool, pool.grids, pool.aabb, fold_in(key, torch.tensor(i, device=device)))
-        per_step.append({d: fli.launches[d] - before[d] for d in QUERY_LAUNCHES})
+        per_step.append({d: fli.launches[d] - before[d] for d in before})
         losses.append(loss.clone())
         mses.append(aux["mse"].clone())
         supervised.append(aux["num_rays_supervised"].clone())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches, old_launches = read_launches("the dense step", trains=True)
+    launches = read_launches("the dense step", trains=True)
     peak = torch.cuda.max_memory_allocated(device)
     losses, mses, supervised = torch.stack(losses).cpu(), torch.stack(mses).cpu(), torch.stack(supervised).cpu()
     warm = DENSE_STEPS - WARM_STEPS
@@ -1531,7 +1373,7 @@ def dense_train(device, pool) -> tuple:
 
     log(f"dense step (graph): {DENSE_STEPS} steps, loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}, mse "
         f"{float(mses[:5].mean()):.5f} (first 5) → {float(mses[-20:].mean()):.5f} (last 20); skipped updates "
-        f"{int(optimizer.skipped)}; field_interp launches {launches} ({per_step[-1]} in the last step), fused_interp {old_launches}")
+        f"{int(optimizer.skipped)}; field query launches {launches} ({per_step[-1]} in the last step)")
     log(f"dense step (graph): {ms_per_step:.2f} ms per warm step (mean of {warm}, batch draw included; the eager step before "
         f"the graphs {EAGER_MS_PER_STEP['dense step (7(b))']} ms), "
         f"{cfg.num_rays * warm / seconds:.0f} rays/s, {float(supervised[WARM_STEPS:].sum()) / seconds:.0f} supervised rays/s "
@@ -1547,9 +1389,8 @@ def dense_train(device, pool) -> tuple:
     # Per step: the prune and the render pass each make one field query, and
     # the render pass's takes one backward.
     expected = {"fwd": 2, "bwd": 1}
-    if old_launches != {"fwd": 0, "bwd": 0} or any(n != expected for n in per_step):
-        raise AssertionError(f"the dense step launched field_interp {launches} (not {expected} in every step) and "
-                             f"fused_interp {old_launches}")
+    if any(n != expected for n in per_step):
+        raise AssertionError(f"the dense step launched field query {launches}, not {expected} in every step")
     check_adamw_per_step("the dense step", model, DENSE_STEPS)
     if not torch.isfinite(losses).all():
         raise AssertionError("non-finite dense training loss")
@@ -1658,7 +1499,7 @@ def trajectory_phase(scene: Path, tmp: Path, device) -> dict:
     cli.main(flags)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, old_launches = read_launches("the trajectory phases", trains=False)
+    launches = read_launches("the trajectory phases", trains=False)
 
     results = ws / "results"
     # Both paths ping-pong their cameras against the 50 frames (`data/trajectory.py::_ping_pong_sequence`).
@@ -1680,7 +1521,7 @@ def trajectory_phase(scene: Path, tmp: Path, device) -> dict:
     videos = sorted(p.name for p in results.glob("video_*.mp4"))
     total = sum(expected.values())
     log(f"trajectory: {total} views ({expected}) through the CLI in {wall:.1f} s wall, {wall / total:.3f} s per view "
-        f"(loaders and checkpoint loads included); field_interp launches {launches}, fused_interp {old_launches}; "
+        f"(loaders and checkpoint loads included); field query launches {launches}; "
         f"subject coverage {min(coverages):.4f}–{max(coverages):.4f}; "
         + (f"ffmpeg wrote {videos}" if videos else "no video (ffmpeg is not installed), the frames are on disk"))
 
@@ -1698,8 +1539,8 @@ def trajectory_phase(scene: Path, tmp: Path, device) -> dict:
         raise AssertionError(f"the calibration-file view is {calib_psnr:.2f} dB from the test render")
     if not keycam_psnr >= KEYCAM_ENDPOINT_PSNR_MIN:
         raise AssertionError(f"the keycam path's first view is {keycam_psnr:.2f} dB from key camera 0's render")
-    if not (launches["fwd"] > 0 and launches["bwd"] == 0) or old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"the trajectory phases launched field_interp {launches}, fused_interp {old_launches}")
+    if not (launches["fwd"] > 0 and launches["bwd"] == 0):
+        raise AssertionError(f"the trajectory phases launched field query {launches}")
     return launches
 
 
@@ -1801,7 +1642,7 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
             wall = time.perf_counter() - t0
     finally:
         annotations.write_bytes(original)
-    launches, old_launches = read_launches("the light-bloom run", trains=True)
+    launches = read_launches("the light-bloom run", trains=True)
 
     share = pixels["filtered"] / max(pixels["all"], 1)
     (events_file,) = (ws / "run").glob("events.out.tfevents.*")
@@ -1811,7 +1652,7 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
         f"wall (pool load, a profiled window and a validation included); filtered pixels {pixels['filtered']} of "
         f"{pixels['all']} loaded ({100 * share:.3f}%); {supervised:.0f} supervised rays/s over steps 2–20 (the "
         f"events' window; phase 6's timed windows: {cli_stats['supervised_rays_per_s']:.0f}); skipped updates "
-        f"{stats['skipped_nonfinite']}; field_interp launches {launches}, fused_interp {old_launches}")
+        f"{stats['skipped_nonfinite']}; field query launches {launches}")
     if not share > 0:
         raise AssertionError("the light-bloom filter dropped no pool pixel")
     if stats["skipped_nonfinite"] != 0:
@@ -1833,16 +1674,16 @@ def light_bloom_phase(scene: Path, tmp: Path, device, cli_stats: dict) -> dict:
     traced = {d: sum(e.get("cat") == "kernel" and f"field_{d}_kernel" in e.get("name", "") for e in trace_events)
               for d in ("fwd", "bwd")}
     in_window = {d: window["stop"][d] - window["start"][d] for d in ("fwd", "bwd")}
-    log(f"profile: {traces[0].name} ({traces[0].stat().st_size / 2**20:.1f} MiB), steps {steps}; field_interp "
+    log(f"profile: {traces[0].name} ({traces[0].stat().st_size / 2**20:.1f} MiB), steps {steps}; field query "
         f"kernels in the trace {traced}, launches counted in its window {in_window}; idle gaps {gaps}")
     if steps != list(range(20, 25)) or step_events != 5:
         raise AssertionError(f"the trace holds steps {steps} ({step_events} train.step events), not 20–24")
     if not gaps or any(label != "other" and "." not in label for label, _ in gaps):
         raise AssertionError(f"the trace's idle gaps {gaps} are not labelled by the program's spans")
-    if not (launches["fwd"] > 0 and launches["bwd"] > 0) or old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"the light-bloom run launched field_interp {launches}, fused_interp {old_launches}")
+    if not (launches["fwd"] > 0 and launches["bwd"] > 0):
+        raise AssertionError(f"the light-bloom run launched field query {launches}")
     if traced != in_window or not min(traced.values()) > 0:
-        raise AssertionError(f"the trace holds field_interp kernels {traced}; its window launched {in_window}")
+        raise AssertionError(f"the trace holds field query kernels {traced}; its window launched {in_window}")
     return launches
 
 
@@ -2621,28 +2462,22 @@ def first_render_query():
 
 
 def reset_launches() -> None:
-    """Sets the launch counts of the field query, `fused_interp` and AdamW to 0."""
+    """Sets the launch counts of the field query and AdamW to 0."""
     fli.reset_launches()
-    fi.reset_launches()
     adamw_kernels.reset_launches()
 
 
-def read_launches(name: str, trains: bool) -> tuple:
-    """The launches since the last reset → (the field query's {"fwd",
-    "bwd"}, `fused_interp`'s); AdamW's go into ADAMW_LAUNCHES[name]. Raises
-    if a per-pair `field_interp` kernel launched (no path of the program
-    calls one), or unless AdamW's two kernels launched as often as each
-    other, some times in a phase that `trains` and never in one that does
-    not."""
-    launches, old_launches = dict(fli.launches), dict(fi.launches)
-    pair = {d: launches.pop(f"pair_{d}") for d in QUERY_LAUNCHES}
-    if any(pair.values()):
-        raise AssertionError(f"{name} launched the per-pair field_interp kernels {pair}")
+def read_launches(name: str, trains: bool) -> dict:
+    """The launches since the last reset → the field query's {"fwd",
+    "bwd"}; AdamW's go into ADAMW_LAUNCHES[name]. Raises unless AdamW's two
+    kernels launched as often as each other, some times in a phase that
+    `trains` and never in one that does not."""
+    launches = dict(fli.launches)
     adamw = dict(adamw_kernels.launches)
     if adamw["finite"] != adamw["update"] or (adamw["update"] > 0) != trains:
         raise AssertionError(f"{name} launched AdamW's kernels {adamw} ({'a' if trains else 'no'} training phase)")
     ADAMW_LAUNCHES[name] = adamw["update"]
-    return launches, old_launches
+    return launches
 
 
 def check_adamw_per_step(name: str, model, steps: int) -> None:
@@ -2658,16 +2493,15 @@ def check_adamw_per_step(name: str, model, steps: int) -> None:
 def counted(name: str, fn, backward: bool):
     """`fn()` with the launch counts set to 0 before and read after → (its
     result, the field query's launches); raises unless both directions (or,
-    without `backward`, the forward alone) launched and neither the per-pair
-    kernels nor `fused_interp` did, or unless AdamW launched where, and only
-    where, a backward did (`read_launches`)."""
+    without `backward`, the forward alone) launched, or unless AdamW
+    launched where, and only where, a backward did (`read_launches`)."""
     torch.cuda.synchronize()
     reset_launches()
     result = fn()
     torch.cuda.synchronize()
-    launches, old_launches = read_launches(name, trains=backward)
-    if not (launches["fwd"] > 0 and (launches["bwd"] > 0) == backward) or old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"{name} launched field_interp {launches}, fused_interp {old_launches}")
+    launches = read_launches(name, trains=backward)
+    if not (launches["fwd"] > 0 and (launches["bwd"] > 0) == backward):
+        raise AssertionError(f"{name} launched field query {launches}")
     return result, launches
 
 
@@ -2907,26 +2741,22 @@ def render_phase(device, view) -> tuple:
 
     reset_launches()
     img, first_s = timed_render(model, view)
-    launches, old_launches = read_launches("the render", trains=False)
+    launches = read_launches("the render", trains=False)
     log(f"render (graph, first: warm-up and capture included): {first_s:.3f} s, {num_pixels / first_s:.0f} rays/s, "
-        f"field_interp launches {launches}, fused_interp {old_launches}")
-    if launches != {"fwd": expected_launches, "bwd": 0} or old_launches != {"fwd": 0, "bwd": 0}:
-        raise AssertionError(f"the render launched field_interp {launches} and fused_interp {old_launches}, "
-                             f"expected {expected_launches} field_interp forward and nothing else")
+        f"field query launches {launches}")
+    if launches != {"fwd": expected_launches, "bwd": 0}:
+        raise AssertionError(f"the render launched field query {launches}, expected {expected_launches} forward "
+                             f"and nothing else")
 
-    # Warm renders: plain (the field's kernel call swapped for its plain
-    # version) and old (eager corners plus the (idx, w) kernel) once each,
-    # ~15× slower, then the eager render and the graphs in turns; the swaps
-    # and the eager render run the render function eagerly (a graph replays
-    # what it captured).
-    times = {"plain": [], "old": [], "eager": [], "graph": []}
-    swaps = {"plain": fli.field_interp_plain, "old": old_path}
-    for which in ("plain", "old", "eager", "graph", "graph", "eager"):
-        if which in swaps:
-            with field_swap(swaps[which]):
-                out, seconds = timed_render(model, view, graph=False)
-            if which == "plain":
-                img_plain = out
+    # Warm renders: plain (the field's query swapped for its plain version)
+    # once, far slower, then the eager render and the graphs in turns; the
+    # swap and the eager render run the render function eagerly (a graph
+    # replays what it captured).
+    times = {"plain": [], "eager": [], "graph": []}
+    for which in ("plain", "eager", "graph", "graph", "eager"):
+        if which == "plain":
+            with field_swap():
+                img_plain, seconds = timed_render(model, view, graph=False)
         else:
             out, seconds = timed_render(model, view, graph=which == "graph")
             if which == "eager":
@@ -2981,8 +2811,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # Phase 2: build, the four libraries side by side.
-    names = {"field_interp": (), "fused_interp": (), "mesh_raster": raster.LIBRARY_DEFINES, "adamw": ()}
+    # Phase 2: build, the three libraries side by side.
+    names = {"field_interp": (), "mesh_raster": raster.LIBRARY_DEFINES, "adamw": ()}
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(load_library, names, names.values())))
     for name, lib in built.items():
@@ -2998,9 +2828,8 @@ def main(argv=None) -> int:
     view = load_view_inputs(RUN_DIR / "torch_view_inputs.npz", device)
     adamw_rows = adamw_phase(device, view)
 
-    # Phase 3: the kernels against their plain versions, random and real positions.
+    # Phase 3: the field query's kernels against their plain version at real positions.
     train_pool = load_train_inputs(RUN_DIR / "torch_train_inputs.npz", device)
-    old_kernels = check_kernels(device)
     real_query = capture_real_query(device, view, train_pool)
     log(f"real positions: phase 5's step-0 render query serves {served_count(real_query)} samples of "
         f"{real_query['xyzt'].shape[0]} slots")
@@ -3060,17 +2889,6 @@ def main(argv=None) -> int:
             **r4_query[direction],
             "dense": {where: rows[direction] for where, rows in dense_query.items() if direction in rows},
             **{where: rows[direction] for where, rows in protocol_query.items()},
-        }
-        for direction, line in (("fwd", 87), ("bwd", 97))
-    ] + [
-        {
-            "name": f"fused_interp_{direction}",
-            "route": "cuda",
-            "source": "humanrf_torch/csrc/fused_interp.cu",
-            "replaces": f"humanrf_tpu/ops/fused_interp.py:{line}",
-            "launches": 0,  # the earlier design: off the main path, launched by phase 3 only
-            "launches_by_phase": {phase: 0 for phase in by_phase},
-            **old_kernels[direction],
         }
         for direction, line in (("fwd", 87), ("bwd", 97))
     ] + mesh_records + [

@@ -4,7 +4,7 @@ Same data, schedule and evaluation protocol as `example_humanrf`, with the
 scene field and sampler of the JAX package's flagship: L8/F4 grids with small
 per-level tables, and CP-proposal importance sampling (Kc = 32 → Kf = 16) with
 2× candidate rays. The port runs it with proposal sampling through its CUDA
-`field_interp` kernels.
+field query kernels (`csrc/field_interp.cu`).
 """
 from humanrf_torch.configs.example_humanrf import config as _reference_config
 

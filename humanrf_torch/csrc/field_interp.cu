@@ -1,139 +1,95 @@
-// field_interp for Hopper (sm_90a): the 4D field's table lookups with their
-// corner math inside the kernels.
+// field_interp for Hopper (sm_90a): the 4D field's query, its table lookups
+// with their corner math and the composition inside two kernels.
 //
-//     out[p, f, n]  = sum_c  w_c(p, xyzt[n]) * tables[p, f, idx_c(p, xyzt[n])]        (forward)
-//     dtab[p, f, t] = sum_{n, c} g[p, f, n] * w_c(p, xyzt[n]) * [idx_c(p, xyzt[n]) == t] (backward)
+//     out[n, l*F + f] = sum_g  f_g[l, f](n) * v_{p(g)}[l*F + f](n),  p = (3, 2, 0, 1)
 //
-// Two pairs of entry points. The per-pair kernels (field_interp_fwd/_bwd)
-// look up one mode, the grids or the vectors, of one segment, and write
-// every (pair, feature, sample). The field query (field_query_fwd/_bwd,
-// "The field query" below) is the main path: one launch each way for a
-// whole query over every segment and both modes, with the 4D composition
-// inside. The notes that follow are the per-pair kernels'; the query reuses
-// their corner math.
+// where f_g is grid g's lookup at level l and v_p vector p's, read from the
+// tables of the sample's own segment:
+//
+//     f_g[l, f](n) = sum_c  w_c(n) * grid_g[l, f, idx_c(n)]     (8 corners)
+//     v_p[d](n)    = sum_k  w_k(n) * vectors[p, d, idx_k(n)]    (2 taps)
 //
 // Replaces the TPU kernels of humanrf_tpu/ops/fused_interp.py, the forward
 // _fwd_kernel (:87) and the backward _bwd_kernel (:97), together with the
 // corner math that humanrf_tpu/models/fused_field.py runs before each call
-// (_grid_corner_idx_w, _vector_idx_w). On the TPU, XLA fuses that corner math
-// into one program; in eager PyTorch it was ~5,000 small launches per field
-// query and 8 B per corner and sample of (idx, w) through HBM. Here each
-// thread reads its sample's (x, y, z, t) as one float4 and computes the
-// corners in registers.
+// (_grid_corner_idx_w, _vector_idx_w) and the composition after them. On the
+// TPU, XLA fuses the corner math and the composition around the kernels. The
+// plain version in PyTorch (humanrf_torch/ops/field_interp.py::
+// field_query_plain) computes per segment a grid lookup and a vector lookup,
+// each a (4, L*F, N) fp32 tensor over the whole budget, then their sum over
+// segments and the composition's products and sums; in the backward the
+// cotangents grad * v_p and grad * f_g, another (4, L*F, N) tensor each. Here
+// each thread reads its sample's (x, y, z, t) as one float4, computes the
+// corners in registers and writes only the (N, L*F) features.
 //
-// Two modes (FieldSpec.mode), exactly the JAX package's arithmetic:
-// - grid: tables (4L, F, T); pair p = g*L + l reads grid g's axes (xyz, xyt,
-//   yzt, xzt) at level l. scaled = x*scale + 0.5, floor, frac; 8 corners
-//   (corner c has offset bit d = (c >> d) & 1 on axis d); a dense level
-//   (res^3 <= T) indexes c0 + c1*res + c2*res^2, a hashed one
-//   (c0*1 ^ c1*2654435761 ^ c2*805459861) mod T in uint32; the weight is
+// ---- The corner math --------------------------------------------------------
+// Exactly the JAX package's arithmetic. Coordinates are clamped to [0, 1]
+// first.
+// - grid: grid g (xyz, xyt, yzt, xzt) reads the three axes of (x, y, z, t)
+//   that it keeps (it drops t, z, x, y) at level l. scaled = x*scale + 0.5,
+//   floor, frac; 8 corners (corner c has offset bit d = (c >> d) & 1 on axis
+//   d); a dense level (res^3 <= T) indexes c0 + c1*res + c2*res^2, a hashed
+//   one (c0*1 ^ c1*2654435761 ^ c2*805459861) mod T in uint32; the weight is
 //   ((a*b)*c) of frac or 1 - frac per axis. A corner whose index is not in
 //   [0, T) (a dense level's far corner when res^3 <= T < res^3 + res^2 + res)
 //   contributes nothing and gets no gradient.
-// - vector: tables (4, D, R); pair p reads coordinate p; coord = x*R - 0.5;
-//   taps clamp(floor, 0, R-1) and clamp(floor + 1, 0, R-1), weights 1 - frac
-//   and frac.
-// Coordinates are clamped to [0, 1] first. Every rounding step is written
-// with __fmul_rn/__fadd_rn/__fsub_rn: nvcc would otherwise contract x*s + 0.5
-// into an fma, which can move floor across a cell boundary and change a
-// corner. The forward also sums with separate roundings (no fma), corner by
-// corner in order, so it equals the plain PyTorch version bit for bit.
+// - vector: vector p reads coordinate p; coord = x*R - 0.5; taps
+//   clamp(floor, 0, R-1) and clamp(floor + 1, 0, R-1), weights 1 - frac and
+//   frac.
+// Every rounding step is written with __fmul_rn/__fadd_rn/__fsub_rn: nvcc
+// would otherwise contract x*s + 0.5 into an fma, which can move floor across
+// a cell boundary and change a corner. The forward also sums with separate
+// roundings (no fma): each lookup corner by corner in order, as the plain
+// version field_interp_plain sums it, then the composition in the order
+// ((f0*v + f1*v) + f2*v) + f3*v, so the features equal the plain version's
+// bit for bit.
 //
-// ---- What bounds them on an H100 --------------------------------------------
-// Forward at the r4 grid shape (P=32, F=4, T=2048, N=262,144): xyzt 4.2 MB +
-// tables 1.0 MB + out 134.2 MB = 139.5 MB, 0.042 ms at 3.35 TB/s. The old
-// (idx, w) interface read 536 MB more. The arithmetic, ~90 integer and fp32
-// operations of corner math per sample and pair, 32 table reads and 32
-// multiply-adds, is close behind: the kernel sits between bytes and issue.
-// Backward: g 134.2 MB + xyzt 4.2 MB + dtab 1.0 MB, the same 0.042 ms. Its
-// cost is the C*F adds per sample into a small table. An fp32 atomicAdd on
-// shared memory is a compare-and-swap loop on this card (ATOMS.CAST.SPIN),
-// so adds that collide retry, and at real samples many collide: consecutive
-// samples lie on one ray and share their coarse levels' corners.
+// ---- Forward -----------------------------------------------------------------
+// A thread per (sample, level), levels fastest, so that the L threads of a
+// sample write its L*F features as one coalesced row. It computes the four
+// grids' corners and lookups at its level and the partner vectors' taps in
+// registers, then the products and their sum. It reads the tables where they
+// lie, through L1 and L2 (__ldg): a thread needs the four grids of its level,
+// which at the r4 width (4 x 32 KB per segment) do not fit beside other
+// blocks in shared memory, and at the paper's T = 2^17 no table does. What
+// bounds it: the gathers, 4 x 8 corners of F features and 4 x 2 taps per
+// (sample, level), against an output of 4*L*F bytes a slot (128 B at
+// L*F = 32), written once.
 //
-// ---- Forward design ----------------------------------------------------------
-// A block owns one pair, a chunk of at most 8 features and a long range of
-// samples that it walks in tiles of 1,024 (4 consecutive samples a thread);
-// the launch is one wave of blocks, so each stages its slab once. When the
-// chunk's (fc, T) slab fits kSlabBytes (the grids' whole (4, 2048) slab is
-// 32 KB, the vectors' 8 of 32 features 64 KB), the block stages it in shared
-// memory transposed to (T, fc): a corner's features are then one 16-byte
-// shared load. The staging transposes, so it is a plain load loop rather
-// than cp.async; it moves 32 KB per block against ~1 MB of output written by
-// the block. Larger tables (the reference-capacity T = 2^19, 4 MB per pair)
-// are gathered with __ldg from L2. Stores are float4 along n when N % 4 == 0.
+// ---- Backward ----------------------------------------------------------------
+// A thread per (run of kBwdRun consecutive samples, level). For each grid g
+// in turn it recomputes the sample's lookup f_g and the partner vector's v_p
+// (nothing is kept from the forward), forms grad * v_p and grad * f_g in
+// registers and adds w_c * grad * v_p into grid g's gradient and
+// w_tap * grad * f_g into vector p's with global atomics. A corner's or tap's
+// sum stays in registers while its index (and the segment) stays the same
+// along the run, adding only when it changes: the consecutive samples of a
+// ray share their coarse levels' corners and the time vector's taps, so most
+// adds vanish there (an fp32 atomicAdd that collides with another retries).
+// Atomics add in a run-dependent order; the sums are fp32.
 //
-// ---- Backward design ---------------------------------------------------------
-// As fused_interp.cu's backward, the sums are privatised per block in an fp32
-// shared slab (pair, sample range, <= 8 features; feature-major), zeroed on
-// entry and flushed with one global atomicAdd per non-zero entry; tables
-// larger than a slab add straight into dtab with global atomics. New here,
-// against the collisions at real samples: each thread owns kBwdRun
-// consecutive samples (a run along one ray) and keeps each corner's sum in
-// registers while that corner's index stays the same, adding to the slab
-// only when it changes. At the coarse levels a ray's samples share their
-// corners, so most adds vanish; at random positions the index changes every
-// sample and the kernel adds as often as before. Registers are capped so
-// that 4 blocks fit an SM (more warps to cover the loops' retries), and the
-// launch is cut into 4 waves, which evens out blocks whose adds collide more
-// than others'. Atomics add in a run-dependent order; the sums are fp32.
-//
-// ---- Skipped slots --------------------------------------------------------
-// Both directions take two optional inputs, read from device memory so that
-// a launch needs no host read and replays unchanged in a CUDA graph: a slot
-// count n_valid (slots at or past *n_valid are skipped: the empty tail of a
-// static sample budget) and a per-sample segment id seg with the segment s
-// the call serves (samples of other segments are skipped: a multi-segment
-// model's routing, the JAX package's where-masking). A skipped sample writes
-// 0 in the forward and adds nothing in the backward. The grid stays sized by
-// N, so the launch is static. With n_valid, the blocks split the live
-// prefix [0, *n_valid) evenly among them, read from device memory at run
-// time (see live_range), and the forward's blocks also split the tail's
-// zeros; a block with no live sample neither stages nor flushes a slab. Each
-// kernel is built with and without this skip code (kSkip); a call with
-// neither input runs the build without it, the kernel as it was before.
+// ---- Segments and skipped slots ----------------------------------------------
+// `seg` (N,) int32 routes each sample to its segment; every segment's table
+// pointers, table size and dense levels come in FieldQuery, passed by value
+// (__grid_constant__: read in place, never copied per thread; up to 22.8 KB
+// of parameters, which CUDA 12.1 and later take). A sample of no segment (seg
+// outside [0, n_segments)), or at or past *n_valid (the empty tail of a
+// static sample budget), writes zeros and adds nothing. Both inputs are read
+// from device memory, so a launch needs no host read; one launch serves every
+// segment, and its grid is sized by N, so a CUDA graph replays it unchanged.
 //
 // Both entry points launch on the caller's stream, allocate nothing, do not
-// synchronise and return cudaGetLastError(). They take any N, any T < 2^31,
-// and P <= 65,535.
+// synchronise and return cudaGetLastError(). They take any N and T < 2^31.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Tuning knobs, measured on the H100 with builds of `-D` variants (see
-// PERF.md): the backward's run length (samples per thread), the
-// blocks per SM that ptxas must fit in registers (__launch_bounds__' second
-// argument; 4 lets the backward hide its shared-memory atomics, which are
-// compare-and-swap loops, ATOMS.CAST.SPIN, for fp32) and the waves of
-// blocks each direction's launch is cut into.
-#ifndef FIELD_INTERP_BWD_RUN
-#define FIELD_INTERP_BWD_RUN 8
-#endif
-#ifndef FIELD_INTERP_MIN_BLOCKS
-#define FIELD_INTERP_MIN_BLOCKS 4
-#endif
-#ifndef FIELD_INTERP_FWD_WAVES
-#define FIELD_INTERP_FWD_WAVES 1
-#endif
-#ifndef FIELD_INTERP_BWD_WAVES
-#define FIELD_INTERP_BWD_WAVES 4
-#endif
-
 constexpr int kMaxLevels = 32;
 
-// Passed by value (ctypes.Structure in humanrf_torch/ops/field_interp.py).
-struct FieldSpec {
-  int32_t mode;      // kModeGrid or kModeVector
-  int32_t n_levels;  // grid: L (P = 4L); vector: unused
-  float scale[kMaxLevels];
-  int32_t resolution[kMaxLevels];
-  int32_t dense[kMaxLevels];
-};
-
-// The field query's limit on segments per launch: its parameters take 88 B
-// a segment, 22.8 KB in all at 256, under the 32 KB that a kernel's
-// parameters may hold on Hopper (see "The field query" below). 256 holds any
-// partitioning of 1000 frames (167 segments at the ladder's smallest, 6).
+// The limit on segments per launch: FieldQuery takes 88 B a segment, 22.8 KB
+// in all at 256, under the 32 KB that a kernel's parameters may hold on
+// Hopper. 256 holds any partitioning of 1000 frames (167 segments at the
+// ladder's smallest, 6).
 constexpr int kMaxSegments = 256;
 
 // One segment's tables and, for the backward, their gradients (zeroed).
@@ -146,8 +102,7 @@ struct SegmentTables {
   uint32_t dense;  // bit l: level l indexes densely (res^3 <= T)
 };
 
-// The field query's, passed by value (ctypes.Structure in
-// humanrf_torch/ops/field_interp.py).
+// Passed by value (ctypes.Structure in humanrf_torch/ops/field_interp.py).
 struct FieldQuery {
   int32_t n_segments;
   int32_t n_levels;  // L
@@ -160,46 +115,16 @@ struct FieldQuery {
 
 namespace {
 
-constexpr int kModeGrid = 0;
-constexpr int kModeVector = 1;
 constexpr int kThreads = 256;
-constexpr int kFwdPerThread = 4;  // consecutive samples per thread and tile (float4 stores)
-constexpr int kBwdRun = FIELD_INTERP_BWD_RUN;
-constexpr int kMinBlocks = FIELD_INTERP_MIN_BLOCKS;
-constexpr int kFwdWaves = FIELD_INTERP_FWD_WAVES;
-constexpr int kBwdWaves = FIELD_INTERP_BWD_WAVES;
-constexpr int kSlabBytes = 64 * 1024;
+// The backward's run length: the consecutive samples (along one ray) whose
+// sums a thread keeps in registers.
+constexpr int kBwdRun = 8;
 constexpr uint32_t kOutside = 0xFFFFFFFFu;  // a corner outside [0, T)
 
 __device__ __forceinline__ float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
-// This block's range [begin, end) of the samples it computes. Without
-// n_valid, block x takes [x*spb, (x+1)*spb). With it, the live prefix
-// [0, *n_valid), which is what costs, is split evenly over the blocks of the
-// (unchanged) grid, in parts that are multiples of `align` and at least
-// `min_part` (a staged slab's floor): were the blocks laid over all N, only
-// those over the prefix would work, a third of the card or less at the
-// dense step's budgets.
-__device__ __forceinline__ void live_range(const int32_t* n_valid, int64_t N, int64_t spb, int64_t align,
-                                           int64_t min_part, int64_t& begin, int64_t& end) {
-  if (n_valid == nullptr) {
-    begin = static_cast<int64_t>(blockIdx.x) * spb;
-    end = min(N, begin + spb);
-    return;
-  }
-  const int64_t live = min(N, static_cast<int64_t>(max(__ldg(n_valid), 0)));
-  int64_t part = max((live + gridDim.x - 1) / gridDim.x, min_part);
-  part = (part + align - 1) / align * align;
-  begin = min(live, static_cast<int64_t>(blockIdx.x) * part);
-  end = min(live, begin + part);
-}
-
-// Whether sample n (below the live end) belongs to the segment served.
-__device__ __forceinline__ bool served(const int32_t* seg, int seg_id, int64_t n) {
-  return seg == nullptr || __ldg(seg + n) == seg_id;
-}
-
-// The corner math of one sample for one pair, in registers.
+// The corner math of one sample for one grid at one level, or for one
+// vector, in registers.
 struct PairSetup {
   int coord;      // grid: the dropped axis of (x, y, z, t); vector: the axis read
   float scale;    // grid: level scale; vector: R
@@ -208,27 +133,6 @@ struct PairSetup {
   uint32_t T;
   bool pow2;
 };
-
-__device__ __forceinline__ PairSetup pair_setup(const FieldSpec& spec, int p, uint32_t T) {
-  PairSetup s;
-  s.T = T;
-  s.pow2 = (T & (T - 1)) == 0;
-  if (spec.mode == kModeGrid) {
-    const int L = spec.n_levels;
-    const int g = p / L, l = p % L;
-    // Grids xyz, xyt, yzt, xzt drop t, z, x, y.
-    s.coord = g == 0 ? 3 : g == 1 ? 2 : g == 2 ? 0 : 1;
-    s.scale = spec.scale[l];
-    s.res = static_cast<uint32_t>(spec.resolution[l]);
-    s.dense = spec.dense[l] != 0;
-  } else {
-    s.coord = p;
-    s.scale = static_cast<float>(T);
-    s.res = T;
-    s.dense = true;
-  }
-  return s;
-}
 
 __device__ __forceinline__ float component(const float4& q, int a) {
   return a == 0 ? q.x : a == 1 ? q.y : a == 2 ? q.z : q.w;
@@ -276,375 +180,8 @@ __device__ __forceinline__ void corners(const PairSetup& s, const float4& q, uin
   }
 }
 
-// kFC features of one table entry from the (T, kFC) shared slab.
-template <int kFC>
-__device__ __forceinline__ void load_slab(const float* slab, uint32_t t, float (&v)[kFC]) {
-  const float* e = slab + static_cast<size_t>(t) * kFC;
-  if constexpr (kFC == 1) {
-    v[0] = e[0];
-  } else if constexpr (kFC == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(e);
-    v[0] = a.x;
-    v[1] = a.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < kFC / 4; ++k) {
-      const float4 a = reinterpret_cast<const float4*>(e)[k];
-      v[4 * k] = a.x;
-      v[4 * k + 1] = a.y;
-      v[4 * k + 2] = a.z;
-      v[4 * k + 3] = a.w;
-    }
-  }
-}
-
-// Grid (sample ranges, feature chunks, P). kStaged: dynamic shared memory of
-// T*kFC floats, the chunk's slab transposed to (T, kFC). kSkip: the call has
-// skip inputs (n_valid or seg); without them the skip code compiles away and
-// the kernel is the one it was before they existed.
-template <int kC, int kFC, bool kStaged, bool kSkip>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-field_fwd_kernel(const float* __restrict__ tables,  // (P, F, T)
-                 const float4* __restrict__ xyzt,   // (N, 4)
-                 float* __restrict__ out,           // (P, F, N)
-                 const FieldSpec spec, int F, uint32_t T, int64_t N, int64_t samples_per_block,
-                 bool vec_store, const int32_t* __restrict__ n_valid, const int32_t* __restrict__ seg, int seg_id,
-                 int64_t min_part) {
-  extern __shared__ float4 smem[];
-  float* slab = reinterpret_cast<float*>(smem);
-  const int p = blockIdx.z;
-  const int f0 = blockIdx.y * kFC;
-  const int fc = min(kFC, F - f0);
-  int64_t n_begin, n_end;  // the same for the whole block
-  live_range(kSkip ? n_valid : nullptr, N, samples_per_block, kThreads * kFwdPerThread, min_part, n_begin, n_end);
-  const float* tab = tables + (static_cast<int64_t>(p) * F + f0) * T;
-
-  if (kSkip && n_valid != nullptr) {
-    // The empty tail [*n_valid, N), split evenly over the blocks: zeros.
-    const int64_t live = min(N, static_cast<int64_t>(max(__ldg(n_valid), 0)));
-    const int64_t part = (N - live + gridDim.x - 1) / gridDim.x;
-    const int64_t t_begin = live + static_cast<int64_t>(blockIdx.x) * part;
-    const int64_t t_end = min(N, t_begin + part);
-    for (int f = 0; f < fc; ++f) {
-      float* row = out + (static_cast<int64_t>(p) * F + f0 + f) * N;
-      for (int64_t n = t_begin + threadIdx.x; n < t_end; n += kThreads) row[n] = 0.0f;
-    }
-  }
-
-  if (kStaged && (!kSkip || n_begin < n_end)) {
-#pragma unroll
-    for (int f = 0; f < kFC; ++f) {
-      for (uint32_t t = threadIdx.x; t < T; t += kThreads) {
-        slab[static_cast<size_t>(t) * kFC + f] = f < fc ? __ldg(tab + static_cast<int64_t>(f) * T + t) : 0.0f;
-      }
-    }
-    __syncthreads();
-  }
-  const PairSetup s = pair_setup(spec, p, T);
-
-  for (int64_t n0 = n_begin + static_cast<int64_t>(threadIdx.x) * kFwdPerThread; n0 < n_end;
-       n0 += kThreads * kFwdPerThread) {
-    float acc[kFwdPerThread][kFC];
-#pragma unroll
-    for (int j = 0; j < kFwdPerThread; ++j) {
-#pragma unroll
-      for (int f = 0; f < kFC; ++f) acc[j][f] = 0.0f;
-      if (n0 + j < n_end && (!kSkip || served(seg, seg_id, n0 + j))) {
-        uint32_t idx[kC];
-        float w[kC];
-        corners<kC>(s, __ldg(xyzt + n0 + j), idx, w);
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          if (idx[c] == kOutside) continue;
-          float v[kFC];
-          if constexpr (kStaged) {
-            load_slab<kFC>(slab, idx[c], v);
-          } else {
-#pragma unroll
-            for (int f = 0; f < kFC; ++f) v[f] = f < fc ? __ldg(tab + static_cast<int64_t>(f) * T + idx[c]) : 0.0f;
-          }
-#pragma unroll
-          for (int f = 0; f < kFC; ++f) acc[j][f] = __fadd_rn(acc[j][f], __fmul_rn(w[c], v[f]));
-        }
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < kFC; ++f) {
-      if (f >= fc) break;
-      float* row = out + (static_cast<int64_t>(p) * F + f0 + f) * N;
-      if (vec_store && n0 + kFwdPerThread <= n_end) {
-        *reinterpret_cast<float4*>(row + n0) = make_float4(acc[0][f], acc[1][f], acc[2][f], acc[3][f]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kFwdPerThread; ++j) {
-          if (n0 + j < n_end) row[n0 + j] = acc[j][f];
-        }
-      }
-    }
-  }
-}
-
-// Grid (sample ranges, feature chunks, P). kStaged: dynamic shared memory of
-// T*kFC floats, the chunk's gradient slab as (kFC, T); otherwise global
-// atomics. (Feature-major, unlike the forward's slab: a warp's adds for one
-// feature then spread over all 32 banks, where (T, kFC) would put them on
-// 32 / kFC of them.) kSkip as the forward's.
-template <int kC, int kFC, bool kStaged, bool kSkip>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-field_bwd_kernel(const float* __restrict__ g,       // (P, F, N)
-                 const float4* __restrict__ xyzt,   // (N, 4)
-                 float* __restrict__ dtab,          // (P, F, T), zeroed
-                 const FieldSpec spec, int F, uint32_t T, int64_t N, int64_t samples_per_block,
-                 const int32_t* __restrict__ n_valid, const int32_t* __restrict__ seg, int seg_id,
-                 int64_t min_part) {
-  extern __shared__ float4 smem[];
-  float* slab = reinterpret_cast<float*>(smem);
-  const int p = blockIdx.z;
-  const int f0 = blockIdx.y * kFC;
-  const int fc = min(kFC, F - f0);
-  int64_t n_begin, n_end;
-  live_range(kSkip ? n_valid : nullptr, N, samples_per_block, kThreads * kBwdRun, min_part, n_begin, n_end);
-  if (kSkip && n_begin >= n_end) return;  // no live sample (uniform over the block)
-  float* dst = dtab + (static_cast<int64_t>(p) * F + f0) * T;
-  const float* grow = g + (static_cast<int64_t>(p) * F + f0) * N;
-
-  if constexpr (kStaged) {
-    for (uint32_t i = threadIdx.x; i < T * kFC; i += kThreads) slab[i] = 0.0f;
-    __syncthreads();
-  }
-  const PairSetup s = pair_setup(spec, p, T);
-
-  // Adds one corner's run sum, then starts the next run.
-  auto flush = [&](uint32_t t, const float (&sum)[kFC]) {
-    if (t == kOutside) return;
-#pragma unroll
-    for (int f = 0; f < kFC; ++f) {
-      if (f >= fc) break;
-      if constexpr (kStaged) {
-        atomicAdd(slab + static_cast<size_t>(f) * T + t, sum[f]);
-      } else {
-        atomicAdd(dst + static_cast<int64_t>(f) * T + t, sum[f]);
-      }
-    }
-  };
-
-  for (int64_t n0 = n_begin + static_cast<int64_t>(threadIdx.x) * kBwdRun; n0 < n_end;
-       n0 += kThreads * kBwdRun) {
-    uint32_t cur[kC];
-    float run[kC][kFC];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      cur[c] = kOutside;
-#pragma unroll
-      for (int f = 0; f < kFC; ++f) run[c][f] = 0.0f;
-    }
-    const int len = static_cast<int>(min(static_cast<int64_t>(kBwdRun), n_end - n0));
-    for (int j = 0; j < len; ++j) {
-      const int64_t n = n0 + j;
-      if (kSkip && !served(seg, seg_id, n)) continue;
-      float gv[kFC];
-#pragma unroll
-      for (int f = 0; f < kFC; ++f) gv[f] = f < fc ? __ldg(grow + static_cast<int64_t>(f) * N + n) : 0.0f;
-      uint32_t idx[kC];
-      float w[kC];
-      corners<kC>(s, __ldg(xyzt + n), idx, w);
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        if (idx[c] != cur[c]) {
-          flush(cur[c], run[c]);
-          cur[c] = idx[c];
-#pragma unroll
-          for (int f = 0; f < kFC; ++f) run[c][f] = 0.0f;
-        }
-#pragma unroll
-        for (int f = 0; f < kFC; ++f) run[c][f] = fmaf(w[c], gv[f], run[c][f]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kC; ++c) flush(cur[c], run[c]);
-  }
-
-  if constexpr (kStaged) {
-    __syncthreads();
-    for (int f = 0; f < fc; ++f) {
-      for (uint32_t t = threadIdx.x; t < T; t += kThreads) {
-        const float v = slab[static_cast<size_t>(f) * T + t];
-        if (v != 0.0f) atomicAdd(dst + static_cast<int64_t>(f) * T + t, v);
-      }
-    }
-  }
-}
-
-// The launch plan: feature chunk, staging, then the grid (size_grid).
-struct Plan {
-  int fc;  // kFC: 1, 2, 4 or 8
-  bool staged;
-  int chunks;
-  int smem;
-  int64_t spb = 0;  // samples per block
-  int64_t min_spb = 0;  // the floor of a block's samples (staged slabs)
-  unsigned ranges = 0;
-};
-
+// F rounded up to the kernels' template argument: 1, 2, 4 or 8.
 int cover(int F) { return F <= 1 ? 1 : F <= 2 ? 2 : F <= 4 ? 4 : 8; }
-
-Plan make_plan(int F, uint32_t T) {
-  Plan pl;
-  pl.fc = cover(F);
-  while (pl.fc > 1 && static_cast<int64_t>(pl.fc) * T * 4 > kSlabBytes) pl.fc /= 2;
-  pl.staged = static_cast<int64_t>(pl.fc) * T * 4 <= kSlabBytes;
-  if (!pl.staged) pl.fc = cover(F);
-  pl.chunks = (F + pl.fc - 1) / pl.fc;
-  pl.smem = pl.staged ? static_cast<int>(pl.fc * T * 4) : 0;
-  return pl;
-}
-
-// `waves` full waves of `kernel` (a wave is as many blocks as the card holds
-// at once), each block taking an equal range of samples, a multiple of
-// `tile`, and for a staged slab at least 4*T/C samples, so that staging or
-// flushing it (fc*T entries) stays small against the block's work. The
-// forward takes one wave (each block stages its slab once); the backward
-// several, which evens out blocks whose adds collide more than others'.
-template <typename Kernel>
-cudaError_t size_grid(Kernel kernel, Plan& pl, int P, int64_t N, int C, uint32_t T, int tile, int waves) {
-  cudaError_t err = cudaSuccess;
-  if (pl.smem > 48 * 1024) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, pl.smem);
-  if (err != cudaSuccess) return err;
-  const int64_t pairs_chunks = static_cast<int64_t>(P) * pl.chunks;
-  int64_t per_pc = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1) * waves / pairs_chunks;
-  if (per_pc < 1) per_pc = 1;
-  int64_t spb = (N + per_pc - 1) / per_pc;
-  const int64_t floor_spb = pl.staged ? (4 * static_cast<int64_t>(T) + C - 1) / C : 0;
-  if (spb < floor_spb) spb = floor_spb;
-  pl.min_spb = floor_spb;
-  pl.spb = (spb + tile - 1) / tile * tile;
-  pl.ranges = static_cast<unsigned>((N + pl.spb - 1) / pl.spb);
-  return cudaSuccess;
-}
-
-dim3 grid_of(const Plan& pl, int P) {
-  return dim3(pl.ranges, static_cast<unsigned>(pl.chunks), static_cast<unsigned>(P));
-}
-
-bool valid_args(const FieldSpec& spec, int P, int F, long long T, long long N) {
-  if (F < 1 || T < 1 || T >= (1LL << 31) || P > 65535 || N < 0) return false;
-  if (spec.mode == kModeGrid) return spec.n_levels >= 1 && spec.n_levels <= kMaxLevels && P == 4 * spec.n_levels;
-  return spec.mode == kModeVector && P == 4;
-}
-
-template <int kC, int kFC, bool kStaged, bool kSkip>
-struct FwdLaunch {
-  static cudaError_t run(const float* tables, const float* xyzt, float* out, const FieldSpec& spec, int P, int F,
-                         uint32_t T, int64_t N, const int32_t* n_valid, const int32_t* seg, int seg_id,
-                         cudaStream_t s, Plan pl) {
-    auto kernel = field_fwd_kernel<kC, kFC, kStaged, kSkip>;
-    const cudaError_t err = size_grid(kernel, pl, P, N, kC, T, kThreads * kFwdPerThread, kFwdWaves);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid_of(pl, P), kThreads, pl.smem, s>>>(tables, reinterpret_cast<const float4*>(xyzt), out, spec, F, T,
-                                                     N, pl.spb, N % 4 == 0, n_valid, seg, seg_id, pl.min_spb);
-    return cudaGetLastError();
-  }
-};
-
-template <int kC, int kFC, bool kStaged, bool kSkip>
-struct BwdLaunch {
-  static cudaError_t run(const float* g, const float* xyzt, float* dtab, const FieldSpec& spec, int P, int F,
-                         uint32_t T, int64_t N, const int32_t* n_valid, const int32_t* seg, int seg_id,
-                         cudaStream_t s, Plan pl) {
-    auto kernel = field_bwd_kernel<kC, kFC, kStaged, kSkip>;
-    const cudaError_t err = size_grid(kernel, pl, P, N, kC, T, kThreads * kBwdRun, kBwdWaves);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid_of(pl, P), kThreads, pl.smem, s>>>(g, reinterpret_cast<const float4*>(xyzt), dtab, spec, F, T, N,
-                                                     pl.spb, n_valid, seg, seg_id, pl.min_spb);
-    return cudaGetLastError();
-  }
-};
-
-// Dispatch on (corners, feature chunk, staging, skip inputs) to one instantiation.
-template <int kC, template <int, int, bool, bool> class Launch, typename... Args>
-cudaError_t dispatch(const Plan& pl, bool skip, Args... args) {
-#define FIELD_INTERP_CASE(FC)                                                                                 \
-  case FC:                                                                                                    \
-    if (skip) {                                                                                               \
-      return pl.staged ? Launch<kC, FC, true, true>::run(args..., pl) : Launch<kC, FC, false, true>::run(args..., pl); \
-    }                                                                                                         \
-    return pl.staged ? Launch<kC, FC, true, false>::run(args..., pl) : Launch<kC, FC, false, false>::run(args..., pl);
-  switch (pl.fc) {
-    FIELD_INTERP_CASE(1)
-    FIELD_INTERP_CASE(2)
-    FIELD_INTERP_CASE(4)
-    FIELD_INTERP_CASE(8)
-  }
-#undef FIELD_INTERP_CASE
-  return cudaErrorInvalidValue;
-}
-
-template <template <int, int, bool, bool> class Launch>
-int run_entry(const float* a, const float* xyzt, float* o, const FieldSpec& spec, int P, int F, long long T,
-              long long N, const int32_t* n_valid, const int32_t* seg, int seg_id, void* stream) {
-  if (P <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
-  if (!valid_args(spec, P, F, T, N)) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan pl = make_plan(F, static_cast<uint32_t>(T));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t t32 = static_cast<uint32_t>(T);
-  const int64_t n64 = static_cast<int64_t>(N);
-  const bool skip = n_valid != nullptr || seg != nullptr;
-  const cudaError_t err =
-      spec.mode == kModeGrid ? dispatch<8, Launch>(pl, skip, a, xyzt, o, spec, P, F, t32, n64, n_valid, seg, seg_id, s)
-                             : dispatch<2, Launch>(pl, skip, a, xyzt, o, spec, P, F, t32, n64, n_valid, seg, seg_id, s);
-  return static_cast<int>(err);
-}
-
-// ---- The field query ------------------------------------------------------
-//
-//     out[n, l*F + f] = sum_g  f_g[l, f](n) * v_{p(g)}[l*F + f](n),  p = (3, 2, 0, 1)
-//
-// where f_g is grid g's lookup at level l and v_p vector p's, read from the
-// tables of the sample's own segment. It does in one launch what the
-// per-pair kernels leave to PyTorch: per segment a grid call and a vector
-// call, each writing (4, L*F, N) fp32 lookups over the whole budget, then
-// the sum over segments and the composition's products and sums; in the
-// backward the cotangents grad * v_p and grad * f_g, another (4, L*F, N)
-// tensor each, with their zero-filled selects and sums. The JAX package
-// never has those tensors either: XLA fuses the composition into the
-// lookups' consumers.
-//
-// Forward: a thread per (sample, level), levels fastest, so that the L
-// threads of a sample write its L*F features as one coalesced row. It
-// computes the four grids' corners and lookups at its level and the partner
-// vectors' taps in registers, then the products and their sum in the order
-// ((f0*v + f1*v) + f2*v) + f3*v, each step rounded on its own
-// (__fmul_rn/__fadd_rn), and each lookup summed corner by corner as the
-// per-pair forward sums it: the features equal the per-pair kernels followed
-// by PyTorch's segment sum and composition bit for bit. It reads the tables
-// where they lie, through L1 and L2 (__ldg): a thread needs the four grids
-// of its level, which at the r4 width (4 x 32 KB per segment) do not fit
-// beside other blocks in shared memory, and at the paper's T = 2^17 no
-// table does. What bounds it: the gathers, 4 x 8 corners of F features and
-// 4 x 2 taps per (sample, level), against an output of 4*L*F bytes a slot
-// (128 B at L*F = 32), written once.
-//
-// Backward: a thread per (run of kBwdRun consecutive samples, level). For
-// each grid g in turn it recomputes the sample's lookup f_g and the partner
-// vector's v_p (nothing is kept from the forward), forms grad * v_p and
-// grad * f_g in registers and adds w_c * grad * v_p into grid g's gradient
-// and w_tap * grad * f_g into vector p's with global atomics. As in the
-// per-pair backward, a corner's or tap's sum stays in registers while its
-// index (and the segment) stays the same along the run, so the consecutive
-// samples of a ray, which share their coarse corners and the time vector's
-// taps, add once. Atomics add in a run-dependent order.
-//
-// Segments: `seg` (N,) int32 routes each sample to its segment; every
-// segment's table pointers, table size and dense levels come in FieldQuery,
-// passed by value (__grid_constant__: read in place, never copied per
-// thread; up to 22.8 KB of parameters, which CUDA 12.1 and later take). A
-// sample of no segment (seg outside [0, n_segments)), or at or past
-// *n_valid, writes zeros and adds nothing. One launch serves every segment,
-// and its grid is sized by N, so a CUDA graph replays it unchanged.
 
 // Blocks per SM that the backward must fit in registers: its run sums take
 // ~100 registers a thread at F = 4.
@@ -678,7 +215,7 @@ __device__ __forceinline__ PairSetup vector_pair(int p, uint32_t R) {
 
 // The lookup of kC corners (or taps) of F <= kF features, feature k in the
 // row at `row + k * stride`: summed corner by corner in order, each product
-// and sum rounded on its own, as field_fwd_kernel sums them.
+// and sum rounded on its own, as the plain version sums them.
 template <int kC, int kF>
 __device__ __forceinline__ void lookup(const float* row, int F, uint32_t stride, const uint32_t (&idx)[kC],
                                        const float (&w)[kC], float (&out)[kF]) {
@@ -898,21 +435,6 @@ cudaError_t launch_query_bwd(const FieldQuery& q, const float* xyzt, const float
 }
 
 }  // namespace
-
-// out (P, F, N) f32; xyzt (N, 4) f32; tables (P, F, T) f32. n_valid (one
-// int32) and seg ((N,) int32, with the segment seg_id served) may be null.
-extern "C" int field_interp_fwd(const float* tables, const float* xyzt, float* out, FieldSpec spec, int P, int F,
-                                long long T, long long N, const int32_t* n_valid, const int32_t* seg, int seg_id,
-                                void* stream) {
-  return run_entry<FwdLaunch>(tables, xyzt, out, spec, P, F, T, N, n_valid, seg, seg_id, stream);
-}
-
-// dtab (P, F, T) f32 must hold zeros on entry (the caller allocates it with torch.zeros).
-extern "C" int field_interp_bwd(const float* g, const float* xyzt, float* dtab, FieldSpec spec, int P, int F,
-                                long long T, long long N, const int32_t* n_valid, const int32_t* seg, int seg_id,
-                                void* stream) {
-  return run_entry<BwdLaunch>(g, xyzt, dtab, spec, P, F, T, N, n_valid, seg, seg_id, stream);
-}
 
 // The field query's forward: out (N, L*F) f32, every slot's features (0 for
 // a skipped slot); xyzt (N, 4) f32, 16-byte aligned; q.seg[s].grid and

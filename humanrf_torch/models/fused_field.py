@@ -7,8 +7,9 @@ the four grids' and vectors' lookups, their products and sum, and writes
 the (N, L·F) features, and one backward launch; no (4, L·F, N) lookup
 tensor exists. The skip inputs `n_valid` and `seg` route and skip samples
 inside the kernels (see `ops/field_interp.py`). The plain version,
-`field_query_plain`, is the per-pair `field_interp` calls, the sum over
-segments and `compose`.
+`field_query_plain`, is the same query in PyTorch: per segment a grid and a
+vector `field_interp` call, the sum over segments and `compose`; CPU
+tensors take it, and it is the card's reference for the kernels.
 """
 from __future__ import annotations
 

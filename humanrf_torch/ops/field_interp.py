@@ -1,27 +1,25 @@
 """The field's table lookups with their corner math: the field query
 `field_query(fields, xyzt)`, the main path, and the per-pair lookup
-`field_interp(tables, xyzt, spec)` it is built from and checked against.
+`field_interp(tables, xyzt, spec)` of its plain version.
 
-`field_query` computes a sample's features from every segment's tables in
-one CUDA kernel launch each way (`FieldQueryKernel`): the four grids' and
-vectors' lookups, the composition f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x +
-f_xzt⊙v_y and the routing of each sample to its own segment (`seg`), so no
-(4, L·F, N) lookup exists; the backward recomputes the lookups. Its plain
-version, `field_query_plain`, is what the model did before the kernels
-took over: per segment a grid and a vector `field_interp` call, their sum
-over segments, `compose`. CPU tensors take it; on CUDA tensors it runs the
-per-pair kernels, which the query's forward equals bit for bit.
+`field_query` computes a sample's features from every segment's tables, on
+CUDA tensors in one kernel launch each way (`FieldQueryKernel`, the kernels
+of `humanrf_torch/csrc/field_interp.cu`, whose source note says what bounds
+them and how the design answers): the four grids' and vectors' lookups, the
+composition f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x + f_xzt⊙v_y and the routing of
+each sample to its own segment (`seg`), so no (4, L·F, N) lookup exists; the
+backward recomputes the lookups. Its plain version, `field_query_plain`, is
+the same query in PyTorch: per segment a grid and a vector `field_interp`
+call, their sum over segments, `compose`. CPU tensors take it, and on the
+card it is the reference: the kernels' forward equals it bit for bit, their
+backward (fp32 atomics, in a run-dependent order) is held to
+`field_query_bwd_plain` summed in fp64.
 
-The rest of this docstring is the per-pair lookup's. Counterpart of what
-`humanrf_tpu/models/fused_field.py` does around each `fused_interp` call: the corner indices and weights of every sample
-(`_grid_corner_idx_w`, `_vector_idx_w`), then the interpolating lookup
-`out[p, f, n] = Σ_c w[p, c, n] · tables[p, f, idx[p, c, n]]`. On the card
-the hand-written CUDA kernels of `humanrf_torch/csrc/field_interp.cu`
-compute the corners in registers from the (N, 4) sample coordinates, so no
-(P, C, N) index or weight tensor exists; their source note says what bounds
-them and how the design answers.
-
-Two modes, described by a `FieldSpec` passed to the kernels by value:
+`field_interp` is the counterpart of what `humanrf_tpu/models/fused_field.py`
+does around each `fused_interp` call: the corner indices and weights of
+every sample (`_grid_corner_idx_w`, `_vector_idx_w`), then the interpolating
+lookup `out[p, f, n] = Σ_c w[p, c, n] · tables[p, f, idx[p, c, n]]`
+(`ops/fused_interp.py`). Two modes, described by a `FieldSpec`:
 
 - grid (`grid_spec(HashGridConfig)`): tables (4L, F, T), pair g·L + l is
   grid g of `_GRID_AXES` at level l, 8 corners each;
@@ -34,16 +32,13 @@ call reads the device from the host and a CUDA graph replays it unchanged:
 the empty tail of a static sample budget), and `seg`, an (N,) int32 segment
 id per sample with `s` the segment served (other segments' samples are
 skipped: the JAX package's where-masked routing, without its `lax.cond`). A
-skipped sample's output is 0 and it adds nothing to the gradient; the plain
-versions mask identically.
+skipped sample's output is 0 and it adds nothing to the gradient; the
+field query's kernels skip identically.
 
 `field_interp` is differentiable in `tables` only, as the JAX `custom_vjp`
-is: `xyzt` gets no gradient, and the forward saves `xyzt`, not corners. CUDA
-tensors go through `FieldInterpKernel`, CPU tensors through
-`PlainFieldInterp`, whose directions are the plain versions
-`field_interp_plain` (the corner math, then `fused_interp_plain`) and
-`field_interp_bwd_plain`. There is no fallback: a CUDA call that cannot
-launch raises.
+is: `xyzt` gets no gradient, and the forward saves `xyzt`, not corners
+(`PlainFieldInterp`, whose directions are the plain versions
+`field_interp_plain` and `field_interp_bwd_plain`).
 
 Bit-exactness with the JAX package: the grid scale is applied in float32
 with the scale as a Python float (`x * scale + 0.5`), so `floor` picks the
@@ -79,7 +74,9 @@ MAX_LEVELS = 32
 
 
 class FieldSpec(ctypes.Structure):
-    """`struct FieldSpec` of `csrc/field_interp.cu`, passed by value."""
+    """A lookup's mode and, for a grid, its levels: per level the fp32
+    scale, the resolution and whether it indexes densely. The field query
+    copies a segment's levels into its `FieldQuery`."""
 
     _fields_ = [
         ("mode", ctypes.c_int32),
@@ -113,10 +110,9 @@ def grid_spec(cfg: HashGridConfig) -> FieldSpec:
 
 VECTOR_SPEC = FieldSpec(mode=MODE_VECTOR, n_levels=0)
 
-# Kernel launches since the last reset (each wrapper adds one where it
-# launches its kernel): "fwd"/"bwd" the field query's kernels, the main path;
-# "pair_fwd"/"pair_bwd" the per-pair `field_interp` kernels.
-launches = {"fwd": 0, "bwd": 0, "pair_fwd": 0, "pair_bwd": 0}
+# The field query's kernel launches since the last reset, per direction (each
+# wrapper adds one where it launches its kernel).
+launches = {"fwd": 0, "bwd": 0}
 
 
 def reset_launches() -> None:
@@ -239,6 +235,43 @@ def _check(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid=No
             raise ValueError(f"{name} has shape {tuple(t.shape)}; expected {'one element' if shape is None else shape}")
 
 
+class PlainFieldInterp(torch.autograd.Function):
+    """Both directions in plain PyTorch: `field_interp_plain` and
+    `field_interp_bwd_plain`, the corners recomputed from `xyzt`; the
+    forward saves `xyzt` and the skip inputs given, no (P, C, N) corners."""
+
+    @staticmethod
+    def forward(ctx, tables, xyzt, spec, n_valid=None, seg=None, s=0):
+        ctx.skips = (n_valid is not None, seg is not None)
+        ctx.save_for_backward(xyzt, *(t for t in (n_valid, seg) if t is not None))
+        ctx.spec, ctx.table_size, ctx.s = spec, tables.shape[2], s
+        return field_interp_plain(tables, xyzt, spec, n_valid, seg, s)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        saved = iter(ctx.saved_tensors)
+        xyzt = next(saved)
+        n_valid, seg = (next(saved) if given else None for given in ctx.skips)
+        dtab = field_interp_bwd_plain(g.contiguous(), xyzt, ctx.spec, ctx.table_size, n_valid, seg, ctx.s)
+        return dtab, None, None, None, None, None
+
+
+def field_interp(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid: Optional[torch.Tensor] = None,
+                 seg: Optional[torch.Tensor] = None, s: int = 0) -> torch.Tensor:
+    """tables (P, F, T) f32, xyzt (N, 4) f32 in [0, 1] → (P, F, N) f32,
+    differentiable in `tables`, in plain PyTorch on any device. `n_valid`
+    (one int32) and `seg` ((N,) int32, serving segment `s`) skip samples
+    (see the module docstring)."""
+    _check(tables, xyzt, spec, n_valid, seg)
+    return PlainFieldInterp.apply(tables, xyzt, spec, n_valid, seg, s)
+
+
+# ------------------------------------------------------------ the field query
+
+MAX_SEGMENTS = 256  # kMaxSegments of csrc/field_interp.cu
+
+
 def _aligned(xyzt: torch.Tensor) -> torch.Tensor:
     """`xyzt` contiguous and 16-byte aligned: the kernels read a sample as one
     float4. The main path's xyzt is a fresh `torch.cat` (the allocator's
@@ -248,120 +281,6 @@ def _aligned(xyzt: torch.Tensor) -> torch.Tensor:
     the same address on every replay)."""
     xyzt = xyzt.contiguous()
     return xyzt.clone() if xyzt.data_ptr() % 16 else xyzt
-
-
-def _run(name: str, first: torch.Tensor, xyzt: torch.Tensor, out: torch.Tensor, spec: FieldSpec, F: int, T: int,
-         n_valid=None, seg=None, s: int = 0):
-    fn = getattr(load_library("field_interp").lib, name)
-    if fn.argtypes is None:
-        # in0, xyzt, out; spec; P, F; T, N; n_valid, seg, s; stream.
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [FieldSpec] + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    xyzt = _aligned(xyzt)
-    P, N = first.shape[0], xyzt.shape[0]
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream(first.device).cuda_stream
-        err = fn(first.data_ptr(), xyzt.data_ptr(), out.data_ptr(), spec, P, F, T, N, ptr(n_valid), ptr(seg), s,
-                 stream)
-    if err != 0:
-        # 1 (invalid value): P must be 4L (grid) or 4 (vector), at most 65,535; T < 2^31.
-        raise RuntimeError(f"{name} launch failed at P={P}, F={F}, T={T}, N={N}, mode {spec.mode}: cudaError {err}")
-
-
-def _launch_fwd(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid=None, seg=None,
-                s: int = 0) -> torch.Tensor:
-    P, F, T = tables.shape
-    out = torch.empty((P, F, xyzt.shape[0]), dtype=torch.float32, device=tables.device)
-    if xyzt.shape[0] == 0:
-        return out  # nothing to launch
-    _run("field_interp_fwd", tables.contiguous(), xyzt, out, spec, F, T, n_valid, seg, s)
-    launches["pair_fwd"] += 1
-    return out
-
-
-def _launch_bwd(g: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, table_size: int, n_valid=None, seg=None,
-                s: int = 0) -> torch.Tensor:
-    P, F, N = g.shape
-    if g.dtype != torch.float32 or N != xyzt.shape[0] or g.device != xyzt.device:
-        raise ValueError(f"expected g (P,F,N) float32 beside xyzt {tuple(xyzt.shape)}, got {tuple(g.shape)} {g.dtype}")
-    dtab = torch.zeros((P, F, table_size), dtype=torch.float32, device=g.device)
-    if N == 0:
-        return dtab  # nothing to launch
-    _run("field_interp_bwd", g.contiguous(), xyzt, dtab, spec, F, table_size, n_valid, seg, s)
-    launches["pair_bwd"] += 1
-    return dtab
-
-
-def _save(ctx, xyzt, tables, spec, n_valid, seg, s) -> None:
-    """Saves `xyzt` and the skip inputs given (no (P, C, N) corners)."""
-    ctx.skips = (n_valid is not None, seg is not None)
-    ctx.save_for_backward(xyzt, *(t for t in (n_valid, seg) if t is not None))
-    ctx.spec, ctx.table_size, ctx.s = spec, tables.shape[2], s
-
-
-def _saved(ctx):
-    """→ (xyzt, n_valid, seg) as `_save` kept them."""
-    saved = iter(ctx.saved_tensors)
-    xyzt = next(saved)
-    return (xyzt, *(next(saved) if given else None for given in ctx.skips))
-
-
-class FieldInterpKernel(torch.autograd.Function):
-    """Both directions on the CUDA kernels; the forward saves `xyzt` (and the
-    skip inputs) only."""
-
-    @staticmethod
-    def forward(ctx, tables, xyzt, spec, n_valid=None, seg=None, s=0):
-        xyzt = _aligned(xyzt)
-        _save(ctx, xyzt, tables, spec, n_valid, seg, s)
-        return _launch_fwd(tables, xyzt, spec, n_valid, seg, s)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        xyzt, n_valid, seg = _saved(ctx)
-        return _launch_bwd(g, xyzt, ctx.spec, ctx.table_size, n_valid, seg, ctx.s), None, None, None, None, None
-
-
-class PlainFieldInterp(torch.autograd.Function):
-    """Both directions in plain PyTorch: `field_interp_plain` and
-    `field_interp_bwd_plain`, the corners recomputed from `xyzt`."""
-
-    @staticmethod
-    def forward(ctx, tables, xyzt, spec, n_valid=None, seg=None, s=0):
-        _save(ctx, xyzt, tables, spec, n_valid, seg, s)
-        return field_interp_plain(tables, xyzt, spec, n_valid, seg, s)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        xyzt, n_valid, seg = _saved(ctx)
-        dtab = field_interp_bwd_plain(g.contiguous(), xyzt, ctx.spec, ctx.table_size, n_valid, seg, ctx.s)
-        return dtab, None, None, None, None, None
-
-
-def field_interp(tables: torch.Tensor, xyzt: torch.Tensor, spec: FieldSpec, n_valid: Optional[torch.Tensor] = None,
-                 seg: Optional[torch.Tensor] = None, s: int = 0) -> torch.Tensor:
-    """tables (P, F, T) f32, xyzt (N, 4) f32 in [0, 1] → (P, F, N) f32,
-    differentiable in `tables`. `n_valid` (one int32) and `seg` ((N,)
-    int32, serving segment `s`) skip samples (see the module docstring).
-
-    CUDA tensors go through the CUDA kernels, CPU tensors through the plain
-    versions; anything else raises.
-    """
-    _check(tables, xyzt, spec, n_valid, seg)
-    if tables.device.type == "cuda":
-        return FieldInterpKernel.apply(tables, xyzt, spec, n_valid, seg, s)
-    if tables.device.type == "cpu":
-        return PlainFieldInterp.apply(tables, xyzt, spec, n_valid, seg, s)
-    raise ValueError(f"field_interp runs on cuda or cpu tensors, not {tables.device}")
-
-
-# ------------------------------------------------------------ the field query
-
-MAX_SEGMENTS = 256  # kMaxSegments of csrc/field_interp.cu
 
 
 class SegmentTables(ctypes.Structure):
@@ -420,10 +339,9 @@ def field_query_plain(fields: Sequence[SegmentField], xyzt: torch.Tensor, n_vali
     """The field query as `field_interp` calls: per segment s a grid call and
     a vector call serving the samples whose `seg` is s (all of them without
     `seg`), each (4, L·F, N) with zeros elsewhere; the sum over segments;
-    `compose`. Differentiable in the tables through `field_interp`, so on
-    CPU tensors it is plain PyTorch both ways, and on CUDA tensors the
-    per-pair kernels with PyTorch's sum and composition, which the field
-    query's kernels equal bit for bit forward."""
+    `compose`. Plain PyTorch both ways on any device, differentiable in the
+    tables through `field_interp`: the field query's kernels equal it bit
+    for bit forward."""
     n = xyzt.shape[0]
     grid = vectors = None
     for s, field in enumerate(fields):

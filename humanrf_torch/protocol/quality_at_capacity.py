@@ -15,7 +15,7 @@ segment_grid_config`). On a 25-frame segment (`--size 384 --frames 25`):
 
 The JAX package ran each configuration through the field backend it names
 (one-hot, fused Pallas, or gather); the port has one field path, the
-`field_interp` kernels, at any table size. The command still passes
+field query's kernels, at any table size. The command still passes
 `--tpu.field_backend`, and the CLI prints that the port ignores it.
 
     python -m humanrf_torch.protocol.quality_at_capacity --size 384 --frames 25 --steps 5000 \\

@@ -84,7 +84,7 @@ def check_ported(config) -> None:
     makes moot. (Every flag of the JAX CLI is ported.)"""
     if config.tpu.field_backend != "gather":
         print(f"[INFO] --tpu.field_backend {config.tpu.field_backend}: the port has one field path, "
-              "the gather contract through the field_interp kernels")
+              "the gather contract through the field query's kernels")
     if config.tpu.steps_per_dispatch != 1:
         print(f"[INFO] --tpu.steps_per_dispatch {config.tpu.steps_per_dispatch}: the port dispatches one "
               "step at a time (the K-step scan is a TPU workaround); the loop keeps K = 1's semantics")

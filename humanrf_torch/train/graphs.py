@@ -20,7 +20,7 @@ tensors, and its other arguments) as a `torch.cuda.CUDAGraph`:
    the next replay overwrites.
 
 Python counters do not move on a replay, so the launches of the field
-kernels and of AdamW's (`ops/field_interp.py::launches`,
+query's kernels and of AdamW's (`ops/field_interp.py::launches`,
 `ops/adamw.py::launches`) counted while capturing are taken back and added
 per replay: the counts are those of the eager steps. A capture that
 fails raises, with the failing op's error; nothing falls back to the eager

@@ -76,19 +76,38 @@ def _decomposition_params(grid, vectors_res, seed=0):
     return params
 
 
-def test_decomposition_matches_jax_gather_backend():
+# The benchmark's cells' grids at one segment's table size (BENCHMARK.json):
+# paper-dense's L16/F2 at T = 2^17, r4-proposal's L8/F4 at T = 2^11 and
+# paper-1000f's L16/F2 at T = 2^18, each at vector resolution 2048.
+CELL_GRIDS = {
+    "paper-dense": (dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=17, base_resolution=32,
+                         finest_resolution=2048), 2048),
+    "r4-proposal": (dict(n_levels=8, n_features_per_level=4, log2_hashmap_size=11, base_resolution=32,
+                         finest_resolution=2048), 2048),
+    "paper-1000f": (dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=18, base_resolution=32,
+                         finest_resolution=2048), 2048),
+}
+
+
+@pytest.mark.parametrize("name", ["grid", *CELL_GRIDS])
+def test_decomposition_matches_jax_gather_backend(name):
     """Gather backend: fp32 lookups, the vectors lerped as v0 + f·(v1 − v0)
-    where the port weights both taps; 1e-5 absolute on O(1) features."""
-    grid = HashGridConfig(**GRID)
-    params = _decomposition_params(grid, 128)
-    xyz, times = _points(512, 3, seed=2), _points(512, 1, seed=3)
+    where the port weights both taps; 1e-5 absolute on O(1) features. At
+    every configuration here no dense level's corner leaves the table (the
+    gather backend would read NaN there)."""
+    spec, vectors_res, n = (GRID, 128, 512) if name == "grid" else (*CELL_GRIDS[name], 256)
+    grid = HashGridConfig(**spec)
+    res = grid.level_resolutions()
+    assert all(r**3 + r**2 + r < grid.table_size for r in res[res**3 <= grid.table_size])
+    params = _decomposition_params(grid, vectors_res)
+    xyz, times = _points(n, 3, seed=2), _points(n, 1, seed=3)
     ref = _np(apply_decomposition4d(
         {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(xyz), jnp.asarray(times),
-        Decomposition4DConfig(grid=grid, vectors_finest_resolution=128, backend="gather"),
+        Decomposition4DConfig(grid=grid, vectors_finest_resolution=vectors_res, backend="gather"),
     ))
     out = t_ff.apply_decomposition4d_fused(
         {k: torch.tensor(v) for k, v in params.items()}, torch.tensor(xyz), torch.tensor(times),
-        TDecompConfig(grid=THashGridConfig(**GRID), vectors_finest_resolution=128),
+        TDecompConfig(grid=THashGridConfig(**spec), vectors_finest_resolution=vectors_res),
     ).numpy()
     assert np.abs(ref).max() > 0.1
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
@@ -172,9 +191,10 @@ _QUERY_GRIDS = (dict(n_levels=3, n_features_per_level=2, log2_hashmap_size=9, ba
 
 
 def _query_fields(segments, seed=0):
+    """`segments` fields, their grids alternating between `_QUERY_GRIDS`."""
     rng = np.random.default_rng(seed)
     fields = []
-    for grid in _QUERY_GRIDS[:segments]:
+    for grid in (_QUERY_GRIDS[s % 2] for s in range(segments)):
         cfg = THashGridConfig(**grid)
         L, F, T = cfg.n_levels, cfg.n_features_per_level, cfg.table_size
         grids = tuple(torch.tensor(rng.normal(size=(L, F, T)).astype(np.float32)) for _ in range(4))
@@ -214,10 +234,12 @@ def _with_grad(fields):
     return leaves, fli._unflat([(f.spec, len(f.grids)) for f in fields], leaves)
 
 
-_QUERY_CASES = [(1, ("n_valid",)), (1, ("seg",)), (2, ("seg",)), (2, ("n_valid", "seg"))]
+# The last: paper-1000f's 20 segments (BENCHMARK.json).
+_QUERY_CASES = [(1, ("n_valid",)), (1, ("seg",)), (2, ("seg",)), (2, ("n_valid", "seg")), (20, ("n_valid", "seg"))]
+_QUERY_IDS = ["1-n_valid", "1-seg", "2-seg", "2-both", "20-both"]
 
 
-@pytest.mark.parametrize("segments,skips", _QUERY_CASES, ids=["1-n_valid", "1-seg", "2-seg", "2-both"])
+@pytest.mark.parametrize("segments,skips", _QUERY_CASES, ids=_QUERY_IDS)
 def test_field_query_equals_the_present_composition(segments, skips):
     """`field_query` on CPU tensors (its plain version) against the model's
     query as it was: the features bit for bit, a sample past `n_valid` or of
@@ -265,7 +287,7 @@ def test_field_query_takes_a_gathered_stack(segments):
         assert torch.equal(stack_leaves[2 * s + 1].grad, leaves[5 * s + 4].grad)
 
 
-@pytest.mark.parametrize("segments,skips", _QUERY_CASES, ids=["1-n_valid", "1-seg", "2-seg", "2-both"])
+@pytest.mark.parametrize("segments,skips", _QUERY_CASES, ids=_QUERY_IDS)
 def test_field_query_bwd_plain_equals_autograd(segments, skips):
     """The backward's plain version (the cards' reference, there summed in
     fp64) in fp32 equals autograd through the plain query bit for bit, and
@@ -357,7 +379,8 @@ def test_field_query_takes_167_segments():
         fli.field_query(_many_fields(257, seed=12), xyzt, n_valid, seg)
 
 
-@pytest.mark.parametrize("bad", ["two-segments-no-seg", "levels-differ", "vectors-shape", "three-grids", "f64"])
+@pytest.mark.parametrize("bad", ["two-segments-no-seg", "levels-differ", "vectors-shape", "vectors-resolution",
+                                 "three-grids", "f64"])
 def test_field_query_rejects_bad_fields(bad):
     fields = _query_fields(2)
     xyzt, _, seg = _query_skips(50, 2, ("seg",))
@@ -368,6 +391,8 @@ def test_field_query_rejects_bad_fields(bad):
         fields[1] = fields[1]._replace(spec=fli.grid_spec(cfg))
     elif bad == "vectors-shape":
         fields[1] = fields[1]._replace(vectors=fields[1].vectors[:, :-1])
+    elif bad == "vectors-resolution":
+        fields[1] = fields[1]._replace(vectors=fields[1].vectors[:, :, :-1])
     elif bad == "three-grids":
         fields[0] = fields[0]._replace(grids=fields[0].grids[:3])
     else:

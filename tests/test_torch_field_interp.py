@@ -4,9 +4,9 @@ lookups with their corner math, against the JAX package's corner functions
 `fused_interp_reference` (humanrf_tpu/ops/fused_interp.py), forward and
 `jax.grad` backward.
 
-On the CPU the wrapper runs the plain PyTorch versions; the CUDA kernels
-(humanrf_torch/csrc/field_interp.cu) are checked against them by the
-`cuda`-marked tests, on the card only.
+`field_interp` is plain PyTorch on every device; the field query built on it
+has CUDA kernels (humanrf_torch/csrc/field_interp.cu), which the
+`cuda`-marked tests hold to its plain version, on the card only.
 """
 from pathlib import Path
 from unittest import mock
@@ -159,11 +159,20 @@ def test_cpu_routes_to_plain_with_gradients_to_the_tables_only():
     torch.testing.assert_close(t.grad, ref, rtol=0, atol=0)
 
 
-def test_cpu_tensors_never_touch_the_cuda_library():
+@pytest.mark.parametrize("fn", ["field_interp", "field_query"])
+def test_cpu_tensors_never_touch_the_cuda_library(fn):
     spec, tables, xyzt, _, _ = _case("vector", n=200)
     t = torch.tensor(tables, requires_grad=True)
     with mock.patch.object(fli, "load_library", side_effect=AssertionError("CUDA library loaded")):
-        fli.field_interp(t, torch.tensor(xyzt), spec).sum().backward()
+        if fn == "field_interp":
+            fli.field_interp(t, torch.tensor(xyzt), spec).sum().backward()
+        else:
+            cfg = THashGridConfig(**GRID)
+            grids = tuple(torch.tensor(_tables(cfg.n_levels, 2, cfg.table_size, seed=2 + g), requires_grad=True)
+                          for g in range(4))
+            field = fli.SegmentField(grids, t, fli.grid_spec(cfg))
+            fli.field_query([field], torch.tensor(xyzt)).sum().backward()
+            assert all(g.grad is not None for g in grids)
     assert t.grad is not None
 
 
@@ -182,7 +191,7 @@ def test_grid_spec_round_trips_the_levels(grid):
         assert dense == [True] * 4 + [False] * 12
     if grid is R4:
         assert not any(dense)
-    # A copy through the C layout (as ctypes passes it by value) reads back the same.
+    # A copy through its bytes reads back the same.
     copy = fli.FieldSpec.from_buffer_copy(bytes(spec))
     assert copy.levels() == spec.levels()
 
@@ -211,63 +220,65 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# (grid config or None for the vectors, T or R, N): small and ragged N, a
-# table size that is not a power of two (for the grid, its dense levels'
-# corners then leave the table), the r4 width and T = 2^19.
+# (grid config, T, R, N) of a one-segment field query: small and ragged N, a
+# table size that is not a power of two (its dense levels' corners then
+# leave the table), the r4 width and T = 2^19; the grid cases at small R,
+# the vector cases with a ragged or non-power-of-two R and at the r4 width.
 CARD_CASES = {
-    "grid-small-ragged": (GRID, 1 << 13, 1001),
-    "grid-odd-T": (GRID, 3001, 4099),
-    "grid-r4": (R4, 1 << 11, 65_539),
-    "grid-capacity": (CAPACITY, 1 << 19, 32_768),
-    "vector-small-ragged": (None, 128, 777),
-    "vector-odd-R": (None, 1000, 4099),
-    "vector-r4": (None, 2048, 65_536),
+    "grid-small-ragged": (GRID, 1 << 13, 128, 1001),
+    "grid-odd-T": (GRID, 3001, 128, 4099),
+    "grid-r4": (R4, 1 << 11, 2048, 65_539),
+    "grid-capacity": (CAPACITY, 1 << 19, 2048, 32_768),
+    "vector-small-ragged": (GRID, 1 << 13, 128, 777),
+    "vector-odd-R": (GRID, 1 << 13, 1000, 4099),
+    "vector-r4": (R4, 1 << 11, 2048, 65_536),
 }
 
 
 def _card_inputs(name, device):
-    grid, T, N = CARD_CASES[name]
-    if grid is None:
-        spec, P, F = fli.VECTOR_SPEC, 4, 32
-    else:
-        cfg = THashGridConfig(**grid)
-        spec, P, F = fli.grid_spec(cfg), 4 * cfg.n_levels, cfg.n_features_per_level
-    tables = torch.tensor(_tables(P, F, T), device=device)
+    """→ (the fields, xyzt, the features' cotangent) of one of CARD_CASES."""
+    grid, T, R, N = CARD_CASES[name]
+    cfg = THashGridConfig(**grid)
+    L, F = cfg.n_levels, cfg.n_features_per_level
+    grids = tuple(torch.tensor(_tables(L, F, T, seed=1 + g), device=device) for g in range(4))
+    vectors = torch.tensor(_tables(4, L * F, R, seed=5), device=device)
     xyzt = torch.tensor(_xyzt(N, far=True), device=device)
-    g = torch.tensor(np.random.default_rng(2).normal(size=(P, F, N)).astype(np.float32), device=device)
-    return spec, tables, xyzt, g
+    g = torch.tensor(np.random.default_rng(2).normal(size=(N, L * F)).astype(np.float32), device=device)
+    return [fli.SegmentField(grids, vectors, fli.grid_spec(cfg))], xyzt, g
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CARD_CASES))
 def test_forward_kernel_matches_plain_on_card(cuda_device, name):
-    """Both compute the corners with the same fp32 roundings and sum them in
-    the same order without fma: equal up to 1e-5 of the scale (bit for bit in
-    practice; one wrong corner would show far above that)."""
-    spec, tables, xyzt, _ = _card_inputs(name, cuda_device)
-    before = fli.launches["pair_fwd"]
-    out = fli.field_interp(tables, xyzt, spec)
-    ref = fli.field_interp_plain(tables, xyzt, spec)
+    """The field query's forward kernel, one launch, against its plain
+    version: both compute the corners with the same fp32 roundings and sum
+    them in the same order without fma, so bit for bit."""
+    fields, xyzt, _ = _card_inputs(name, cuda_device)
+    before = fli.launches["fwd"]
+    out = fli.field_query(fields, xyzt)
+    ref = fli.field_query_plain(fields, xyzt)
     torch.cuda.synchronize()
-    assert fli.launches["pair_fwd"] == before + 1
-    assert float((out - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert fli.launches["fwd"] == before + 1
+    assert torch.equal(out, ref) and ref.abs().max() > 0.1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CARD_CASES))
 def test_backward_kernel_matches_plain_on_card(cuda_device, name):
-    """Against the plain version summed in fp64 (the same fp32 weights): the
+    """The field query's backward kernel, one launch, against its plain
+    version summed in fp64 (the same fp32 weights and lookups): the
     kernel's atomics add in a run-dependent order, and an entry sums up to a
-    few thousand terms here; its fp32 sums, taken in runs, blocks and then the
-    table, stay within 1e-5 of the scale."""
-    spec, tables, xyzt, g = _card_inputs(name, cuda_device)
-    before = fli.launches["pair_bwd"]
-    t = tables.clone().requires_grad_()
-    fli.field_interp(t, xyzt, spec).backward(g)
-    ref = fli.field_interp_bwd_plain(g.double(), xyzt, spec, tables.shape[-1])
+    few thousand terms here; its fp32 sums stay within 1e-5 of the scale of
+    every table's and vector's gradient."""
+    fields, xyzt, g = _card_inputs(name, cuda_device)
+    tensors = [t.clone().requires_grad_() for t in fli._flat(fields)]
+    before = fli.launches["bwd"]
+    fli.field_query(fli._unflat([(f.spec, len(f.grids)) for f in fields], tensors), xyzt).backward(g)
+    refs = fli.field_query_bwd_plain(fields, xyzt, g.double())
     torch.cuda.synchronize()
-    assert fli.launches["pair_bwd"] == before + 1
-    assert float((t.grad.double() - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert fli.launches["bwd"] == before + 1
+    for t, r in zip(tensors, refs):
+        assert float((t.grad.double() - r).abs().max() / r.abs().max()) < 1e-5
 
 
 # ------------------------------------------------------- the field query
@@ -312,13 +323,13 @@ def _query_inputs(name, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(QUERY_FIELDS))
 def test_query_kernels_match_plain_on_card(cuda_device, name):
-    """The field query's forward kernel against the per-pair kernels
-    followed by PyTorch's segment sum and composition (`field_query_plain`
-    on the card): bit for bit, and one launch, whose allocations stay under
-    twice its (N, L·F) output (no (4, L·F, N) lookup). Its backward, one
-    launch beside its forward's, against the plain version summed in fp64: every table's and
-    vector's gradient within 1e-5 of its scale (atomics add in a
-    run-dependent order; the bound of the per-pair backward's test)."""
+    """The field query's forward kernel against its plain version,
+    `field_query_plain` (per segment the plain per-pair lookups, then
+    PyTorch's segment sum and composition): bit for bit, and one launch,
+    whose allocations stay under twice its (N, L·F) output (no (4, L·F, N)
+    lookup). Its backward, one launch beside its forward's, against the
+    plain version summed in fp64: every table's and vector's gradient within
+    1e-5 of its scale (atomics add in a run-dependent order)."""
     fields, xyzt, n_valid, seg, grad = _query_inputs(name, cuda_device)
     before = dict(fli.launches)
     torch.cuda.synchronize()
@@ -349,11 +360,9 @@ def test_query_kernels_take_167_segments_on_card(cuda_device):
     """1000 frames cut at the ladder's smallest size: 167 segments of the
     paper's L16/F2 levels, their tables of 2^9..2^12 entries in turn, over
     N = 32,768 samples on rays of 64 (a segment per ray, -1 on one ray in
-    eight): the forward kernel equals the per-pair path
-    (`field_query_plain` on the card) bit for bit and the plain PyTorch
-    version (the same with `PlainFieldInterp`) within 1e-5 of its scale, and
-    the backward holds to the plain version in fp64 within 1e-5 of each
-    gradient's scale, as at two segments."""
+    eight): the forward kernel equals its plain version (`field_query_plain`)
+    bit for bit, and the backward holds to the plain version in fp64 within
+    1e-5 of each gradient's scale, as at two segments."""
     rng = np.random.default_rng(167)
     fields = []
     for s in range(167):
@@ -376,11 +385,8 @@ def test_query_kernels_take_167_segments_on_card(cuda_device):
     n_valid = torch.tensor([int(0.9 * n)], dtype=torch.int32, device=cuda_device)
     out = fli.field_query(fields, xyzt, n_valid, seg)
     ref = fli.field_query_plain(fields, xyzt, n_valid, seg)
-    with mock.patch.object(fli, "field_interp", fli.PlainFieldInterp.apply):
-        plain = fli.field_query_plain(fields, xyzt, n_valid, seg)
     torch.cuda.synchronize()
     assert torch.equal(out, ref) and ref.abs().max() > 0.1
-    assert float((out.double() - plain.double()).abs().max() / plain.abs().max()) < 1e-5
     tensors = [t.clone().requires_grad_() for t in fli._flat(fields)]
     grad = torch.tensor(rng.normal(size=(n, 32)).astype(np.float32), device=cuda_device)
     fli.field_query(fli._unflat([(f.spec, len(f.grids)) for f in fields], tensors), xyzt, n_valid, seg).backward(grad)
@@ -403,7 +409,7 @@ def test_graphed_step_launches_one_query_kernel_each_way_on_card(cuda_device, sa
     captured step on the baked pool: every step, the eager first one and the
     replays, launches one forward kernel per field query, the dense step's
     prune and render passes and the proposal step's render pass, and one
-    backward for the render pass; no per-pair kernel."""
+    backward for the render pass."""
     from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
     from humanrf_torch.train.pipeline import PipelineConfig, make_train_step
     from humanrf_torch.train.trainer import make_optimizer, sample_batch
@@ -424,7 +430,7 @@ def test_graphed_step_launches_one_query_kernel_each_way_on_card(cuda_device, sa
     optimizer = make_optimizer(model.named_parameters(), 1e-2, 0.5, 50_001, 0.03)
     step = make_train_step(cfg, model, optimizer, inputs.width, inputs.height, graph=True)
     generator = torch.Generator(cuda_device).manual_seed(1)
-    expected = {"fwd": 2 if sampling == "dense" else 1, "bwd": 1, "pair_fwd": 0, "pair_bwd": 0}
+    expected = {"fwd": 2 if sampling == "dense" else 1, "bwd": 1}
     for i in range(4):
         before = dict(fli.launches)
         loss, _ = step(sample_batch(cfg, inputs.pixel_rgba, generator), inputs.pool, inputs.grids, inputs.aabb,

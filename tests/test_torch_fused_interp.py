@@ -1,9 +1,10 @@
-"""The port's `fused_interp` (humanrf_torch/ops/fused_interp.py), forward and
-backward, against the JAX package's oracle and Pallas kernel
-(humanrf_tpu/ops/fused_interp.py).
+"""The port's (idx, w) lookup in plain PyTorch (humanrf_torch/ops/
+fused_interp.py), forward and backward, against the JAX package's oracle
+and Pallas kernel (humanrf_tpu/ops/fused_interp.py).
 
-On the CPU the wrapper runs the plain PyTorch versions; the CUDA kernels are
-checked against them by the `cuda`-marked tests, on the card only.
+On the card, the `cuda`-marked tests hold the kernels that replace the
+Pallas pair, the field query's (humanrf_torch/csrc/field_interp.cu), to
+their plain version at the Pallas kernels' shapes.
 """
 import jax
 import jax.numpy as jnp
@@ -11,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from humanrf_torch.models.hash_encoding import HashGridConfig
+from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops import fused_interp as fi
 from humanrf_tpu.ops.fused_interp import fused_interp as pallas_fused_interp
 from humanrf_tpu.ops.fused_interp import fused_interp_reference
@@ -69,17 +72,6 @@ def test_plain_matches_pallas_kernel_interpreted(outside):
     assert _scaled_err(out, ref) < 2e-2
 
 
-def test_wrapper_takes_plain_version_on_cpu_without_launching():
-    tables, idx, w = (torch.tensor(a) for a in _inputs())
-    before = dict(fi.launches)
-    out = fi.fused_interp(tables.requires_grad_(), idx, w)
-    out.sum().backward()
-    assert fi.launches == before
-    torch.testing.assert_close(out, fi.fused_interp_plain(tables, idx, w), rtol=0, atol=0)
-    g = torch.ones_like(out)
-    torch.testing.assert_close(tables.grad, fi.fused_interp_bwd_plain(g, idx, w, tables.shape[-1]), rtol=0, atol=0)
-
-
 def _cotangent(P, F, N, seed=1):
     return np.random.default_rng(seed).normal(size=(P, F, N)).astype(np.float32)
 
@@ -126,40 +118,6 @@ def test_corners_outside_the_table_get_no_gradient():
     assert torch.equal(out, ref)
 
 
-def test_autograd_through_the_function_on_cpu():
-    """Gradients reach the tables through `fused_interp` (the plain
-    `autograd.Function` on the CPU) and match autograd of the plain forward;
-    idx and w get none. gradcheck in float64 is not possible (the op is
-    float32 only), so the comparison is against torch's own gather backward:
-    both are fp32 scatter-adds, 1e-6 of the scale."""
-    tables, idx, w = _inputs()
-    t1 = torch.tensor(tables, requires_grad=True)
-    wt = torch.tensor(w, requires_grad=True)
-    g = torch.tensor(_cotangent(*tables.shape[:2], idx.shape[-1]))
-    (fi.fused_interp(t1, torch.tensor(idx), wt) * g).sum().backward()
-    t2 = torch.tensor(tables, requires_grad=True)
-    (fi.fused_interp_plain(t2, torch.tensor(idx), torch.tensor(w)) * g).sum().backward()
-    assert wt.grad is None
-    assert _scaled_err(t1.grad.numpy(), t2.grad.numpy()) <= 1e-6
-
-
-@pytest.mark.parametrize(
-    "bad",
-    [
-        lambda t, i, w: (t.double(), i, w),
-        lambda t, i, w: (t, i.long(), w),
-        lambda t, i, w: (t, i, w[:, :, :-1]),
-        lambda t, i, w: (t[:-1], i, w),
-        lambda t, i, w: (t[0], i, w),
-    ],
-    ids=["f64-tables", "i64-idx", "w-shape", "pairs", "rank"],
-)
-def test_wrapper_rejects_bad_inputs(bad):
-    args = bad(*(torch.tensor(a) for a in _inputs()))
-    with pytest.raises((TypeError, ValueError)):
-        fi.fused_interp(*args)
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -167,47 +125,67 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape",
-    [(32, 4, 2048, 8, 262_144, False), (4, 32, 2048, 2, 262_144, False), (64, 2, 1 << 19, 8, 65_536, False),
-     (3, 4, 100, 8, 1000, True)],
-    ids=["grids", "vectors", "capacity", "ragged-outside"],
-)
-def test_kernel_matches_plain_on_card(cuda_device, shape):
-    """Kernel and plain version are both fp32 and sum corners in the same
-    order (the kernel with fma): 1e-5 of the output scale."""
-    P, F, T, C, N, outside = shape
-    tables, idx, w = (torch.tensor(a, device=cuda_device) for a in _inputs(P, F, T, C, N, outside=outside))
-    before = fi.launches["fwd"]
-    out = fi.fused_interp(tables, idx, w)
-    ref = fi.fused_interp_plain(tables, idx, w)
-    torch.cuda.synchronize()
-    assert fi.launches["fwd"] == before + 1
-    assert float((out - ref).abs().max() / ref.abs().max()) < 1e-5
+# The Pallas kernels' shapes as field queries of one segment, (grid, R, N):
+# the r4 grids (P = 32 pairs, F = 4, T = 2048), 32 features a vector (the
+# vectors' P = 4, D = 32, R = 2048: L16/F2), the reference capacity
+# (P = 64, T = 2^19) and a ragged case whose dense level's far corners leave
+# the table (T = 2^9 < 8³ + 8² + 8) with R = 100.
+CARD_QUERIES = {
+    "grids": (dict(n_levels=8, n_features_per_level=4, log2_hashmap_size=11, base_resolution=32,
+                   finest_resolution=2048), 2048, 262_144),
+    "vectors": (dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=11, base_resolution=32,
+                     finest_resolution=2048), 2048, 262_144),
+    "capacity": (dict(n_levels=16, n_features_per_level=2, log2_hashmap_size=19, base_resolution=32,
+                      finest_resolution=2048), 2048, 65_536),
+    "ragged-outside": (dict(n_levels=2, n_features_per_level=2, log2_hashmap_size=9, base_resolution=8,
+                            finest_resolution=16), 100, 1000),
+}
+
+
+def _card_query(name, device):
+    """One segment's random tables, uniform samples (with a quarter of them
+    in the last cells in the ragged case) and a cotangent."""
+    grid, R, N = CARD_QUERIES[name]
+    cfg = HashGridConfig(**grid)
+    L, F, T = cfg.n_levels, cfg.n_features_per_level, cfg.table_size
+    rng = np.random.default_rng(0)
+    grids = tuple(torch.tensor(rng.normal(size=(L, F, T)).astype(np.float32), device=device) for _ in range(4))
+    vectors = torch.tensor(rng.normal(size=(4, L * F, R)).astype(np.float32), device=device)
+    xyzt = rng.uniform(0, 1, (N, 4)).astype(np.float32)
+    if name == "ragged-outside":
+        xyzt[: N // 4] = 0.95 + 0.05 * xyzt[: N // 4]
+    g = torch.tensor(rng.normal(size=(N, L * F)).astype(np.float32), device=device)
+    return [fli.SegmentField(grids, vectors, fli.grid_spec(cfg))], torch.tensor(xyzt, device=device), g
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape",
-    [(32, 4, 2048, 8, 262_144, False), (4, 32, 2048, 2, 262_144, False), (64, 2, 1 << 19, 8, 65_536, False),
-     (3, 4, 100, 8, 1000, True)],
-    ids=["grids", "vectors", "capacity", "ragged-outside"],
-)
-def test_backward_kernel_matches_plain_on_card(cuda_device, shape):
-    """Both are fp32 sums whose order differs (atomics add in a run-dependent
-    order; the plain scatter_add too). An entry of dtab sums ~N·C/T terms
-    (≤ 1,024 at these shapes); reordering such a sum moves it by about
-    eps·√n of its terms' size, ~2e-6 relative, so 1e-5 of the scale bounds it.
-    The grid and vector shapes take the shared-memory slab, T = 2^19 the
-    global-atomic path."""
-    P, F, T, C, N, outside = shape
-    _, idx, w = (torch.tensor(a, device=cuda_device) for a in _inputs(P, F, T, C, N, outside=outside))
-    g = torch.tensor(_cotangent(P, F, N), device=cuda_device)
-    before = fi.launches["bwd"]
-    tables = torch.zeros((P, F, T), device=cuda_device, requires_grad=True)
-    fi.fused_interp(tables, idx, w).backward(g)
-    ref = fi.fused_interp_bwd_plain(g, idx, w, T)
+@pytest.mark.parametrize("name", list(CARD_QUERIES))
+def test_kernel_matches_plain_on_card(cuda_device, name):
+    """The field query's forward kernel, one launch, against its plain
+    version: the same corners and the same fp32 roundings summed in the
+    same order without fma, so bit for bit."""
+    fields, xyzt, _ = _card_query(name, cuda_device)
+    before = fli.launches["fwd"]
+    out = fli.field_query(fields, xyzt)
+    ref = fli.field_query_plain(fields, xyzt)
     torch.cuda.synchronize()
-    assert fi.launches["bwd"] == before + 1
-    assert float((tables.grad - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert fli.launches["fwd"] == before + 1
+    assert torch.equal(out, ref) and ref.abs().max() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_QUERIES))
+def test_backward_kernel_matches_plain_on_card(cuda_device, name):
+    """The field query's backward kernel, one launch, against its plain
+    version summed in fp64: the kernel's fp32 atomics add in a run-dependent
+    order, and an entry sums up to ~N·8/T terms (~1,000 at these shapes);
+    every table's and vector's gradient within 1e-5 of its scale."""
+    fields, xyzt, g = _card_query(name, cuda_device)
+    tensors = [t.clone().requires_grad_() for t in fli._flat(fields)]
+    before = fli.launches["bwd"]
+    fli.field_query(fli._unflat([(f.spec, len(f.grids)) for f in fields], tensors), xyzt).backward(g)
+    refs = fli.field_query_bwd_plain(fields, xyzt, g.double())
+    torch.cuda.synchronize()
+    assert fli.launches["bwd"] == before + 1
+    for t, r in zip(tensors, refs):
+        assert float((t.grad.double() - r).abs().max() / r.abs().max()) < 1e-5

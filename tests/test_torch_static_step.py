@@ -508,8 +508,8 @@ def test_graph_step_matches_the_eager_step_on_card(train_inputs, jax_small, cuda
     assert all(_cosine(_np(gg[1][k]).astype(np.float64), _np(g1[1][k]).astype(np.float64)) >= 0.99999 for k in g1[1])
     assert all(_rel(a, b) <= 1e-4 for a, b in zip(lg, le))
     # Per step one field query kernel forward in the render pass (and,
-    # dense, the prune pass), backward once; no per-pair kernel.
-    assert ng == ne and ne[0] == {"fwd": 2 if sampling == "dense" else 1, "bwd": 1, "pair_fwd": 0, "pair_bwd": 0}
+    # dense, the prune pass), backward once.
+    assert ng == ne and ne[0] == {"fwd": 2 if sampling == "dense" else 1, "bwd": 1}
 
 
 @pytest.mark.cuda
@@ -529,27 +529,38 @@ def test_graph_render_matches_the_eager_render_on_card(view, cuda_device):
         images[graph] = render_image(model, pcfg, inputs, 256, graph=graph)
         launches[graph] = {d: fli.launches[d] - before[d] for d in before}
     assert torch.equal(images[True], images[False])
-    assert launches[True] == launches[False] == {"fwd": 9 * 2, "bwd": 0, "pair_fwd": 0, "pair_bwd": 0}
+    assert launches[True] == launches[False] == {"fwd": 9 * 2, "bwd": 0}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("skips", list(_SKIPS))
 @pytest.mark.parametrize("mode", ["grid", "vector"])
 def test_skip_inputs_match_plain_on_card(cuda_device, mode, skips):
-    """The kernels with `n_valid` and/or `seg`/`s` against their plain
-    versions on the same inputs: the forward bit for bit, the backward
-    within 1e-5 of the scale of the plain version summed in fp64."""
+    """The field query's kernels with `n_valid` and/or `seg` against their
+    plain version on the same inputs: three segments of `_skip_case`'s
+    grid tables and vectors (segment ids -1..2; without `seg`, segment 0
+    alone); the forward bit for bit, and the backward of the grid tables
+    (mode "grid") or of the vectors ("vector") within 1e-5 of the scale of
+    the plain version summed in fp64."""
     n = 70_001
-    spec, tables, xyzt, g, seg, T = (t.to(cuda_device) if isinstance(t, torch.Tensor) else t
-                                     for t in _skip_case(mode, n))
     use_nv, use_seg = _SKIPS[skips]
-    args = (torch.tensor([n // 3], dtype=torch.int32, device=cuda_device) if use_nv else None, seg if use_seg else None,
-            1)
-    out = fli._launch_fwd(tables, xyzt, spec, *args)
-    assert torch.equal(out, fli.field_interp_plain(tables, xyzt, spec, *args))
-    dtab = fli._launch_bwd(g, xyzt, spec, T, *args)
-    ref = fli.field_interp_bwd_plain(g.double(), xyzt, spec, T, *args)
-    assert float((dtab.double() - ref).abs().max() / ref.abs().max()) < 1e-5
+    _, vectors, xyzt, g, seg, _ = (t.to(cuda_device) if isinstance(t, torch.Tensor) else t
+                                   for t in _skip_case("vector", n))
+    fields = []
+    for s in range(3 if use_seg else 1):
+        spec, grids, *_ = _skip_case("grid", n, seed=s)
+        fields.append(fli.SegmentField(tuple(grids.to(cuda_device).split(spec.n_levels)), vectors, spec))
+    n_valid = torch.tensor([n // 3], dtype=torch.int32, device=cuda_device) if use_nv else None
+    seg = seg if use_seg else None
+    out = fli.field_query(fields, xyzt, n_valid, seg)
+    assert torch.equal(out, fli.field_query_plain(fields, xyzt, n_valid, seg))
+    grad = g[0].T.contiguous()  # (n, L·F)
+    tensors = [t.clone().requires_grad_() for t in fli._flat(fields)]
+    fli.field_query(fli._unflat([(f.spec, len(f.grids)) for f in fields], tensors), xyzt, n_valid, seg).backward(grad)
+    refs = fli.field_query_bwd_plain(fields, xyzt, grad.double(), n_valid, seg)
+    for i, (t, r) in enumerate(zip(tensors, refs)):
+        if (i % 5 == 4) == (mode == "vector"):  # each segment's four grid tables, then its vectors
+            assert float((t.grad.double() - r).abs().max() / r.abs().max()) < 1e-5, i
 
 
 def test_graph_inputs_are_copied_when_new_or_changed():
