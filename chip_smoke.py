@@ -80,7 +80,10 @@ Phases, each of which raises on failure:
    wait for the device), then the graph's first replay (step 1; step 0 is
    its warm-up, the eager body) against the eager body from the same state,
    batch and key (loss bit-equal, gradient cosine ≥ GRAPH_GRAD_COSINE per
-   parameter); TRAIN_STEPS graph steps with launches
+   parameter; the capture's field backward adds into every table's and
+   vector's `.grad`, `field.grads_fresh` 0, those gradients within
+   KERNEL_TOL of the eager body's fresh buffers; the peak memory of each);
+   TRAIN_STEPS graph steps with launches
    counted (one field query forward and backward per step), finite
    losses, no skipped update and falling mse; ms
    per step beside the eager step's before the graphs, supervised rays/s,
@@ -870,9 +873,14 @@ def graph_vs_eager(label: str, make_model, cfg, batch, pool, key) -> None:
     waits for the device (a read the capture would refuse). Then a fresh
     model with AdamW takes two steps through the graph on the same batch and
     key: step 0 is the eager body (the graph's warm-up, then its capture),
-    step 1 the first replay. A second model, given the first's parameters
-    and AdamW state from before step 1, takes that step eagerly: the loss
-    bit-equal, each parameter's gradient at cosine ≥ GRAPH_GRAD_COSINE, the
+    step 1 the first replay. The capture adds the field query's gradients
+    straight into every table's and vector's `.grad` (the gauges
+    `field.grads_fresh` 0, `field.grads_in_place` all their entries); the
+    peak memory of step 0 and of the replay is printed. A second model,
+    given the first's parameters and AdamW state from before step 1, takes
+    that step eagerly, its gradients in fresh buffers (no `.grad` yet): the
+    loss bit-equal, each parameter's gradient at cosine ≥ GRAPH_GRAD_COSINE,
+    each table's and vector's within KERNEL_TOL of its scale, the
     parameters after the update printed."""
     model = make_model()
     eager = make_train_step(cfg, model, adamw(model), pool.width, pool.height, graph=False)
@@ -891,8 +899,21 @@ def graph_vs_eager(label: str, make_model, cfg, batch, pool, key) -> None:
 
     model_g, model_e = make_model(), make_model()
     opt_g, opt_e = adamw(model_g), adamw(model_e)
+    tables = {id(t) for segment in model_g.segments for t in fli._flat([segment.field()])}
+    table_names = [n for n, p in model_g.named_parameters() if id(p) in tables]
     graphed = make_train_step(cfg, model_g, opt_g, pool.width, pool.height, graph=True)
+    device = next(model_g.parameters()).device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     graphed(batch, pool.pool, pool.grids, pool.aabb, key)  # step 0: the warm-up, then the capture
+    torch.cuda.synchronize()
+    peak_capture = torch.cuda.max_memory_allocated(device)
+    counters = profiling.snapshot()["counters"]
+    gauges = {k: counters.get(k) for k in ("field.grads_in_place", "field.grads_fresh")}
+    entries = sum(p.numel() for n, p in model_g.named_parameters() if n in table_names)
+    if gauges != {"field.grads_in_place": entries, "field.grads_fresh": 0}:
+        raise AssertionError(f"{label}: the captured step's field backward reports {gauges}; expected all "
+                             f"{entries} table and vector entries added in place, none fresh")
     with torch.no_grad():
         for p_e, p_g in zip(model_e.parameters(), model_g.parameters()):
             p_e.copy_(p_g)
@@ -903,22 +924,36 @@ def graph_vs_eager(label: str, make_model, cfg, batch, pool, key) -> None:
     for graph, model, step in ((True, model_g, graphed),
                                (False, model_e, make_train_step(cfg, model_e, opt_e, pool.width, pool.height,
                                                                 graph=False))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
         loss, _ = step(batch, pool.pool, pool.grids, pool.aabb, key)  # step 1 (the graph's first replay)
-        runs[graph] = (float(loss), snapshot(model, "grad"), snapshot(model, "param"))
+        torch.cuda.synchronize()
+        runs[graph] = (float(loss), snapshot(model, "grad"), snapshot(model, "param"),
+                       torch.cuda.max_memory_allocated(device))
     del model_g, model_e, opt_g, opt_e, graphed, step, model
-    (loss_e, grads_e, params_e), (loss_g, grads_g, params_g) = runs[False], runs[True]
+    (loss_e, grads_e, params_e, peak_e), (loss_g, grads_g, params_g, peak_g) = runs[False], runs[True]
     cosines = {n: cosine(grads_g[n], grads_e[n]) for n in grads_e}
     worst = min(cosines, key=cosines.get)
+    scaled = {n: float((grads_g[n].double() - grads_e[n].double()).abs().max() / grads_e[n].abs().max())
+              for n in table_names if grads_e[n].any()}
+    worst_table = max(scaled, key=scaled.get)
     moved = max(float((params_g[n] - params_e[n]).abs().max()) for n in params_e)
     log(f"{label} graph vs eager: the eager body ran a step under sync debug mode \"error\" (no op waited for the "
         f"device); from the same state, the graph's first replay (step 1) loss {loss_g!r}, eager {loss_e!r} "
-        f"(bit-equal {loss_g == loss_e}); gradient cosine min {cosines[worst]:.8f} ({worst}); parameters after the "
-        f"update differ by at most {moved:.3e}")
+        f"(bit-equal {loss_g == loss_e}); gradient cosine min {cosines[worst]:.8f} ({worst}); tables' and vectors' "
+        f"gradients added in place ({gauges['field.grads_in_place']} entries) against the eager body's fresh "
+        f"buffers: scaled err max {scaled[worst_table]:.3e} ({worst_table}); parameters after the update differ by "
+        f"at most {moved:.3e}; peak memory allocated: graph step 0 (eager warm-up and capture) "
+        f"{peak_capture / 2**30:.3f} GiB, its first replay {peak_g / 2**30:.3f} GiB, the eager step "
+        f"{peak_e / 2**30:.3f} GiB")
     if loss_g != loss_e:
         raise AssertionError(f"{label}: the graph's first replayed loss {loss_g!r} is not the eager body's {loss_e!r}")
     if not cosines[worst] >= GRAPH_GRAD_COSINE:
         raise AssertionError(f"{label}: the graph's first replayed gradient of {worst} has cosine "
                              f"{cosines[worst]:.8f} to the eager body's")
+    if not scaled[worst_table] < KERNEL_TOL:
+        raise AssertionError(f"{label}: the graph's in-place gradient of {worst_table} differs from the eager body's "
+                             f"fresh one by {scaled[worst_table]:.3e} of its scale")
     torch.cuda.empty_cache()
 
 

@@ -92,7 +92,7 @@ constexpr int kMaxLevels = 32;
 // ladder's smallest, 6).
 constexpr int kMaxSegments = 256;
 
-// One segment's tables and, for the backward, their gradients (zeroed).
+// One segment's tables and, for the backward, the gradients it adds into.
 struct SegmentTables {
   const float* grid[4];  // (L, F, T) each: xyz, xyt, yzt, xzt
   const float* vectors;  // (4, L*F, R)
@@ -456,9 +456,10 @@ extern "C" int field_query_fwd(FieldQuery q, const float* xyzt, float* out, long
 }
 
 // The field query's backward: grad (N, L*F) f32, the features' cotangent;
-// q.seg[s].dgrid and .dvectors, shaped as the tables, must hold zeros on
-// entry (the caller allocates them with torch.zeros). The rest as the
-// forward's.
+// it adds each table's and vector's gradient into q.seg[s].dgrid and
+// .dvectors, contiguous f32 buffers shaped as the tables (fp32 atomics only:
+// zeros give the gradient itself; a table's zeroed or accumulating .grad
+// takes it as .grad += would). The rest as the forward's.
 extern "C" int field_query_bwd(FieldQuery q, const float* xyzt, const float* grad, long long N,
                                const int32_t* n_valid, const int32_t* seg, void* stream) {
   if (!valid_query(q, N)) return static_cast<int>(cudaErrorInvalidValue);

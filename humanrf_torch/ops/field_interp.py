@@ -8,12 +8,13 @@ of `humanrf_torch/csrc/field_interp.cu`, whose source note says what bounds
 them and how the design answers): the four grids' and vectors' lookups, the
 composition f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x + f_xzt⊙v_y and the routing of
 each sample to its own segment (`seg`), so no (4, L·F, N) lookup exists; the
-backward recomputes the lookups. Its plain version, `field_query_plain`, is
-the same query in PyTorch: per segment a grid and a vector `field_interp`
-call, their sum over segments, `compose`. CPU tensors take it, and on the
-card it is the reference: the kernels' forward equals it bit for bit, their
-backward (fp32 atomics, in a run-dependent order) is held to
-`field_query_bwd_plain` summed in fp64.
+backward recomputes the lookups and adds each table's gradient straight into
+its `.grad` where that is already there (`grad_in_place`). Its plain version,
+`field_query_plain`, is the same query in PyTorch: per segment a grid and a
+vector `field_interp` call, their sum over segments, `compose`. CPU tensors
+take it, and on the card it is the reference: the kernels' forward equals it
+bit for bit, their backward (fp32 atomics, in a run-dependent order) is held
+to `field_query_bwd_plain` summed in fp64.
 
 `field_interp` is the counterpart of what `humanrf_tpu/models/fused_field.py`
 does around each `fused_interp` call: the corner indices and weights of
@@ -56,6 +57,7 @@ import torch
 from humanrf_torch.models.hash_encoding import _CORNER_BITS, _HASH_PRIMES, HashGridConfig
 from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.ops.fused_interp import fused_interp_bwd_plain, fused_interp_plain
+from humanrf_torch.utils import profiling
 
 # Grid name → which of (x, y, z, t) it consumes; partner vector axis per grid
 # (tensor_composition.cu:49-52): out = f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x + f_xzt⊙v_y.
@@ -466,21 +468,49 @@ def _launch_query_fwd(fields: Sequence[SegmentField], xyzt: torch.Tensor, n_vali
     return out
 
 
+def grad_in_place(t: torch.Tensor) -> bool:
+    """Whether the backward launch adds `t`'s gradient straight into
+    `t.grad`: `t` is a leaf that requires a gradient, and its `.grad` is
+    there, dense, contiguous, float32, of `t`'s shape and on its device (the
+    train step's gradients, zeroed in place before the forward; a view into
+    the data-parallel bucket). The kernel only adds, so that gives what
+    autograd's `.grad += ` of a fresh zeroed buffer gives, without the
+    buffer, its fill and the add. Anything else (no `.grad` yet, the FSDP
+    step's gathered stacks, which are no leaves) takes a fresh buffer."""
+    if not (t.is_leaf and t.requires_grad):
+        return False
+    g = t.grad
+    return (g is not None and g.layout == torch.strided and g.is_contiguous() and g.dtype == torch.float32
+            and g.shape == t.shape and g.device == t.device)
+
+
+def _grad_buffers(tensors: Sequence[torch.Tensor]) -> Tuple[list, list]:
+    """→ (per tensor the buffer its gradient is added into: its own `.grad`
+    where `grad_in_place`, else a fresh zeroed one; the in-place flags).
+    Sets the recorder's gauges `field.grads_in_place` and `field.grads_fresh`
+    to the entries of each kind."""
+    in_place = [grad_in_place(t) for t in tensors]
+    buffers = [t.grad if own else torch.zeros_like(t) for t, own in zip(tensors, in_place)]
+    profiling.gauge("field.grads_in_place", sum(t.numel() for t, own in zip(tensors, in_place) if own))
+    profiling.gauge("field.grads_fresh", sum(t.numel() for t, own in zip(tensors, in_place) if not own))
+    return buffers, in_place
+
+
 def _launch_query_bwd(fields: Sequence[SegmentField], xyzt: torch.Tensor, grad: torch.Tensor, n_valid=None,
                       seg=None) -> list:
-    """One backward launch → the gradients of every field's grids (as
-    given) and vectors, in that order."""
+    """One backward launch → per table and vector of every field, in
+    `_flat`'s order, its gradient, or None where the launch added it into
+    the tensor's own `.grad` (`grad_in_place`)."""
     fields = [SegmentField(tuple(t.contiguous() for t in f.grids), f.vectors.contiguous(), f.spec) for f in fields]
     xyzt = _aligned(xyzt)
     if grad.dtype != torch.float32 or tuple(grad.shape) != (xyzt.shape[0], fields[0].vectors.shape[1]):
         raise ValueError(f"expected a float32 cotangent {(xyzt.shape[0], fields[0].vectors.shape[1])}, got "
                          f"{tuple(grad.shape)} {grad.dtype}")
-    grads = [torch.zeros_like(t) for t in _flat(fields)]
-    if xyzt.shape[0] == 0:
-        return grads  # nothing to launch
-    _run_query("field_query_bwd", fields, xyzt, grad.contiguous(), n_valid, seg, grads)
-    launches["bwd"] += 1
-    return grads
+    buffers, in_place = _grad_buffers(_flat(fields))
+    if xyzt.shape[0] > 0:  # else nothing to launch
+        _run_query("field_query_bwd", fields, xyzt, grad.contiguous(), n_valid, seg, buffers)
+        launches["bwd"] += 1
+    return [None if own else b for b, own in zip(buffers, in_place)]
 
 
 def _flat(fields: Sequence[SegmentField]) -> list:
@@ -496,7 +526,12 @@ def _unflat(layout, tensors) -> list:
 class FieldQueryKernel(torch.autograd.Function):
     """Both directions of a field query on its CUDA kernels, one launch
     each; the forward saves `xyzt`, the skip inputs and the tables, no
-    lookup."""
+    lookup. The backward adds the gradient of a table whose `.grad` is
+    there straight into it and returns None for that table, so autograd
+    adds nothing more (`grad_in_place`). Hence `torch.autograd.grad` over
+    such a table would see no gradient, and `backward(inputs=...)` leaving
+    it out would still add into it: the port differentiates the tables
+    only by `backward` over all of them."""
 
     @staticmethod
     def forward(ctx, layout, xyzt, n_valid, seg, *tensors):

@@ -389,10 +389,12 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
 
     On the card the step is one CUDA graph (`train/graphs.py`): forward,
     backward and `optimizer.step()`, the gradients zeroed in place inside
-    it; `loss` and `aux` are then its static outputs, which the next step
-    overwrites. The first call of a batch shape is the eager body (the
-    graph's warm-up); the graph replays from the second on. `graph=False`
-    runs the eager body (the CPU always does).
+    it, the field query's backward adding the tables' straight into them
+    (`ops/field_interp.py::grad_in_place`); `loss` and `aux` are then its
+    static outputs, which the next step overwrites. The first call of a
+    batch shape is the eager body (the graph's warm-up); the graph replays
+    from the second on. `graph=False` runs the eager body (the CPU always
+    does).
 
     Each step adds on the device to the recorder's counters
     (`utils/profiling.py`): `sampler.candidate_rays_valid` (the valid

@@ -399,3 +399,180 @@ def test_field_query_rejects_bad_fields(bad):
         fields[0] = fields[0]._replace(vectors=fields[0].vectors.double())
     with pytest.raises((TypeError, ValueError)):
         fli.field_query(fields, xyzt, seg=seg)
+
+
+# ------------------------------------- the backward's gradient buffers
+
+from humanrf_torch.utils import profiling  # noqa: E402
+
+
+def _grad_case(case):
+    """→ (a table as the field query's backward receives it, whether its
+    gradient goes straight into its own `.grad`)."""
+    table = torch.nn.Parameter(torch.zeros(2, 3, 4))
+    if case == "grad":  # the train step's: zeroed in place before the forward
+        table.grad = torch.zeros_like(table)
+    elif case == "bucket-view":  # the data-parallel step's: a view into the summed bucket
+        table.grad = torch.zeros(5 + table.numel() + 7)[5:5 + table.numel()].view_as(table)
+    elif case == "non-contiguous":
+        table.grad = torch.zeros(4, 3, 2).permute(2, 1, 0)
+    elif case == "float64":
+        table.grad = torch.zeros_like(table)
+        table.grad.data = table.grad.data.double()
+    elif case == "stack":  # the FSDP step's gathered stack: no leaf
+        table.grad = torch.zeros_like(table)
+        return torch.cat([table, table]), False
+    elif case == "detached":  # chip_smoke's tables: no gradient asked for
+        return table.detach(), False
+    return table, case in ("grad", "bucket-view")
+
+
+@pytest.mark.parametrize("case", ["grad", "bucket-view", "no-grad", "non-contiguous", "float64", "stack", "detached"])
+def test_grad_in_place_decides_from_the_tensor(case, monkeypatch):
+    """The rule that sends a table's gradient straight into its `.grad`: a
+    leaf that requires a gradient, with a dense, contiguous float32 `.grad`
+    of its shape on its device, which is the buffer then; anything else
+    takes a fresh zeroed buffer. The gauges count the entries of each kind
+    (here beside a vector with no `.grad`, always fresh)."""
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    table, in_place = _grad_case(case)
+    assert fli.grad_in_place(table) == in_place
+    vector = torch.nn.Parameter(torch.ones(5))
+    buffers, flags = fli._grad_buffers([table, vector])
+    assert flags == [in_place, False]
+    if in_place:
+        assert buffers[0] is table.grad
+    else:
+        assert buffers[0].shape == table.shape and buffers[0].is_contiguous() and not buffers[0].any()
+    assert buffers[1].shape == (5,) and not buffers[1].any()
+    assert profiling.snapshot()["counters"] == {"field.grads_in_place": table.numel() if in_place else 0,
+                                                "field.grads_fresh": 5 + (0 if in_place else table.numel())}
+
+
+def _plain_launches(monkeypatch):
+    """The kernels' launches stood in by their plain versions, on CPU
+    tensors: the forward writes `field_query_plain`'s features, the backward
+    adds `field_query_bwd_plain`'s gradients into the buffers it is given."""
+    def run(name, fields, xyzt, second, n_valid, seg, grads=None):
+        if name == "field_query_fwd":
+            second.copy_(fli.field_query_plain(fields, xyzt, n_valid, seg))
+        else:
+            for buffer, g in zip(grads, fli.field_query_bwd_plain(fields, xyzt, second, n_valid, seg)):
+                buffer.add_(g)
+
+    monkeypatch.setattr(fli, "_run_query", run)
+
+
+@pytest.mark.parametrize("form", ["tables", "stacks"])
+def test_query_backward_adds_into_each_tables_grad(form, monkeypatch):
+    """`FieldQueryKernel`'s gradients over two backward calls, its launches
+    stood in by the plain versions: the first (no `.grad` yet) returns fresh
+    buffers, which autograd keeps; the second adds into each `.grad` and
+    returns None, so autograd adds nothing more. Each `.grad` ends bit for
+    bit where autograd through the plain query puts it. In the FSDP form the
+    gathered stacks are no leaves and take fresh buffers on every call, the
+    vectors' gradients go in place; the gauges count each kind."""
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    _plain_launches(monkeypatch)
+    fields = _query_fields(2, seed=13)
+    xyzt, n_valid, seg = _query_skips(300, 2, ("n_valid", "seg"), seed=14)
+    layout = [(f.spec, len(f.grids)) for f in fields]
+
+    def query(leaves, kernel):
+        fs = fli._unflat(layout, leaves)
+        if form == "stacks":
+            fs = [f._replace(grids=(torch.cat(f.grids),)) for f in fs]
+        if kernel:
+            return fli.FieldQueryKernel.apply(tuple((f.spec, len(f.grids)) for f in fs), xyzt, n_valid, seg,
+                                              *fli._flat(fs))
+        return fli.field_query_plain(fs, xyzt, n_valid, seg)
+
+    leaves, _ = _with_grad(fields)
+    ref_leaves, _ = _with_grad(fields)
+    vectors = sum(f.vectors.numel() for f in fields)
+    total = sum(t.numel() for t in leaves)
+    rng = np.random.default_rng(15)
+    for call in range(2):
+        grad = torch.tensor(rng.normal(size=(300, fields[0].vectors.shape[1])).astype(np.float32))
+        query(leaves, kernel=True).backward(grad)
+        query(ref_leaves, kernel=False).backward(grad)
+        in_place = 0 if call == 0 else total if form == "tables" else vectors
+        assert profiling.snapshot()["counters"] == {"field.grads_in_place": in_place,
+                                                    "field.grads_fresh": total - in_place}
+        for a, b in zip(leaves, ref_leaves):
+            assert a.grad.abs().max() > 0 and torch.equal(a.grad, b.grad)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_query_backward_adds_into_grad_under_a_graph_on_card(cuda_device, monkeypatch):
+    """Three segments of the paper's L16/F2 levels (T = 2^17), samples of
+    segments 0 and 2 alone (and of none). An eager query and backward with
+    no `.grad` yet take fresh buffers (`field.grads_in_place` 0) and give
+    the plain version's gradient, summed in fp64, within 1e-5 of each
+    gradient's scale (fp32 atomics, in a run-dependent order). Captured as a
+    CUDA graph with every `.grad` there, the backward adds into them
+    (`field.grads_fresh` 0) and the capture takes no table-sized buffer; a
+    replay leaves each reached table's and vector's `.grad` at what it held
+    plus that gradient, within the same bound, and segment 1's bit for bit
+    as it was."""
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    rng = np.random.default_rng(20)
+    cfg = THashGridConfig(n_levels=16, n_features_per_level=2, log2_hashmap_size=17, base_resolution=32,
+                          finest_resolution=2048)
+    L, F, T, n = cfg.n_levels, cfg.n_features_per_level, cfg.table_size, 65_536
+
+    def uniform(shape):
+        return torch.tensor(rng.uniform(-1, 1, shape).astype(np.float32), device=cuda_device)
+
+    shapes = [(L, F, T)] * 4 + [(4, L * F, 2048)]
+    leaves = [uniform(shape).requires_grad_() for _ in range(3) for shape in shapes]
+    layout = [(fli.grid_spec(cfg), 4)] * 3
+    fields = fli._unflat(layout, leaves)
+    xyzt = torch.tensor(rng.uniform(0, 1, (n, 4)).astype(np.float32), device=cuda_device)
+    seg = torch.tensor(rng.choice([0, 2, -1], n, p=[0.45, 0.45, 0.1]).astype(np.int32), device=cuda_device)
+    n_valid = torch.tensor([int(0.9 * n)], dtype=torch.int32, device=cuda_device)
+    grad = uniform((n, L * F))
+    refs = fli.field_query_bwd_plain(fli._unflat(layout, [t.detach() for t in leaves]), xyzt, grad.double(),
+                                     n_valid, seg)
+    total = sum(t.numel() for t in leaves)
+
+    def scaled_err(got, r):
+        return float((got - r).abs().max() / r.abs().max())
+
+    fli.field_query(fields, xyzt, n_valid, seg).backward(grad)
+    torch.cuda.synchronize()
+    assert profiling.snapshot()["counters"] == {"field.grads_in_place": 0, "field.grads_fresh": total}
+    for i, (t, r) in enumerate(zip(leaves, refs)):
+        if i // 5 == 1:
+            assert not t.grad.any() and not r.any(), i
+        else:
+            assert scaled_err(t.grad.double(), r) < 1e-5, i
+
+    held = [uniform(t.shape) * (0.5 * float(r.abs().max()) if r.any() else 1.0) for t, r in zip(leaves, refs)]
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(cuda_device)
+    with torch.cuda.graph(graph):
+        fli.field_query(fields, xyzt, n_valid, seg).backward(grad)
+    torch.cuda.synchronize()
+    assert profiling.snapshot()["counters"] == {"field.grads_in_place": total, "field.grads_fresh": 0}
+    table_bytes = 4 * total
+    assert torch.cuda.memory_reserved(cuda_device) - reserved < table_bytes // 4
+    with torch.no_grad():
+        for t, h in zip(leaves, held):
+            t.grad.copy_(h)
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (t, h, r) in enumerate(zip(leaves, held, refs)):
+        if i // 5 == 1:
+            assert torch.equal(t.grad.view(torch.int32), h.view(torch.int32)), i
+        else:
+            assert scaled_err(t.grad.double() - h.double(), r) < 1e-5, i
