@@ -33,7 +33,11 @@ themselves, the lookups and their composition:
 - the protocol drivers (`humanrf_torch/protocol/`), each through its own
   entry point and cut to fit: the evaluate phase of the banked best.ckpt,
   the parallax probe, the four-segment run, the reference-capacity field
-  (T = 2^22 per level) and the throughput probe.
+  (T = 2^22 per level) and the throughput probe;
+- K-Planes (hybrid), `--model.representation kplanes` at the widths of the
+  benchmark's kplanes-hybrid.train, on the same r4 scene: its plane
+  queries on the hand-written kernels of `csrc/kplanes.cu`, its graphed
+  train step and its CLI.
 
 The single-process train step and the render function are CUDA graphs
 (`train/graphs.py`), captured once per input signature and replayed; every
@@ -46,8 +50,8 @@ eagerly, since a graph replays what it captured.
 Phases, each of which raises on failure:
 
 1. device: a CUDA Hopper card (capability 9.0) is required;
-2. build: `humanrf_torch/csrc/field_interp.cu`, `mesh_raster.cu` and
-   `adamw.cu` with nvcc for sm_90a, side by side
+2. build: `humanrf_torch/csrc/field_interp.cu`, `mesh_raster.cu`,
+   `adamw.cu` and `kplanes.cu` with nvcc for sm_90a, side by side
    (registers, shared memory and spills from `-Xptxas -v`); then 2(b),
    AdamW's kernels (`adamw_phase`) over the parameter lists of the r4 model,
    the paper's dense field and the 1000-frame model: two steps of the
@@ -252,7 +256,25 @@ Phases, each of which raises on failure:
    (`query_checks`), a finite step-0 loss, no skipped update; peak memory
    and ms per step;
    (e) `throughput_probe`, THROUGHPUT_STEPS steps resumed from the banked
-   step_00050000.ckpt: ms per step and rays/s.
+   step_00050000.ckpt: ms per step and rays/s;
+12. K-Planes (hybrid) on phase 6's scene, `r4_flags` then KPLANES_FLAGS:
+   (a) the plane query's kernels (`plane_query_checks`) at the three
+   queries of the graphed train step's first call (its eager warm-up):
+   proposal 1 (1,048,576 samples, M 8, one scale of 128), proposal 2
+   (524,288, M 8, 256) and the field (196,608 slots with the step's valid
+   count, M 32, four scales of 64·s), the planes copied with their time
+   planes set to 1 + U[-0.1, 0.1] so that a fault along t shows: the
+   forward bit for bit against `plane_query_plain`, every plane's backward
+   within KERNEL_TOL of its scale against `plane_query_bwd_plain` summed in
+   fp64; each timed beside the plain version and the library's
+   (`F.grid_sample` per plane and scale and the products; its backward as
+   fwd + bwd − fwd), with its bound;
+   (b) KPLANES_STEPS replays of that step (`Trainer`'s, fed by the
+   `DataLoader`), the launch counts reset just before: one launch each way
+   per plane query per step (3 + 3), AdamW's once a step, finite losses,
+   no skipped update; ms per step;
+   (c) the CLI as phase 6, to KPLANES_CLI_STEPS: validation PSNR rising,
+   saves, a resume, the test render and the evaluation.
 
 The last three lines of output are the kernel table as JSON (the field
 query's kernels, `field_query_fwd` and `field_query_bwd`, with `launches`
@@ -263,11 +285,14 @@ rows at the r4 query, their phase-7(b) rows at the dense queries under
 over 10(b), their times per view at 10(b)'s frames, 10(d)'s under
 "rig_ms" and 10(e)'s under "rig_12mp_ms"; `adamw_finite` and
 `adamw_update`, with `launches` counted over this process's phases and
-2(b)'s rows under "r4", "paper-dense" and "paper-1000f"), the card's name
+2(b)'s rows under "r4", "paper-dense" and "paper-1000f"; `kplanes_fwd` and
+`kplanes_bwd`, with `launches` counted over 12(b) and each phase's counts
+beside them, their 12(a) rows under the query's name), the card's name
 and power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
-Usage: python3 chip_smoke.py [--mesh-only]
+Usage: python3 chip_smoke.py [--mesh-only | --kplanes-only]
 (--mesh-only: phases 1, 2 and 10 alone, on a freshly written r4 scene; the
-kernel table then holds the mesh kernels only. The script runs itself with
+kernel table then holds the mesh kernels only. --kplanes-only: phases 1,
+2 and 12 alone, likewise, with the K-Planes kernels. The script runs itself with
 --breakdown INPUTS for `device_breakdown`'s fresh process)
 """
 from __future__ import annotations
@@ -298,6 +323,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from humanrf_torch import run as cli
 from humanrf_torch.convert import convert_params
@@ -309,9 +335,11 @@ from humanrf_torch.core.camera import write_calibration_csv
 from humanrf_torch.core.synthetic import GENERATOR_VERSION, make_cameras, render_cameras, subject_mesh
 from humanrf_torch.evaluation.metrics import LpipsModel
 from humanrf_torch.models import fused_field
+from humanrf_torch.models import kplanes as kplanes_model
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel, segment_grid_config
 from humanrf_torch.ops import adamw as adamw_kernels
 from humanrf_torch.ops import field_interp as fli
+from humanrf_torch.ops import kplanes as kplanes_ops
 from humanrf_torch.ops import rasterize as raster
 from humanrf_torch.ops.cuda_build import load_library
 from humanrf_torch.parallel import harness
@@ -331,7 +359,7 @@ from humanrf_torch.toolbox.write_alembic import objs_to_abc
 from humanrf_torch.train.trainer import Trainer, make_optimizer, render_image, render_pipeline_config, sample_batch
 from humanrf_torch.utils import profiling
 from humanrf_torch.utils.profiling import Trace
-from humanrf_torch.utils.rngs import fold_in, make_key
+from humanrf_torch.utils.rngs import fold_in, make_key, split
 from humanrf_torch.utils.summary import masked_crc32c
 from humanrf_torch.view_inputs import load_dense_inputs, load_train_inputs, load_view_inputs
 
@@ -482,6 +510,27 @@ CAPACITY_CONFIG = "gather-ref-capacity"  # L16/F2, log2 24
 CAPACITY_T = 1 << 22             # its table rows per level on one 25-frame segment
 CAPACITY_FRAMES = 25
 THROUGHPUT_STEPS = 200
+# Phase 12: K-Planes (hybrid) at the widths of the benchmark's
+# kplanes-hybrid.train (the `--model.kplanes_*` defaults), given after
+# `r4_flags` to override its model, sampler and loss.
+KPLANES_FLAGS = [
+    "--model.representation", "kplanes",
+    "--model.temporal_partitioning", "none",
+    "--model.camera_embedding_dim", "0",
+    "--tpu.proposal_samples_per_ray", "256",
+    "--tpu.proposal_mid_samples_per_ray", "128",
+    "--tpu.render_samples_per_ray", "48",
+    "--training.rays_initial_batch_size", "4096",
+    "--training.lr", "0.01",
+    "--training.weight_decay", "0",
+    "--training.photometric", "mse",
+    "--training.bce_loss_weight", "0",
+]
+KPLANES_STEPS = 100              # 12(b): replays of the graphed train step
+KPLANES_CLI_STEPS = 400          # 12(c): resumed to this step, validated and saved every half (at 100
+#                                  steps a fresh field still renders as at 20: its density has not formed)
+# A train step's plane queries, in call order: (slots, scales, channels).
+KPLANES_QUERIES = {"proposal 1": (4096 * 256, 1, 8), "proposal 2": (4096 * 128, 1, 8), "field": (4096 * 48, 4, 32)}
 LPIPS_TOL = 1e-5                 # relative, the random-feature LPIPS on the card against the CPU
 # Operations per fragment (the pixel centre, w0, w1, w2, iz and 1/z) and per
 # (camera, triangle) of setup (the box, the area and 1/area), and per
@@ -1172,12 +1221,13 @@ def write_r4_scene(device, root: Path) -> Path:
     return scene
 
 
-def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict:
-    """Phases 6 and 7(c) (see the module docstring): `flags(steps, every)`
-    is the run's command line. EARLY_STEPS steps validated and saved, then
-    resumed to `total_steps` with validation and saves every half, the test
-    frame rendered and evaluated, then RESUME_STEPS more. → the launches of
-    the first two runs, and the second run's `Trainer.run_stats`."""
+def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int, kernels=fli) -> dict:
+    """Phases 6, 7(c) and 12(c) (see the module docstring): `flags(steps,
+    every)` is the run's command line. EARLY_STEPS steps validated and
+    saved, then resumed to `total_steps` with validation and saves every
+    half, the test frame rendered and evaluated, then RESUME_STEPS more. →
+    the launches of the first two runs (of the field query, or of
+    `kernels`' query), and the second run's `Trainer.run_stats`."""
     half = total_steps // 2
     evaluate = ["--training.checkpoint", "latest", "--evaluate", "true", "--evaluation.frame_numbers", "0"]
     torch.cuda.synchronize()
@@ -1187,16 +1237,16 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     result = cli.main(flags(total_steps, half) + evaluate)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches(name, trains=True)
+    launches = read_launches(name, trains=True, kernels=kernels)
     stats = result["train"]
     blocks = validation_blocks(ws)
     means = {step: float(np.mean(v)) for step, v in blocks.items()}
     log(f"{name}: {EARLY_STEPS} steps, then resumed to {total_steps} + 3 validations + test render + evaluation "
-        f"in {wall:.1f} s wall; field query launches {launches}; validation PSNR per "
+        f"in {wall:.1f} s wall; {'field' if kernels is fli else 'plane'} query launches {launches}; validation PSNR per "
         f"block {blocks}; evaluation {result['averages']}")
-    before = EAGER_MS_PER_STEP["cli (6)" if name == "cli" else "dense cli (7(c))"]
+    before = {"cli": EAGER_MS_PER_STEP["cli (6)"], "dense cli": EAGER_MS_PER_STEP["dense cli (7(c))"]}.get(name)
     log(f"{name}: trainer scale ({stats['steps']} steps timed, the step a CUDA graph): {stats['ms_per_step']:.2f} ms "
-        f"per step (the eager step before the graphs: {before} ms), "
+        f"per step" + (f" (the eager step before the graphs: {before} ms)" if before else "") + ", "
         f"{stats['rays_per_s']:.0f} rays/s nominal, {stats['supervised_rays_per_s']:.0f} supervised rays/s, "
         f"host fetch {100 * stats['fetch_share']:.1f}% of the train time, "
         f"{stats['images_replaced_per_step']:.2f} pool images replaced per step")
@@ -1217,7 +1267,7 @@ def cli_phase(name: str, scene: Path, ws: Path, flags, total_steps: int) -> dict
     if stats["skipped_nonfinite"] != 0:
         raise AssertionError(f"{stats['skipped_nonfinite']} updates skipped as non-finite")
     if not (launches["fwd"] > 0 and launches["bwd"] > 0):
-        raise AssertionError(f"the CLI run launched field query {launches}")
+        raise AssertionError(f"the CLI run launched {'field' if kernels is fli else 'plane'} query {launches}")
 
     resumed = cli.main(flags(total_steps + RESUME_STEPS, half) + ["--training.checkpoint", "latest"])["train"]
     log(f"{name}: resumed from step {resumed['start_step']} to {resumed['end_step']}")
@@ -2497,17 +2547,19 @@ def first_render_query():
 
 
 def reset_launches() -> None:
-    """Sets the launch counts of the field query and AdamW to 0."""
+    """Sets the launch counts of the field query, the plane query and AdamW to 0."""
     fli.reset_launches()
+    kplanes_ops.reset_launches()
     adamw_kernels.reset_launches()
 
 
-def read_launches(name: str, trains: bool) -> dict:
+def read_launches(name: str, trains: bool, kernels=fli) -> dict:
     """The launches since the last reset → the field query's {"fwd",
-    "bwd"}; AdamW's go into ADAMW_LAUNCHES[name]. Raises unless AdamW's two
-    kernels launched as often as each other, some times in a phase that
-    `trains` and never in one that does not."""
-    launches = dict(fli.launches)
+    "bwd"} (with `kernels=kplanes_ops`, the plane query's); AdamW's go into
+    ADAMW_LAUNCHES[name]. Raises unless AdamW's two kernels launched as
+    often as each other, some times in a phase that `trains` and never in
+    one that does not."""
+    launches = dict(kernels.launches)
     adamw = dict(adamw_kernels.launches)
     if adamw["finite"] != adamw["update"] or (adamw["update"] > 0) != trains:
         raise AssertionError(f"{name} launched AdamW's kernels {adamw} ({'a' if trains else 'no'} training phase)")
@@ -2746,6 +2798,250 @@ def protocol_phase(scene: Path, tmp: Path, device, r4_stats: dict) -> tuple:
     return launches, rows
 
 
+# ------------------------------------------------------------------ phase 12
+
+
+@contextlib.contextmanager
+def plane_queries():
+    """The first differentiated plane queries of the next train step, run
+    eagerly (a graph's warm-up; never its capture) → a list that fills, in
+    call order, with copies of their inputs: {"planes", "coords", "n_valid",
+    "seg"}."""
+    captured, query_fn = [], kplanes_model.plane_query
+
+    def capture(planes, coords, n_valid=None, seg=None):
+        if (torch.is_grad_enabled() and len(captured) < len(KPLANES_QUERIES)
+                and not torch.cuda.is_current_stream_capturing()):
+            captured.append({"planes": [t.detach().clone() for t in planes], "coords": coords.detach().clone(),
+                             "n_valid": None if n_valid is None else n_valid.clone(),
+                             "seg": None if seg is None else seg.clone()})
+        return query_fn(planes, coords, n_valid, seg)
+
+    with mock.patch.object(kplanes_model, "plane_query", capture):
+        yield captured
+
+
+def touched_texels(planes, coords) -> int:
+    """The plane texels that the taps of `coords` touch, each once, summed
+    over the planes of every scale."""
+    total = 0
+    for s in range(len(planes) // 6):
+        res = kplanes_ops._resolution(planes[6 * s:6 * s + 6])
+        taps = [kplanes_ops._taps(coords[:, a], res[a]) for a in range(4)]
+        for pair in kplanes_ops.PLANES:
+            idx, _ = kplanes_ops._corners(taps, pair, res[pair[0]])
+            total += int(torch.unique(torch.cat(idx)).numel())
+    return total
+
+
+def grid_sample_query(planes_nchw, grids) -> torch.Tensor:
+    """The library's plane query: per scale the product of `F.grid_sample`
+    over its six (1, M, res_j, res_i) planes at `grids[p]` (1, n, 1, 2),
+    the scales concatenated → (n, S·M)."""
+    feats = []
+    for s in range(len(planes_nchw) // 6):
+        f = None
+        for p in range(6):
+            v = F.grid_sample(planes_nchw[6 * s + p], grids[p], mode="bilinear", padding_mode="border",
+                              align_corners=True)
+            f = v if f is None else f * v
+        feats.append(f[0, :, :, 0])
+    return torch.cat(feats).t()
+
+
+def plane_query_checks(label: str, query: dict) -> dict:
+    """The plane query's kernels at a train step's query (`plane_queries`),
+    one launch each way as the main path makes them → {direction: row}.
+    The forward against `plane_query_plain` bit for bit; every plane's
+    backward within KERNEL_TOL of its scale against `plane_query_bwd_plain`
+    summed in fp64 (fresh gradient buffers, as outside the train step's
+    `grads_in_place()`); else it raises. Each is timed (the backward adding
+    into buffers that are there, as in the train step) beside the plain
+    version and the library's (`grid_sample_query` over the served
+    samples), with its bound: the forward reads the served samples'
+    coordinates and each touched texel once and writes the features over
+    every slot, per served sample, scale and plane 4 taps × M multiply-adds
+    and the product; the backward reads the served cotangents, each touched
+    texel once and its gradient entry once each way, at twice the
+    forward's operations (the lookups again, then the taps' adds)."""
+    planes, q, n_valid, seg = query["planes"], query["coords"], query["n_valid"], query["seg"]
+    gen = torch.Generator(q.device).manual_seed(0)
+    with torch.no_grad():
+        for t, pair in zip(planes, kplanes_ops.PLANES * (len(planes) // 6)):
+            if pair[1] == 3:
+                t.copy_(1.0 + 0.2 * (torch.rand(t.shape, generator=gen, device=t.device) - 0.5))
+    N, S, M = q.shape[0], len(planes) // 6, planes[0].shape[-1]
+    live = kplanes_ops._live(N, q.device, n_valid, seg)
+    served_q = q if live is None else q[live]
+    n = served_q.shape[0]
+    texels = touched_texels(planes, served_q)
+    ops = n * S * 6 * (2 * 4 * M + M)
+    dims = {"shape": "plane query", "query": label, "N": N, "served": n, "scales": S, "M": M,
+            "res": [kplanes_ops._resolution(planes[6 * s:6 * s + 6]) for s in range(S)], "texels": texels}
+
+    out = kplanes_ops._launch_fwd(planes, q, n_valid, seg)
+    ref = kplanes_ops.plane_query_plain(planes, q, n_valid, seg)
+    planes_nchw = [t.permute(2, 0, 1)[None].contiguous() for t in planes]
+    grids = [served_q[:, list(pair)].reshape(1, -1, 1, 2).contiguous() for pair in kplanes_ops.PLANES]
+    library = grid_sample_query(planes_nchw, grids)
+    served_out = out if live is None else out[live]
+    torch.cuda.synchronize()
+    rows = {"fwd": dict(dims, max_abs_err=float((out - ref).abs().max()), bit_exact=bool(torch.equal(out, ref)),
+                        library_err=float((library - served_out).abs().max() / served_out.abs().max()))}
+    if not rows["fwd"]["bit_exact"]:
+        raise AssertionError(f"kplanes_fwd at {label} differs from the plain query by {rows['fwd']['max_abs_err']:.3e}")
+    if not rows["fwd"]["library_err"] < KERNEL_TOL:
+        raise AssertionError(f"F.grid_sample at {label} differs from the kernel by {rows['fwd']['library_err']:.3e} "
+                             f"of scale: the library line computes something else")
+    with torch.no_grad():
+        rows["fwd"].update(ms=time_ms(lambda: kplanes_ops._launch_fwd(planes, q, n_valid, seg), iters=10),
+                           plain_ms=time_ms(lambda: kplanes_ops.plane_query_plain(planes, q, n_valid, seg), iters=2),
+                           library_ms=time_ms(lambda: grid_sample_query(planes_nchw, grids), iters=10))
+    rows["fwd"]["bound_ms"], rows["fwd"]["bound_by"] = bound(
+        16 * n + (0 if n_valid is None else 4) + 4 * N * S * M + 4 * M * texels, ops)
+    del out, ref, library, served_out
+
+    g = torch.randn((N, S * M), generator=gen, device=q.device)
+    grads = kplanes_ops._launch_bwd(planes, q, g, n_valid, seg)
+    refs = kplanes_ops.plane_query_bwd_plain(planes, q, g.double(), n_valid, seg)
+    torch.cuda.synchronize()
+    scaled = max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(grads, refs))
+    del refs
+    if not scaled < KERNEL_TOL:
+        raise AssertionError(f"kplanes_bwd at {label} disagrees with the fp64 plain sum: scaled err {scaled:.3e}")
+    leaves = [t.requires_grad_() for t in planes_nchw]
+    g_served = g if live is None else g[live]
+
+    def library_fwd_bwd():
+        torch.autograd.grad(grid_sample_query(leaves, grids), leaves, g_served)
+
+    with torch.no_grad():
+        library_fwd = time_ms(lambda: grid_sample_query(planes_nchw, grids), iters=10)
+    rows["bwd"] = dict(dims, max_abs_err=scaled, bit_exact=False,
+                       ms=time_ms(lambda: kplanes_ops._run("kplanes_bwd", planes, q, g, n_valid, seg, grads), iters=10),
+                       plain_ms=time_ms(lambda: kplanes_ops.plane_query_bwd_plain(planes, q, g, n_valid, seg),
+                                        iters=2),
+                       library_ms=time_ms(library_fwd_bwd, iters=10) - library_fwd)
+    rows["bwd"]["bound_ms"], rows["bwd"]["bound_by"] = bound(16 * n + (0 if n_valid is None else 4) + 4 * n * S * M
+                                                             + 3 * 4 * M * texels, 2 * ops)
+    del grads, g, g_served, leaves, planes_nchw
+    for direction, row in rows.items():
+        check = ("bit-exact against the plain query" if direction == "fwd"
+                 else f"scaled err {row['max_abs_err']:.2e} against the fp64 sum")
+        log(f"kernel kplanes_{direction} {label}: {S} scale(s) of M={M} at {dims['res']}, {N} slots serving {n} "
+            f"({texels} texels touched): {check}; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms "
+            f"({row['plain_ms'] / row['ms']:.0f}×), F.grid_sample {row['library_ms']:.4f} ms "
+            f"({row['library_ms'] / row['ms']:.1f}×), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kplanes_trainer(scene: Path, ws: Path, device):
+    """The K-Planes training program as the CLI builds it (`r4_flags` then
+    KPLANES_FLAGS) → (trainer, loader)."""
+    config = parse_args(r4_flags(scene, ws, KPLANES_STEPS, KPLANES_STEPS) + KPLANES_FLAGS)
+    data_folder = scene / config.dataset.actor / config.dataset.sequence / f"{config.dataset.scale}x"
+    frames = tuple(config.dataset.frame_numbers)
+    model = cli.build_model(config, cli.compute_segment_sizes(config, data_folder, frames), device)
+    cameras = cli.derive_synthetic_presets(VolumetricDataset(data_folder))[config.training.camera_preset]
+    loader = DataLoader(
+        dataset=VolumetricDataset(data_folder, config.dataset.crop_center_square), mode=DataLoader.Mode.TRAINING,
+        space_pruning_mode=DataLoader.SpacePruningMode.OCCUPANCY_GRID, frame_numbers=frames,
+        batch_size=config.training.rays_initial_batch_size * config.tpu.candidate_rays_factor,
+        camera_numbers=cameras, max_buffer_size=config.dataset.max_buffer_size,
+        max_num_frames_per_batch=config.dataset.max_num_frames_per_batch, use_mask=True,
+        filter_light_bloom=config.dataset.filter_light_bloom, deterministic=config.dataset.deterministic_loader,
+        seed=config.random_seed, device=device,
+    )
+    trainer = Trainer(config=config, workspace=ws, checkpoint=None, model=model,
+                      pipeline_config=cli.build_pipeline_config(config), optimizer=cli.optimizer_factory(config),
+                      resolution=loader.resolution, seed=config.random_seed)
+    return trainer, loader
+
+
+def kplanes_phase(scene: Path, tmp: Path, device) -> tuple:
+    """Phase 12 (see the module docstring) → (the plane query's launches by
+    phase, its 12(a) rows by query)."""
+    t0 = time.perf_counter()
+    trainer, loader = kplanes_trainer(scene, tmp / "kplanes_step", device)
+    model, step_fn, aabb = trainer.model, trainer.train_step_fn, loader.device_aabb
+    log(f"12: K-Planes, {sum(p.numel() for p in model.parameters())} parameters "
+        f"({sum(t.numel() for f in (model.field, *(p.field for p in model.proposals)) for t in f.planes())} in "
+        f"planes); {trainer.pcfg}")
+    it = iter(loader)
+
+    def one_step():
+        trainer.rng, key = split(trainer.rng)
+        batch, pool, grids, _ = next(it)
+        return step_fn(batch, pool, grids, aabb, key)
+
+    with plane_queries() as captured:
+        one_step()  # the graph's warm-up and capture
+    torch.cuda.synchronize()
+    shapes = {label: (q["coords"].shape[0], len(q["planes"]) // 6, q["planes"][0].shape[-1])
+              for label, q in zip(KPLANES_QUERIES, captured)}
+    if shapes != KPLANES_QUERIES:
+        raise AssertionError(f"the train step's plane queries are {shapes}, not {KPLANES_QUERIES}")
+    rows = {label: plane_query_checks(label, q) for label, q in zip(KPLANES_QUERIES, captured)}
+    del captured
+
+    # (b) the graphed step, the launch counts reset just before.
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    for _ in range(KPLANES_STEPS):
+        before = dict(kplanes_ops.launches)
+        loss, aux = one_step()
+        per_step.append({d: kplanes_ops.launches[d] - before[d] for d in before})
+        losses.append(loss.clone())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    step_launches = read_launches("kplanes step", trains=True, kernels=kplanes_ops)
+    losses = torch.stack(losses).cpu()
+    log(f"12(b): {KPLANES_STEPS} graphed steps in {seconds:.2f} s ({1e3 * seconds / KPLANES_STEPS:.2f} ms a step, "
+        f"fetch included), loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}; plane query launches "
+        f"{step_launches}; skipped updates {int(trainer.optimizer.skipped)}")
+    expected = {"fwd": len(KPLANES_QUERIES), "bwd": len(KPLANES_QUERIES)}
+    bad = [i for i, n in enumerate(per_step) if n != expected]
+    if bad or step_launches != {d: n * KPLANES_STEPS for d, n in expected.items()}:
+        raise AssertionError(f"the K-Planes step launched plane query {step_launches}; steps {bad[:5]} differ from "
+                             f"{expected} a step")
+    check_adamw_per_step("kplanes step", model, KPLANES_STEPS)
+    if not torch.isfinite(losses).all() or int(trainer.optimizer.skipped):
+        raise AssertionError(f"non-finite K-Planes losses or skipped updates ({int(trainer.optimizer.skipped)})")
+    loader.shutdown()
+    del trainer, model, step_fn, it, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the CLI.
+    ws = tmp / "kplanes_workspace"
+    cli_launches, _ = cli_phase("kplanes cli", scene, ws,
+                                lambda steps, every: r4_flags(scene, ws, steps, every) + KPLANES_FLAGS,
+                                KPLANES_CLI_STEPS, kernels=kplanes_ops)
+    log(f"12: K-Planes phase in {time.perf_counter() - t0:.1f} s")
+    return {"kplanes_step": step_launches, "kplanes_cli": cli_launches}, rows
+
+
+def kplanes_records(launches: dict, rows: dict) -> list:
+    """The kernel table's rows of the plane query's two kernels."""
+    return [
+        {
+            "name": f"kplanes_{direction}",
+            "route": "cuda",
+            "source": "humanrf_torch/csrc/kplanes.cu",
+            "replaces": "none: F.grid_sample per plane and scale and their product (K-Planes' "
+                        "interpolate_ms_features)",
+            "launches": launches["kplanes_step"][direction],
+            "launches_by_phase": {phase: counts[direction] for phase, counts in launches.items()},
+            **{label: by_direction[direction] for label, by_direction in rows.items()},
+        }
+        for direction in ("fwd", "bwd")
+    ]
+
+
 def finish(records: list, smi: str) -> int:
     """The last three lines: the kernel table, the card, the result."""
     print(json.dumps({"kernels": records}))
@@ -2830,9 +3126,9 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--breakdown"] and len(argv) == 2:
         return breakdown_child(Path(argv[1]))
-    if argv not in ([], ["--mesh-only"]):
-        raise SystemExit(f"usage: python3 chip_smoke.py [--mesh-only]; got {argv}")
-    mesh_only = argv == ["--mesh-only"]
+    if argv not in ([], ["--mesh-only"], ["--kplanes-only"]):
+        raise SystemExit(f"usage: python3 chip_smoke.py [--mesh-only | --kplanes-only]; got {argv}")
+    mesh_only, kplanes_only = argv == ["--mesh-only"], argv == ["--kplanes-only"]
     # Phase 1: device.
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -2847,7 +3143,7 @@ def main(argv=None) -> int:
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # Phase 2: build, the three libraries side by side.
-    names = {"field_interp": (), "mesh_raster": raster.LIBRARY_DEFINES, "adamw": ()}
+    names = {"field_interp": (), "mesh_raster": raster.LIBRARY_DEFINES, "adamw": (), "kplanes": ()}
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(load_library, names, names.values())))
     for name, lib in built.items():
@@ -2857,6 +3153,10 @@ def main(argv=None) -> int:
     if mesh_only:
         with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
             records = mesh_phase(write_r4_scene(device, Path(tmp)), Path(tmp), device, smi)
+        return finish(records, smi)
+    if kplanes_only:
+        with tempfile.TemporaryDirectory(prefix="humanrf_r4_") as tmp:
+            records = kplanes_records(*kplanes_phase(write_r4_scene(device, Path(tmp)), Path(tmp), device))
         return finish(records, smi)
 
     # Phase 2(b): AdamW's kernels at the three training models' parameter lists.
@@ -2907,6 +3207,9 @@ def main(argv=None) -> int:
         # Phase 11: the protocol drivers.
         protocol_launches, protocol_query = protocol_phase(scene, Path(tmp), device, cli_stats)
 
+        # Phase 12: K-Planes.
+        kplanes_launches, kplanes_rows = kplanes_phase(scene, Path(tmp), device)
+
     by_phase = {"render": launches, "train_step": train_launches, "cli": cli_launches,
                 "dense_render": dense_render_launches, "dense_step": dense_step_launches, "dense_cli": dense_cli_launches,
                 "trajectory": trajectory_launches, "light_bloom_cli": bloom_launches, **parallel_launches,
@@ -2938,7 +3241,7 @@ def main(argv=None) -> int:
             **rows,
         }
         for kind, rows in adamw_rows.items()
-    ]
+    ] + kplanes_records(kplanes_launches, kplanes_rows)
     return finish(records, smi)
 
 

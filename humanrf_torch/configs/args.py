@@ -9,7 +9,8 @@ argv list *before* the command line's, so explicit flags override it.
 
 The `tpu` section keeps its name so that one command line drives both CLIs;
 `humanrf_torch/run.py::check_ported` says which of its knobs the port
-raises on and which it accepts as moot.
+raises on and which it accepts as moot. The port adds `PORT_ONLY_FLAGS`,
+which the JAX CLI does not take; at their defaults the two parse alike.
 """
 from __future__ import annotations
 
@@ -42,7 +43,29 @@ class _decomposition4d_args:
 
 
 @dataclass
-class _model_args(_shallow_mlp_args, _decomposition4d_args):
+class _kplanes_args:
+    """K-Planes (hybrid) widths and regulariser weights, read under
+    `--model.representation kplanes` (`models/kplanes.py`; the port's own)."""
+
+    kplanes_feature_dim: int = 32
+    kplanes_resolution: int = 64
+    kplanes_time_resolution: int = 25
+    kplanes_multiscales: Tuple[int, ...] = (1, 2, 4, 8)
+    kplanes_proposal_feature_dim: int = 8
+    kplanes_proposal_resolutions: Tuple[int, ...] = (128, 256)
+    kplanes_proposal_n_neurons: int = 64
+    kplanes_plane_tv_weight: float = 1e-4
+    kplanes_time_smoothness_weight: float = 0.1
+    kplanes_l1_time_planes_weight: float = 1e-4
+    kplanes_proposal_plane_tv_weight: float = 1e-4
+    kplanes_proposal_time_smoothness_weight: float = 1e-3
+    kplanes_proposal_l1_time_planes_weight: float = 1e-4
+
+
+@dataclass
+class _model_args(_shallow_mlp_args, _decomposition4d_args, _kplanes_args):
+    # The field: humanrf (the 4D decomposition) | kplanes (the port's own).
+    representation: str = "humanrf"
     temporal_partitioning: str = "adaptive"  # adaptive | fixed | none
     expansion_factor_threshold: float = 1.25
     fixed_segment_size: int = 12
@@ -65,6 +88,8 @@ class _training_args:
     samples_max_batch_size: int = 768_000
     bce_loss_weight: Optional[float] = 1e-3
     save_checkpoint_every_n_steps: int = 2500
+    # The photometric loss: huber (delta 0.01) | mse (the port's own).
+    photometric: str = "huber"
 
 
 @dataclass
@@ -154,6 +179,15 @@ class _run_args:
     random_seed: int = 123
     device: str = "tpu"  # 'tpu' (the accelerator) | 'cuda' | 'cpu'
     test: _test_args = field(default_factory=_test_args)
+
+
+# The flags the port has and the JAX package has not: the second field and
+# its loss (`--model.representation kplanes`, `--training.photometric`).
+PORT_ONLY_FLAGS = (
+    "model.representation",
+    *(f"model.{f.name}" for f in dataclasses.fields(_kplanes_args)),
+    "training.photometric",
+)
 
 
 # Measured quality trade-offs of the sampler knobs (the JAX package's knob

@@ -11,7 +11,9 @@ layouts, under matching names:
     camera_embeddings              (160, E)     → camera_embeddings
 
 `model.load_state_dict(convert_params(params))` loads them; its strict
-key check is what shows that every leaf was mapped. `export_params(model)` is
+key check is what shows that every leaf was mapped. A K-Planes model
+(`models/kplanes.py`) has no JAX counterpart: its tree is its own names,
+nested at the dots, and only the port reads it. `export_params(model)` is
 the inverse: the flax state dict, lists as dicts keyed "0", "1", ...
 
 The optimizer state maps onto optax's `apply_if_finite(adamw | adam)` state
@@ -37,9 +39,25 @@ def _as_list(node) -> list:
     return list(node)
 
 
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """`_nest`'s inverse: {"a": {"b": leaf}} → {"a.b": leaf}."""
+    flat: Dict[str, Any] = {}
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            flat.update(_flatten(node, f"{prefix}{key}."))
+        else:
+            flat[f"{prefix}{key}"] = node
+    return flat
+
+
 def convert_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """→ a `HumanRFModel` state dict of float32 CPU tensors (copies)."""
+    """→ a state dict of float32 CPU tensors (copies): a HumanRF tree (it has
+    `segments`) mapped as the module docstring says, any other (the
+    K-Planes model's, which only the port writes) by its nested names."""
     flat: Dict[str, np.ndarray] = {}
+    if "segments" not in params:
+        flat = _flatten(params)
+        return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in flat.items()}
     for s, seg in enumerate(_as_list(params["segments"])):
         for name, leaf in seg.items():
             flat[f"segments.{s}.{name}"] = leaf

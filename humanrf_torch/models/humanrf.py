@@ -190,8 +190,9 @@ class HumanRFModel(nn.Module):
         fields = [segment.field(tables.get(s)) for s, segment in enumerate(self.segments)]
         return fused_field.field_query(fields, xyzt, n_valid, self._segment_ids(frame_numbers))
 
-    def proposal_density(self, positions: torch.Tensor, frame_numbers: torch.Tensor) -> torch.Tensor:
-        """positions (N, 3) in [-0.5, 0.5]; frame_numbers (N,) → sigma (N,) fp32."""
+    def proposal_density(self, positions: torch.Tensor, frame_numbers: torch.Tensor, level: int = 0) -> torch.Tensor:
+        """positions (N, 3) in [-0.5, 0.5]; frame_numbers (N,) → sigma (N,)
+        fp32. One CP field serves every proposal level: `level` is ignored."""
         if self.proposal_config is None:
             raise ValueError("model built with proposal_rank=0")
         frame_numbers = frame_numbers.long()

@@ -9,7 +9,8 @@ them and how the design answers): the four grids' and vectors' lookups, the
 composition f_xyz⊙v_t + f_xyt⊙v_z + f_yzt⊙v_x + f_xzt⊙v_y and the routing of
 each sample to its own segment (`seg`), so no (4, L·F, N) lookup exists; the
 backward recomputes the lookups and adds each table's gradient straight into
-its `.grad` where that is already there (`grad_in_place`). Its plain version,
+its `.grad` where that is already there and the caller asked for it
+(`grads_in_place`, `grad_in_place`). Its plain version,
 `field_query_plain`, is the same query in PyTorch: per segment a grid and a
 vector `field_interp` call, their sum over segments, `compose`. CPU tensors
 take it, and on the card it is the reference: the kernels' forward equals it
@@ -48,6 +49,7 @@ before the XOR, which reproduces JAX's uint32 arithmetic bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from functools import lru_cache
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -468,16 +470,38 @@ def _launch_query_fwd(fields: Sequence[SegmentField], xyzt: torch.Tensor, n_vali
     return out
 
 
+# Whether a backward launch may add into a tensor's own `.grad`: off but
+# inside `grads_in_place()`. A module global, not a thread-local: autograd
+# runs a CUDA backward on its own device thread.
+_in_place = False
+
+
+@contextlib.contextmanager
+def grads_in_place():
+    """Let the backward launches inside the block add a table's gradient
+    straight into its `.grad` (`grad_in_place`). The single-process train
+    step opens it around its own `loss.backward()`, which accumulates into
+    the zeroed `.grad` anyway; every other caller (`torch.autograd.grad`, a
+    multi-rank step, a test) gets autograd's ordinary result, a gradient
+    returned in a fresh buffer."""
+    global _in_place
+    was, _in_place = _in_place, True
+    try:
+        yield
+    finally:
+        _in_place = was
+
+
 def grad_in_place(t: torch.Tensor) -> bool:
     """Whether the backward launch adds `t`'s gradient straight into
-    `t.grad`: `t` is a leaf that requires a gradient, and its `.grad` is
-    there, dense, contiguous, float32, of `t`'s shape and on its device (the
-    train step's gradients, zeroed in place before the forward; a view into
-    the data-parallel bucket). The kernel only adds, so that gives what
-    autograd's `.grad += ` of a fresh zeroed buffer gives, without the
-    buffer, its fill and the add. Anything else (no `.grad` yet, the FSDP
+    `t.grad`: inside `grads_in_place()`, where `t` is a leaf that requires a
+    gradient, and its `.grad` is there, dense, contiguous, float32, of `t`'s
+    shape and on its device (the train step's gradients, zeroed in place
+    before the forward). The kernel only adds, so that gives what autograd's
+    `.grad += ` of a fresh zeroed buffer gives, without the buffer, its fill
+    and the add. Anything else (outside the block, no `.grad` yet, the FSDP
     step's gathered stacks, which are no leaves) takes a fresh buffer."""
-    if not (t.is_leaf and t.requires_grad):
+    if not (_in_place and t.is_leaf and t.requires_grad):
         return False
     g = t.grad
     return (g is not None and g.layout == torch.strided and g.is_contiguous() and g.dtype == torch.float32
@@ -526,12 +550,11 @@ def _unflat(layout, tensors) -> list:
 class FieldQueryKernel(torch.autograd.Function):
     """Both directions of a field query on its CUDA kernels, one launch
     each; the forward saves `xyzt`, the skip inputs and the tables, no
-    lookup. The backward adds the gradient of a table whose `.grad` is
-    there straight into it and returns None for that table, so autograd
-    adds nothing more (`grad_in_place`). Hence `torch.autograd.grad` over
-    such a table would see no gradient, and `backward(inputs=...)` leaving
-    it out would still add into it: the port differentiates the tables
-    only by `backward` over all of them."""
+    lookup. Inside `grads_in_place()` the backward adds the gradient of a
+    table whose `.grad` is there straight into it and returns None for that
+    table, so autograd adds nothing more (`grad_in_place`); the train step
+    asks for that only around its `backward` over all the tables. Elsewhere
+    it returns every gradient, as autograd expects."""
 
     @staticmethod
     def forward(ctx, layout, xyzt, n_valid, seg, *tensors):

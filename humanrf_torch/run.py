@@ -52,6 +52,7 @@ from humanrf_torch.data.trajectory import (
 )
 from humanrf_torch.evaluation.evaluate import evaluate
 from humanrf_torch.models.humanrf import HumanRFConfig, HumanRFModel
+from humanrf_torch.models.kplanes import KPlanesConfig, KPlanesModel
 from humanrf_torch.parallel.collectives import broadcast_object
 from humanrf_torch.parallel.launch import launch
 from humanrf_torch.train.partitioning import compute_adaptive_segment_sizes
@@ -107,6 +108,7 @@ def build_pipeline_config(config) -> PipelineConfig:
         proposal_loss_weight=config.tpu.proposal_loss_weight,
         proposal_uniform_bonus=config.tpu.proposal_uniform_bonus,
         candidate_rays_factor=config.tpu.candidate_rays_factor,
+        photometric=config.training.photometric,
     )
 
 
@@ -119,8 +121,48 @@ def optimizer_factory(config):
     )
 
 
-def build_model(config, segment_sizes, device) -> HumanRFModel:
-    """The HumanRF model the flags describe, over `segment_sizes`."""
+def build_model(config, segment_sizes, device):
+    """The model the flags describe: `--model.representation humanrf`, the
+    HumanRF model over `segment_sizes`, or `kplanes`, the K-Planes model
+    over the whole sequence (`models/kplanes.py`; it samples through its
+    two proposal fields and takes no segments)."""
+    m = config.model
+    if m.representation == "kplanes":
+        if config.tpu.sampling != "proposal" or not config.tpu.proposal_mid_samples_per_ray:
+            raise ValueError("--model.representation kplanes samples through its two proposal fields: it needs "
+                             "--tpu.sampling proposal and --tpu.proposal_mid_samples_per_ray > 0")
+        if len(segment_sizes) != 1:
+            raise ValueError(f"--model.representation kplanes is one field over the sequence, not segments "
+                             f"{list(segment_sizes)}: pass --model.temporal_partitioning none")
+        if m.camera_embedding_dim:
+            raise ValueError("--model.representation kplanes has no appearance embedding: pass "
+                             "--model.camera_embedding_dim 0")
+        return KPlanesModel(
+            KPlanesConfig(
+                sorted_frame_numbers=tuple(sorted(config.dataset.frame_numbers)),
+                feature_dim=m.kplanes_feature_dim,
+                resolution=m.kplanes_resolution,
+                time_resolution=m.kplanes_time_resolution,
+                multiscales=tuple(m.kplanes_multiscales),
+                proposal_feature_dim=m.kplanes_proposal_feature_dim,
+                proposal_resolutions=tuple(m.kplanes_proposal_resolutions),
+                proposal_n_neurons=m.kplanes_proposal_n_neurons,
+                geometry_feature_dim=m.geometry_feature_dim,
+                n_neurons=m.n_neurons,
+                n_hidden_layers_density=m.n_hidden_layers_density,
+                n_hidden_layers_color=m.n_hidden_layers_color,
+                sh_degree=m.sh_degree,
+                plane_tv_weight=m.kplanes_plane_tv_weight,
+                time_smoothness_weight=m.kplanes_time_smoothness_weight,
+                l1_time_planes_weight=m.kplanes_l1_time_planes_weight,
+                proposal_plane_tv_weight=m.kplanes_proposal_plane_tv_weight,
+                proposal_time_smoothness_weight=m.kplanes_proposal_time_smoothness_weight,
+                proposal_l1_time_planes_weight=m.kplanes_proposal_l1_time_planes_weight,
+            ),
+            device=device,
+        )
+    if m.representation != "humanrf":
+        raise ValueError(f"unknown --model.representation {m.representation!r} (humanrf or kplanes)")
     return HumanRFModel(
         HumanRFConfig(
             sorted_frame_numbers=tuple(sorted(config.dataset.frame_numbers)),
@@ -235,6 +277,9 @@ def main(argv=None, allow_shared_device: bool = False) -> dict:
         print(f"[WARNING] quality cliff: {warning}")
     check_ported(config)
     num_ranks = resolve_num_devices(config)
+    if num_ranks > 1 and config.model.representation != "humanrf":
+        raise ValueError(f"--model.representation {config.model.representation} trains on one device; "
+                         f"--tpu.num_devices asks for {num_ranks}")
     if num_ranks == 1:
         return run(None, resolve_device(config.device), config)
     device_type = resolve_device(config.device).type

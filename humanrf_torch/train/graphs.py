@@ -20,8 +20,9 @@ tensors, and its other arguments) as a `torch.cuda.CUDAGraph`:
    the next replay overwrites.
 
 Python counters do not move on a replay, so the launches of the field
-query's kernels and of AdamW's (`ops/field_interp.py::launches`,
-`ops/adamw.py::launches`) counted while capturing are taken back and added
+query's kernels, of AdamW's and of the plane query's
+(`ops/field_interp.py::launches`, `ops/adamw.py::launches`,
+`ops/kplanes.py::launches`) counted while capturing are taken back and added
 per replay: the counts are those of the eager steps. A capture that
 fails raises, with the failing op's error; nothing falls back to the eager
 body. A call whose tensors are all on the CPU runs the body eagerly: CPUs
@@ -58,10 +59,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from humanrf_torch.ops import adamw as adamw_kernels
 from humanrf_torch.ops import field_interp as fli
+from humanrf_torch.ops import kplanes as kplanes_kernels
 from humanrf_torch.utils import profiling
 
 # The launch counters that a replay adds to (see the module docstring).
-COUNTERS = (fli.launches, adamw_kernels.launches)
+COUNTERS = (fli.launches, adamw_kernels.launches, kplanes_kernels.launches)
 
 
 # The capture under way on this thread, for `timed`.

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from humanrf_torch.models.humanrf import HumanRFModel
+from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops.occupancy import coarsen_grid, occupancy_ray_minmax, sample_occupancy
 from humanrf_torch.ops.rays import aabb_intersect, pixel_to_ray
 from humanrf_torch.ops.render import RenderOutput, composite_grid, prune_samples, render, render_weights_grid
@@ -80,6 +81,8 @@ class PipelineConfig:
     # march the hull-hitting ones are compacted into the num_rays render
     # slots (training only).
     candidate_rays_factor: int = 1
+    # The photometric loss: "huber" (huber_delta) or "mse".
+    photometric: str = "huber"
 
 
 class PoolArrays(NamedTuple):
@@ -228,7 +231,10 @@ def proposal_render(
 ):
     """Importance-sampled rendering over a static (R, K) lattice.
 
-    1. bins over [tmin, tmax] → proposal density → coarse weights;
+    1. bins over [tmin, tmax] → proposal density → coarse weights (with
+       `proposal_mid_samples_per_ray`, a second level resampled from them);
+       `model.proposal_density` is asked each level's by its index (HumanRF's
+       CP proposal is one field for both, K-Planes has one a level);
     2. inverse-CDF draw of `render_samples_per_ray` intervals, from the
        detached proposal weights (gradients reach the proposal only through
        the distillation loss);
@@ -258,24 +264,24 @@ def proposal_render(
 
     grid_ids = pool.grid_slots[buffer_idx.long()]
 
-    def proposal_weights(t, dt):
-        """The cheap proposal field on a (R, K) lattice → weights; zero
+    def proposal_weights(t, dt, level):
+        """Proposal level `level`'s field on a (R, K) lattice → weights; zero
         outside the occupancy hull."""
         k = t.shape[1]
         pts = rays.origins[:, None, :] + rays.directions[:, None, :] * t[..., None]
         sigma = model.proposal_density(
-            pts.reshape(-1, 3), _per_sample(rays.frame_numbers, k)
+            pts.reshape(-1, 3), _per_sample(rays.frame_numbers, k), level
         ).reshape(num_rays, k)
         mask = rays.valid[:, None] & sample_occupancy(grids, grid_ids[:, None], pts + 0.5)
         return render_weights_grid(sigma, dt, mask)
 
     t_c, dt_c, edges_c = stratified_bins(rays.tmin, rays.tmax, k_coarse, u_coarse)
-    w_prop = proposal_weights(t_c, dt_c)
+    w_prop = proposal_weights(t_c, dt_c, 0)
     cdf = weights_to_cdf(w_prop.detach(), cfg.proposal_uniform_bonus)
     levels = [(edges_c, w_prop)]
     if k_mid:
         t_m, dt_m, edges_c = sample_intervals(edges_c, cdf, k_mid, u_mid, return_edges=True)
-        w_mid = proposal_weights(t_m, dt_m)
+        w_mid = proposal_weights(t_m, dt_m, 1)
         cdf = weights_to_cdf(w_mid.detach(), cfg.proposal_uniform_bonus)
         levels.append((edges_c, w_mid))
     t_f, dt_f = sample_intervals(edges_c, cdf, k_fine, u_fine)
@@ -318,8 +324,10 @@ def training_loss(
     group=None,
     tables=None,
 ):
-    """Random-background compositing, Huber + BCE (+ distillation under
-    proposal sampling), each a mean over the supervised rays (trainer.py:
+    """Random-background compositing, Huber (or MSE, `cfg.photometric`) +
+    BCE (+ distillation under proposal sampling, + the model's
+    `regularization()` where it has one: K-Planes' plane regularisers), each
+    a mean over the supervised rays (trainer.py:
     229-248 of the reference): the valid rays, and under dense sampling only
     those whose samples fit the budgets (`samples` are `build_samples`'s).
     With a process `group` (`humanrf_torch/parallel`) each mean is over the
@@ -345,7 +353,10 @@ def training_loss(
         loss_mask = rays.valid & pruned.ray_included
         num_samples = pruned.num_valid
 
-    photometric = masked_mean(huber_loss(out.color, gt_rgb, cfg.huber_delta), loss_mask, group)
+    if cfg.photometric == "mse":
+        photometric = masked_mean((out.color - gt_rgb) ** 2, loss_mask, group)
+    else:
+        photometric = masked_mean(huber_loss(out.color, gt_rgb, cfg.huber_delta), loss_mask, group)
     total = photometric
     aux = {"photometric": photometric}
     if cfg.bce_loss_weight is not None:
@@ -356,6 +367,10 @@ def training_loss(
         prop_l = masked_mean(proposal_aux["proposal_loss_per_ray"][:, None], loss_mask, group)
         total = total + cfg.proposal_loss_weight * prop_l
         aux["proposal_loss"] = prop_l
+    if hasattr(model, "regularization"):
+        reg = model.regularization()
+        total = total + reg
+        aux["regularization"] = reg
 
     aux["mse"] = masked_mean((out.color - gt_rgb) ** 2, loss_mask, group)
     aux["num_samples"] = num_samples
@@ -389,9 +404,10 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
 
     On the card the step is one CUDA graph (`train/graphs.py`): forward,
     backward and `optimizer.step()`, the gradients zeroed in place inside
-    it, the field query's backward adding the tables' straight into them
-    (`ops/field_interp.py::grad_in_place`); `loss` and `aux` are then its
-    static outputs, which the next step overwrites. The first call of a
+    it, the field queries' backward adding the tables' straight into them
+    (`ops/field_interp.py::grads_in_place`, opened around its
+    `loss.backward()`); `loss` and `aux` are then its static outputs, which
+    the next step overwrites. The first call of a
     batch shape is the eager body (the graph's warm-up); the graph replays
     from the second on. `graph=False` runs the eager body (the CPU always
     does).
@@ -426,7 +442,8 @@ def make_train_step(cfg: PipelineConfig, model: HumanRFModel, optimizer, width: 
         loss, aux = training_loss(
             cfg, model, rays, batch.rgba, rng, pool, grids, batch.buffer_idx, ray_ids=ray_ids, samples=samples
         )
-        loss.backward()
+        with fli.grads_in_place():
+            loss.backward()
         with timed("train.optimizer_ms"):
             optimizer.step()
         rays_valid = rays.valid.sum()

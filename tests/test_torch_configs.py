@@ -32,10 +32,26 @@ COMMAND_LINES = {
 }
 
 
+def _without_port_only(tree: dict) -> dict:
+    """The parsed flags without the port's own (`args.PORT_ONLY_FLAGS`)."""
+    tree = {k: dict(v) if isinstance(v, dict) else v for k, v in tree.items()}
+    for name in t_args.PORT_ONLY_FLAGS:
+        section, key = name.split(".")
+        del tree[section][key]
+    return tree
+
+
 @pytest.mark.parametrize("name", sorted(COMMAND_LINES))
 def test_parse_args_matches_the_jax_cli(name):
+    """The same values as the JAX CLI's, flag for flag, where the port's own
+    flags (`PORT_ONLY_FLAGS`, which the JAX CLI lacks) stay at their defaults."""
     argv = COMMAND_LINES[name]
-    assert dataclasses.asdict(t_args.parse_args(argv)) == dataclasses.asdict(j_args.parse_args(argv))
+    ported = dataclasses.asdict(t_args.parse_args(argv))
+    defaults = dataclasses.asdict(t_args.parse_args([]))
+    for flag in t_args.PORT_ONLY_FLAGS:
+        section, key = flag.split(".")
+        assert ported[section][key] == defaults[section][key], flag
+    assert _without_port_only(ported) == dataclasses.asdict(j_args.parse_args(argv))
 
 
 @pytest.mark.parametrize("argv", [["--model.nope", "1"], ["--train", "maybe"], ["--training.max_steps", "x"]])

@@ -433,12 +433,16 @@ def test_grad_in_place_decides_from_the_tensor(case, monkeypatch):
     leaf that requires a gradient, with a dense, contiguous float32 `.grad`
     of its shape on its device, which is the buffer then; anything else
     takes a fresh zeroed buffer. The gauges count the entries of each kind
-    (here beside a vector with no `.grad`, always fresh)."""
+    (here beside a vector with no `.grad`, always fresh). The rule holds
+    only inside `grads_in_place()`: outside it every table is fresh."""
     monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     table, in_place = _grad_case(case)
-    assert fli.grad_in_place(table) == in_place
-    vector = torch.nn.Parameter(torch.ones(5))
-    buffers, flags = fli._grad_buffers([table, vector])
+    assert not fli.grad_in_place(table)
+    with fli.grads_in_place():
+        assert fli.grad_in_place(table) == in_place
+        vector = torch.nn.Parameter(torch.ones(5))
+        buffers, flags = fli._grad_buffers([table, vector])
+    assert not fli.grad_in_place(table)
     assert flags == [in_place, False]
     if in_place:
         assert buffers[0] is table.grad
@@ -471,7 +475,8 @@ def test_query_backward_adds_into_each_tables_grad(form, monkeypatch):
     returns None, so autograd adds nothing more. Each `.grad` ends bit for
     bit where autograd through the plain query puts it. In the FSDP form the
     gathered stacks are no leaves and take fresh buffers on every call, the
-    vectors' gradients go in place; the gauges count each kind."""
+    vectors' gradients go in place; the gauges count each kind. The calls
+    run inside `grads_in_place()`, as the train step's backward does."""
     monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
     _plain_launches(monkeypatch)
     fields = _query_fields(2, seed=13)
@@ -494,7 +499,8 @@ def test_query_backward_adds_into_each_tables_grad(form, monkeypatch):
     rng = np.random.default_rng(15)
     for call in range(2):
         grad = torch.tensor(rng.normal(size=(300, fields[0].vectors.shape[1])).astype(np.float32))
-        query(leaves, kernel=True).backward(grad)
+        with fli.grads_in_place():
+            query(leaves, kernel=True).backward(grad)
         query(ref_leaves, kernel=False).backward(grad)
         in_place = 0 if call == 0 else total if form == "tables" else vectors
         assert profiling.snapshot()["counters"] == {"field.grads_in_place": in_place,
@@ -517,7 +523,8 @@ def test_query_backward_adds_into_grad_under_a_graph_on_card(cuda_device, monkey
     no `.grad` yet take fresh buffers (`field.grads_in_place` 0) and give
     the plain version's gradient, summed in fp64, within 1e-5 of each
     gradient's scale (fp32 atomics, in a run-dependent order). Captured as a
-    CUDA graph with every `.grad` there, the backward adds into them
+    CUDA graph with every `.grad` there, inside `grads_in_place()` as the
+    train step's backward runs, the backward adds into them
     (`field.grads_fresh` 0) and the capture takes no table-sized buffer; a
     replay leaves each reached table's and vector's `.grad` at what it held
     plus that gradient, within the same bound, and segment 1's bit for bit
@@ -560,7 +567,7 @@ def test_query_backward_adds_into_grad_under_a_graph_on_card(cuda_device, monkey
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(cuda_device)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph), fli.grads_in_place():
         fli.field_query(fields, xyzt, n_valid, seg).backward(grad)
     torch.cuda.synchronize()
     assert profiling.snapshot()["counters"] == {"field.grads_in_place": total, "field.grads_fresh": 0}

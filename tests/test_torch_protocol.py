@@ -24,6 +24,7 @@ sys.path.insert(0, str(REPO / "scripts"))
 import driver_common as j_common  # noqa: E402
 import validation_report as j_report  # noqa: E402
 
+from humanrf_torch.configs.args import PORT_ONLY_FLAGS  # noqa: E402
 from humanrf_torch.configs.args import parse_args as t_parse_args  # noqa: E402
 from humanrf_torch.core import synthetic as t_synthetic  # noqa: E402
 from humanrf_torch.protocol import common, supervisor  # noqa: E402
@@ -212,7 +213,8 @@ def test_parallax_probe_mints_the_jax_drivers_cameras(tmp_path, monkeypatch):
 
 
 def _config(cmd, module, parse, moot):
-    """A driver's command → its parsed configuration without the moot flags."""
+    """A driver's command → its parsed configuration without the moot flags
+    (and, for the port, without its own flags, which stay at their defaults)."""
     assert cmd[1:3] == ["-m", module]
     cfg = dataclasses.asdict(parse(cmd[3:]))
     for flag in moot:
@@ -221,6 +223,11 @@ def _config(cmd, module, parse, moot):
         for g in groups:
             node = node[g]
         node.pop(key)
+    if module == "humanrf_torch.run":
+        defaults = dataclasses.asdict(parse([]))
+        for flag in PORT_ONLY_FLAGS:
+            section, key = flag.split(".")
+            assert cfg[section].pop(key) == defaults[section][key], flag
     return cfg
 
 

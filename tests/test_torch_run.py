@@ -15,6 +15,7 @@ flags. Both train with validation, save, render the test frame and evaluate.
 - Every flag passes `check_ported`: the trajectory, light-bloom, profiler
   and multi-GPU flags, and `--config example_humanrf`'s.
 """
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -26,6 +27,7 @@ import yaml
 
 import humanrf_torch.train.trainer as t_trainer
 import humanrf_tpu.train.trainer as j_trainer
+from humanrf_torch.configs.args import PORT_ONLY_FLAGS, parse_args
 from humanrf_torch.run import main as t_main
 from humanrf_tpu.core.synthetic import SyntheticSceneConfig, generate_synthetic_dataset
 from humanrf_tpu.models.humanrf import HumanRFConfig, HumanRFModel
@@ -141,6 +143,13 @@ def test_config_yaml_reads_back_as_the_jax_one(runs):
     # The port's config.yaml is the resumed run's: its three flags differ.
     tcfg["training"].update(checkpoint=jcfg["training"]["checkpoint"], max_steps=VAL_STEPS)
     tcfg.update(evaluate=True, workspace=jcfg["workspace"])
+    # The port's own flags, which the JAX CLI lacks, read back at their defaults.
+    defaults = dataclasses.asdict(parse_args([]))
+    for flag in PORT_ONLY_FLAGS:
+        section, key = flag.split(".")
+        value = tcfg[section].pop(key)
+        assert value == (list(defaults[section][key]) if isinstance(defaults[section][key], tuple)
+                         else defaults[section][key]), flag
     assert tcfg == jcfg
 
 
