@@ -268,11 +268,17 @@ Phases, each of which raises on failure:
    within KERNEL_TOL of its scale against `plane_query_bwd_plain` summed in
    fp64; each timed beside the plain version and the library's
    (`F.grid_sample` per plane and scale and the products; its backward as
-   fwd + bwd − fwd), with its bound;
+   fwd + bwd − fwd), with its bound; then the regularisers' kernels
+   (`regularizer_checks`) at the model's 36 planes after that call: the
+   scalar within REG_TOL of the plain formulas summed in fp64 and bit-equal
+   between two launches, every plane's gradient bit-equal to
+   `plane_reg_bwd_plain`; each timed beside today's autograd path over the
+   plain formulas (its backward as fwd + bwd − fwd), with its bound;
    (b) KPLANES_STEPS replays of that step (`Trainer`'s, fed by the
    `DataLoader`), the launch counts reset just before: one launch each way
-   per plane query per step (3 + 3), AdamW's once a step, finite losses,
-   no skipped update; ms per step;
+   per plane query per step (3 + 3), the regularisers' 2 + 1, AdamW's once
+   a step, the gauge `kplanes.reg_entries` at the planes' entries, finite
+   losses, no skipped update; ms per step;
    (c) the CLI as phase 6, to KPLANES_CLI_STEPS: validation PSNR rising,
    saves, a resume, the test render and the evaluation.
 
@@ -287,7 +293,8 @@ over 10(b), their times per view at 10(b)'s frames, 10(d)'s under
 `adamw_update`, with `launches` counted over this process's phases and
 2(b)'s rows under "r4", "paper-dense" and "paper-1000f"; `kplanes_fwd` and
 `kplanes_bwd`, with `launches` counted over 12(b) and each phase's counts
-beside them, their 12(a) rows under the query's name), the card's name
+beside them, their 12(a) rows under the query's name; `plane_reg_fwd` and
+`plane_reg_bwd` likewise, their 12(a) row under "model"), the card's name
 and power limit from nvidia-smi, and `{"ok": true, "device": {...}}`.
 Usage: python3 chip_smoke.py [--mesh-only | --kplanes-only]
 (--mesh-only: phases 1, 2 and 10 alone, on a freshly written r4 scene; the
@@ -370,6 +377,7 @@ RUN_DIR = REPO / "runs_evidence" / "r4_full_schedule_748"
 # main path, as `read_launches` reads them.
 ADAMW_LAUNCHES: dict = {}
 KERNEL_TOL = 1e-5          # scaled max error, the query's backward vs the plain version summed in fp64
+REG_TOL = 1e-6             # relative, the regularisers' scalar vs the plain formulas summed in fp64
 RENDER_PSNR_MIN = 50.0     # dB, kernel render vs plain render
 ROI_PSNR_SLACK = 0.5       # dB below the banked JAX render's ROI-PSNR
 
@@ -2937,6 +2945,67 @@ def plane_query_checks(label: str, query: dict) -> dict:
     return rows
 
 
+def regularizer_checks(model) -> dict:
+    """The regularisers' kernels at `model`'s planes, as the main path
+    launches them → {"fwd", "bwd"} rows. The forward's scalar within REG_TOL
+    of the plain formulas summed in fp64 and bit-equal between two
+    launches; the backward (fresh buffers, as outside the train step's
+    `grads_in_place()`) bit-equal to `plane_reg_bwd_plain` on every plane;
+    else it raises. Each is timed (the backward adding into buffers that
+    are there, as in the train step) beside today's autograd path over the
+    plain formulas (`plain_regularization`, eager; its backward as fwd +
+    bwd − fwd), with its bound: the forward reads every entry once (4 B), the
+    backward reads it and reads and writes its gradient (12 B)."""
+    fields, weights = model.regularizer_inputs()
+    planes = [t.detach() for f in fields for t in f]
+    terms = kplanes_ops.reg_terms(fields, weights)
+    entries = sum(t.numel() for t in planes)
+    dims = {"shape": "plane regularisers", "planes": len(planes), "entries": entries}
+    out = kplanes_ops._launch_reg_fwd(planes, terms)
+    again = kplanes_ops._launch_reg_fwd(planes, terms)
+    total = 0.0
+    for f, w in zip(fields, weights):
+        total += sum(wk * float(term) for wk, term in zip(w, kplanes_model.plane_regularizers(
+            [t.detach().double() for t in f])))
+    rel = abs(float(out) - total) / abs(total)
+    rows = {"fwd": dict(dims, max_abs_err=rel, bit_exact=bool(torch.equal(out, again)))}
+    if not (rel < REG_TOL and rows["fwd"]["bit_exact"]):
+        raise AssertionError(f"plane_reg_fwd reads {float(out)!r} (again {float(again)!r}), the fp64 formulas {total!r}")
+    g = torch.ones((), device=out.device)
+    grads = kplanes_ops._launch_reg_bwd(planes, terms, g)
+    mirror = kplanes_ops.plane_reg_bwd_plain(fields, weights, g)
+    bad = [i for i, (a, b) in enumerate(zip(grads, mirror)) if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"plane_reg_bwd differs from plane_reg_bwd_plain on planes {bad}")
+    del mirror
+    leaves = [p for f in fields for p in f]
+    held = [p.grad for p in leaves]
+    with torch.no_grad():
+        plain_fwd = time_ms(model.plain_regularization, iters=10)
+    plain_both = time_ms(lambda: model.plain_regularization().backward(), iters=10)
+    if any(p.grad is not h for p, h in zip(leaves, held)):
+        raise AssertionError("the plain backward replaced a plane's .grad, which the captured step reads")
+    # The kernels alone, their tables built once: a graph replays them so.
+    fwd_table = kplanes_ops._reg_struct(planes, terms)
+    partial = torch.empty(fwd_table.n_blocks, dtype=torch.float64, device=out.device)
+    table = kplanes_ops._reg_struct(planes, terms, grads, [True] * len(planes))
+    rows["fwd"].update(plain_ms=plain_fwd, ms=time_ms(lambda: kplanes_ops._reg_call(
+        "plane_reg_fwd", planes, fwd_table, partial.data_ptr(), out.data_ptr())))
+    rows["bwd"] = dict(dims, max_abs_err=0.0, bit_exact=True, plain_ms=plain_both - plain_fwd,
+                       ms=time_ms(lambda: kplanes_ops._reg_call("plane_reg_bwd", planes, table, g.data_ptr())))
+    for direction, nbytes in (("fwd", 4 * entries), ("bwd", 12 * entries)):
+        row = rows[direction]
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
+        log(f"kernel plane_reg_{direction}: {len(planes)} planes, {entries} entries: "
+            + ("within {:.1e} of the fp64 formulas, bit-equal between launches".format(rel) if direction == "fwd"
+               else "bit-equal to plane_reg_bwd_plain")
+            + f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms ({row['plain_ms'] / row['ms']:.1f}×), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    del grads, table, partial
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kplanes_trainer(scene: Path, ws: Path, device):
     """The K-Planes training program as the CLI builds it (`r4_flags` then
     KPLANES_FLAGS) → (trainer, loader)."""
@@ -2985,6 +3054,7 @@ def kplanes_phase(scene: Path, tmp: Path, device) -> tuple:
         raise AssertionError(f"the train step's plane queries are {shapes}, not {KPLANES_QUERIES}")
     rows = {label: plane_query_checks(label, q) for label, q in zip(KPLANES_QUERIES, captured)}
     del captured
+    rows["model"] = regularizer_checks(model)
 
     # (b) the graphed step, the launch counts reset just before.
     losses, per_step = [], []
@@ -3003,11 +3073,17 @@ def kplanes_phase(scene: Path, tmp: Path, device) -> tuple:
     log(f"12(b): {KPLANES_STEPS} graphed steps in {seconds:.2f} s ({1e3 * seconds / KPLANES_STEPS:.2f} ms a step, "
         f"fetch included), loss {float(losses[0]):.5f} → {float(losses[-1]):.5f}; plane query launches "
         f"{step_launches}; skipped updates {int(trainer.optimizer.skipped)}")
-    expected = {"fwd": len(KPLANES_QUERIES), "bwd": len(KPLANES_QUERIES)}
+    expected = {"fwd": len(KPLANES_QUERIES), "bwd": len(KPLANES_QUERIES), "reg_fwd": 2, "reg_bwd": 1}
     bad = [i for i, n in enumerate(per_step) if n != expected]
     if bad or step_launches != {d: n * KPLANES_STEPS for d, n in expected.items()}:
         raise AssertionError(f"the K-Planes step launched plane query {step_launches}; steps {bad[:5]} differ from "
                              f"{expected} a step")
+    counters = profiling.snapshot()["counters"]
+    log(f"12(b): kplanes.reg_entries {counters['kplanes.reg_entries']}, field.plane_params "
+        f"{counters['field.plane_params']}")
+    if counters["kplanes.reg_entries"] != counters["field.plane_params"]:
+        raise AssertionError(f"the regularisers covered {counters['kplanes.reg_entries']} entries, not the "
+                             f"{counters['field.plane_params']} of the planes")
     check_adamw_per_step("kplanes step", model, KPLANES_STEPS)
     if not torch.isfinite(losses).all() or int(trainer.optimizer.skipped):
         raise AssertionError(f"non-finite K-Planes losses or skipped updates ({int(trainer.optimizer.skipped)})")
@@ -3026,7 +3102,9 @@ def kplanes_phase(scene: Path, tmp: Path, device) -> tuple:
 
 
 def kplanes_records(launches: dict, rows: dict) -> list:
-    """The kernel table's rows of the plane query's two kernels."""
+    """The kernel table's rows of the plane query's two kernels and of the
+    regularisers' two."""
+    model = rows.pop("model")
     return [
         {
             "name": f"kplanes_{direction}",
@@ -3037,6 +3115,18 @@ def kplanes_records(launches: dict, rows: dict) -> list:
             "launches": launches["kplanes_step"][direction],
             "launches_by_phase": {phase: counts[direction] for phase, counts in launches.items()},
             **{label: by_direction[direction] for label, by_direction in rows.items()},
+        }
+        for direction in ("fwd", "bwd")
+    ] + [
+        {
+            "name": f"plane_reg_{direction}",
+            "route": "cuda",
+            "source": "humanrf_torch/csrc/kplanes.cu",
+            "replaces": "none: autograd over models/kplanes.py::plane_regularizers (K-Planes' plane TV, time "
+                        "smoothness and L1 regularisers)",
+            "launches": launches["kplanes_step"][f"reg_{direction}"],
+            "launches_by_phase": {phase: counts[f"reg_{direction}"] for phase, counts in launches.items()},
+            "model": model[direction],
         }
         for direction in ("fwd", "bwd")
     ]

@@ -1,5 +1,6 @@
 // kplanes for Hopper (sm_90a): the K-Planes field's query, every scale's six
-// plane lookups and their product, in one kernel each way.
+// plane lookups and their product, in one kernel each way; and its plane
+// regularisers over every plane of the field and its proposals.
 //
 //     out[n, s*M + m] = prod_{p in planes}  bilinear(P_p^s, pi_p(q_n))[m]
 //
@@ -45,9 +46,38 @@
 // adds nothing. Both inputs are read from device memory, so a launch needs
 // no host read and a CUDA graph replays it unchanged.
 //
-// Both entry points launch on the caller's stream, allocate nothing, do not
-// synchronise and return cudaGetLastError(). Instances: M in {8, 32},
-// scales in {1, 4}.
+// The query's two entry points and the regularisers' two (below) launch on
+// the caller's stream, allocate nothing, do not synchronise and return
+// cudaGetLastError(). The query's instances: M in {8, 32}, scales in {1, 4}.
+//
+// ---- The plane regularisers ------------------------------------------------------
+// The weighted regularisers of every plane of the field and its proposals,
+// one scalar, and its gradient: on a spatial plane (h, w, M) plane TV,
+//     w0 * sum (P[r+1, c] - P[r, c])^2  +  w1 * sum (P[r, c+1] - P[r, c])^2,
+// on a time plane (rows along t) smoothness and the L1 distance from 1,
+//     w0 * sum ((P[k] - P[k-1]) - (P[k-1] - P[k-2]))^2  +  w1 * sum |1 - P|,
+// each weight its term's weight over the term's count (the plain version's
+// means: models/kplanes.py::plane_tv, time_smoothness). No TPU kernel is
+// replaced: K-Planes exists only in the port; this takes the place of the
+// ~40 PyTorch passes (differences, squares, means, their slice-backward
+// copies and the adds into .grad) that autograd makes over each plane.
+// What bounds it: bytes. 4 B an entry forward (one read), 12 B backward
+// (one read of the plane, a read and a write of its gradient): 16 B an
+// entry, 607 MB and ~0.18 ms at 3.35 TB/s over K-Planes' 37.9 M entries.
+// The design reads each entry once each way and writes no temporaries: a
+// thread takes one float4 of a row (4 channels of a texel) and marches
+// down a strip of kRegStrip rows, holding the rows it needs before and
+// after in registers; the column neighbour (the next texel's same
+// channels) is another thread's float4 of the same row, read again through
+// L1. A strip re-reads the one row above it (two on a time plane, and one
+// or two below it backward). The forward writes one partial a block
+// (fp64); a second one-block launch sums them in a fixed order: no float
+// atomics, so the scalar repeats bit for bit. The backward reads the
+// scalar's cotangent from device memory (a CUDA graph replays it as it
+// is), computes each entry's analytic gradient with every product and sum
+// rounded on its own (the plain mirror, ops/kplanes.py::
+// plane_reg_bwd_plain, equals it bit for bit) and adds it into the
+// plane's .grad, or writes it into a fresh buffer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -338,4 +368,239 @@ extern "C" int kplanes_bwd(PlaneQuery q, const float* coords, const float* grad,
                 : launch_bwd<8, 1>(q, coords, grad, N, n_valid, seg, st);
   }
   return static_cast<int>(err);
+}
+
+// ---- The plane regularisers ------------------------------------------------------
+
+constexpr int kMaxRegPlanes = 64;
+constexpr int32_t kSpatial = 0, kTime = 1;
+
+struct RegPlane {
+  const float* plane;  // (h, w, M) float32, contiguous, 16-byte aligned
+  float* grad;         // backward: shaped as the plane
+  int32_t h;           // rows
+  int32_t row4;        // float4s a row: w * M / 4
+  int32_t m4;          // float4s a texel: M / 4
+  int32_t kind;        // kSpatial or kTime
+  int32_t block0;      // the plane's first block
+  int32_t accumulate;  // backward: 1 adds into grad, 0 writes it
+  double w0, w1;       // kSpatial: the row and the column weight; kTime: smoothness and L1
+};
+
+// Passed by value (ctypes.Structure in humanrf_torch/ops/kplanes.py).
+struct PlaneReg {
+  int32_t n_planes;
+  int32_t n_blocks;
+  RegPlane p[kMaxRegPlanes];
+};
+
+namespace {
+
+constexpr int kRegThreads = 256;
+constexpr int kRegStrip = 32;  // the rows a thread marches down
+
+__host__ __device__ __forceinline__ int64_t reg_strips(int32_t h) { return (h + kRegStrip - 1) / kRegStrip; }
+
+// The plane of block b: block0 rises with the plane's index.
+__device__ __forceinline__ int reg_plane_of(const PlaneReg& r, int b) {
+  int p = 0;
+  while (p + 1 < r.n_planes && r.p[p + 1].block0 <= b) ++p;
+  return p;
+}
+
+__device__ __forceinline__ float4 sub4(const float4& a, const float4& b) {
+  return make_float4(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y), __fsub_rn(a.z, b.z), __fsub_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float sumsq4(const float4& d) {
+  return d.x * d.x + d.y * d.y + d.z * d.z + d.w * d.w;
+}
+
+__device__ __forceinline__ float sign1(float v) {  // sign(v - 1), 0 at 1
+  return static_cast<float>(v > 1.0f) - static_cast<float>(v < 1.0f);
+}
+
+// c0 * a + c1 * b, each product and the sum rounded on its own.
+__device__ __forceinline__ float4 combine4(float c0, const float4& a, float c1, const float4& b) {
+  return add4(scale4(c0, a), scale4(c1, b));
+}
+
+// A thread's place: its plane, the float4 e of the row, the strip's rows [r0, r1).
+struct RegSlot {
+  int p;
+  int e, r0, r1;
+  bool live;
+};
+
+__device__ __forceinline__ RegSlot reg_slot(const PlaneReg& r) {
+  RegSlot s;
+  s.p = reg_plane_of(r, blockIdx.x);
+  const RegPlane& pl = r.p[s.p];
+  const int64_t t = (static_cast<int64_t>(blockIdx.x) - pl.block0) * kRegThreads + threadIdx.x;
+  const int64_t strip = t / pl.row4;
+  s.e = static_cast<int>(t - strip * pl.row4);
+  s.r0 = static_cast<int>(strip) * kRegStrip;
+  s.r1 = min(s.r0 + kRegStrip, pl.h);
+  s.live = strip < reg_strips(pl.h);
+  return s;
+}
+
+// Sums v over the block in a fixed order; the result in thread 0.
+__device__ __forceinline__ double block_sum(double v) {
+  __shared__ double warps[kRegThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < kRegThreads / 32 ? warps[threadIdx.x] : 0.0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kRegThreads)
+plane_reg_fwd_kernel(const __grid_constant__ PlaneReg r, double* __restrict__ partial) {
+  const RegSlot s = reg_slot(r);
+  const RegPlane& pl = r.p[s.p];
+  double v = 0.0;
+  if (s.live) {
+    const float4* P = reinterpret_cast<const float4*>(pl.plane);
+    const int64_t row4 = pl.row4;
+    int64_t at = s.r0 * row4 + s.e;
+    float a = 0.0f, b = 0.0f;
+    if (pl.kind == kSpatial) {
+      const bool right = s.e + pl.m4 < pl.row4;
+      float4 prev = s.r0 > 0 ? __ldg(P + at - row4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+      for (int row = s.r0; row < s.r1; ++row, at += row4) {
+        const float4 x = __ldg(P + at);
+        if (row > 0) a += sumsq4(sub4(x, prev));
+        if (right) b += sumsq4(sub4(__ldg(P + at + pl.m4), x));
+        prev = x;
+      }
+    } else {
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 p2 = s.r0 > 1 ? __ldg(P + at - 2 * row4) : zero, p1 = s.r0 > 0 ? __ldg(P + at - row4) : zero;
+#pragma unroll 4
+      for (int row = s.r0; row < s.r1; ++row, at += row4) {
+        const float4 x = __ldg(P + at);
+        if (row > 1) a += sumsq4(sub4(sub4(x, p1), sub4(p1, p2)));
+        b += fabsf(1.0f - x.x) + fabsf(1.0f - x.y) + fabsf(1.0f - x.z) + fabsf(1.0f - x.w);
+        p2 = p1;
+        p1 = x;
+      }
+    }
+    v = pl.w0 * static_cast<double>(a) + pl.w1 * static_cast<double>(b);
+  }
+  v = block_sum(v);
+  if (threadIdx.x == 0) partial[blockIdx.x] = v;
+}
+
+__global__ void __launch_bounds__(kRegThreads)
+plane_reg_sum_kernel(const double* __restrict__ partial, int n, float* __restrict__ out) {
+  double v = 0.0;
+  for (int i = threadIdx.x; i < n; i += kRegThreads) v += partial[i];
+  v = block_sum(v);
+  if (threadIdx.x == 0) *out = static_cast<float>(v);
+}
+
+__global__ void __launch_bounds__(kRegThreads)
+plane_reg_bwd_kernel(const __grid_constant__ PlaneReg r, const float* __restrict__ cotangent) {
+  const RegSlot s = reg_slot(r);
+  if (!s.live) return;
+  const RegPlane& pl = r.p[s.p];
+  const float g = __ldg(cotangent);
+  const float4* P = reinterpret_cast<const float4*>(pl.plane);
+  float4* G = reinterpret_cast<float4*>(pl.grad);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int64_t row4 = pl.row4;
+  const int h = pl.h;
+  int64_t at = s.r0 * row4 + s.e;
+  if (pl.kind == kSpatial) {
+    // d/dP[r] of the row term: 2 w0 ((P[r] - P[r-1]) - (P[r+1] - P[r])), a
+    // side left out at the edges; the columns' the same along the row.
+    const float c0 = __fmul_rn(g, static_cast<float>(2.0 * pl.w0));
+    const float c1 = __fmul_rn(g, static_cast<float>(2.0 * pl.w1));
+    const bool left = s.e >= pl.m4, right = s.e + pl.m4 < pl.row4;
+    float4 up = s.r0 > 0 ? __ldg(P + at - row4) : zero;
+    float4 x = __ldg(P + at);
+#pragma unroll 2
+    for (int row = s.r0; row < s.r1; ++row, at += row4) {
+      const float4 down = row + 1 < h ? __ldg(P + at + row4) : zero;
+      const float4 gr = sub4(row > 0 ? sub4(x, up) : zero, row + 1 < h ? sub4(down, x) : zero);
+      const float4 gc = sub4(left ? sub4(x, __ldg(P + at - pl.m4)) : zero,
+                             right ? sub4(__ldg(P + at + pl.m4), x) : zero);
+      const float4 d = combine4(c0, gr, c1, gc);
+      G[at] = pl.accumulate ? add4(G[at], d) : d;
+      up = x;
+      x = down;
+    }
+  } else {
+    // With s_k = (P[k] - P[k-1]) - (P[k-1] - P[k-2]) for k in [2, h):
+    // d/dP[r] = 2 w0 (s_r - 2 s_{r+1} + s_{r+2}) + w1 sign(P[r] - 1), each
+    // s that does not exist left out.
+    const float c0 = __fmul_rn(g, static_cast<float>(2.0 * pl.w0));
+    const float c1 = __fmul_rn(g, static_cast<float>(pl.w1));
+    float4 q[5];  // P[row - 2 .. row + 2]
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int row = s.r0 - 2 + k;
+      q[k] = row >= 0 && row < h ? __ldg(P + at + (k - 2) * row4) : zero;
+    }
+#pragma unroll 1
+    for (int row = s.r0; row < s.r1; ++row, at += row4) {
+      const float4 sr = row >= 2 ? sub4(sub4(q[2], q[1]), sub4(q[1], q[0])) : zero;
+      const float4 s1 = row >= 1 && row + 1 < h ? sub4(sub4(q[3], q[2]), sub4(q[2], q[1])) : zero;
+      const float4 s2 = row + 2 < h ? sub4(sub4(q[4], q[3]), sub4(q[3], q[2])) : zero;
+      const float4 gs = add4(sub4(sr, scale4(2.0f, s1)), s2);
+      const float4 l1 = make_float4(sign1(q[2].x), sign1(q[2].y), sign1(q[2].z), sign1(q[2].w));
+      const float4 d = combine4(c0, gs, c1, l1);
+      G[at] = pl.accumulate ? add4(G[at], d) : d;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) q[k] = q[k + 1];
+      q[4] = row + 3 < h ? __ldg(P + at + 3 * row4) : zero;
+    }
+  }
+}
+
+// The table's planes are well formed and its blocks laid out as the wrapper
+// lays them: each plane ceil(row4 * strips / kRegThreads) blocks, in order.
+bool valid_reg(const PlaneReg& r, bool backward) {
+  if (r.n_planes < 1 || r.n_planes > kMaxRegPlanes) return false;
+  int64_t block = 0;
+  for (int p = 0; p < r.n_planes; ++p) {
+    const RegPlane& pl = r.p[p];
+    if (pl.plane == nullptr || (backward && pl.grad == nullptr)) return false;
+    if (pl.kind != kSpatial && pl.kind != kTime) return false;
+    const bool time = pl.kind == kTime;
+    if (pl.h < (time ? 3 : 2) || pl.m4 < 1 || pl.row4 < (time ? 1 : 2) * pl.m4 || pl.row4 % pl.m4 != 0) return false;
+    if (pl.block0 != block) return false;
+    block += blocks(pl.row4 * reg_strips(pl.h), kRegThreads);
+  }
+  return block == r.n_blocks && block < (int64_t{1} << 31);
+}
+
+}  // namespace
+
+// The regularisers' forward: *out (float32) = the weighted sum over every
+// plane of the table; partial: r.n_blocks doubles of scratch. Two launches.
+extern "C" int plane_reg_fwd(PlaneReg r, double* partial, float* out, void* stream) {
+  if (!valid_reg(r, false)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  plane_reg_fwd_kernel<<<r.n_blocks, kRegThreads, 0, st>>>(r, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plane_reg_sum_kernel<<<1, kRegThreads, 0, st>>>(partial, r.n_blocks, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The regularisers' backward: each plane's gradient times *cotangent (one
+// float32 on the device) added into r.p[i].grad where accumulate is 1,
+// else written there. One launch.
+extern "C" int plane_reg_bwd(PlaneReg r, const float* cotangent, void* stream) {
+  if (!valid_reg(r, true)) return static_cast<int>(cudaErrorInvalidValue);
+  plane_reg_bwd_kernel<<<r.n_blocks, kRegThreads, 0, static_cast<cudaStream_t>(stream)>>>(r, cotangent);
+  return static_cast<int>(cudaGetLastError());
 }

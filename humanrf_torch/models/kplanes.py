@@ -23,7 +23,10 @@ texels, decoded by an MLP of one hidden layer to a `trunc_exp` density.
 tensor computed in the graph: plane TV over each field's spatial planes,
 time smoothness (the mean square of the second difference along t) and the
 L1 distance of the time planes from 1, each a mean over a plane's entries
-summed over the planes and over both proposal fields.
+summed over the planes and over both proposal fields. On the card it is one
+pass of hand-written kernels each way over every plane
+(`ops/kplanes.py::plane_regularization`); elsewhere the plain formulas
+(`plane_regularizers`), differentiated by autograd.
 
 The parameters, by name:
 
@@ -51,7 +54,8 @@ from torch import nn
 from humanrf_torch.models.activation import truncated_exp
 from humanrf_torch.models.mlp import MLP
 from humanrf_torch.models.sh import sh_encode
-from humanrf_torch.ops.kplanes import PLANE_NAMES, PLANES, SPATIAL_PLANES, TIME_PLANES, plane_query, plane_shape
+from humanrf_torch.ops.kplanes import (PLANE_NAMES, PLANES, SPATIAL_PLANES, TIME_PLANES, plane_query,
+                                       plane_regularization, plane_shape)
 from humanrf_torch.utils import profiling
 
 
@@ -118,22 +122,31 @@ class PlaneField(nn.Module):
                     plane.copy_(0.1 + 0.4 * u)
 
     def regularizers(self) -> tuple:
-        """→ (plane TV, time smoothness, L1 of the time planes), each summed
-        over every scale's planes of its kind: TV over the spatial planes,
-        the other two over the time planes, each plane's term a mean over
-        its entries (the reductions the configuration lists as assumed)."""
-        tv = smooth = l1 = None
-        for scale in self.scales:
-            for p in SPATIAL_PLANES:
-                t = plane_tv(scale[PLANE_NAMES[p]])
-                tv = t if tv is None else tv + t
-            for p in TIME_PLANES:
-                plane = scale[PLANE_NAMES[p]]
-                s = time_smoothness(plane)
-                smooth = s if smooth is None else smooth + s
-                a = (1.0 - plane).abs().mean()
-                l1 = a if l1 is None else l1 + a
-        return tv, smooth, l1
+        """→ (plane TV, time smoothness, L1 of the time planes) of these
+        planes (`plane_regularizers`)."""
+        return plane_regularizers(self.planes())
+
+
+def plane_regularizers(planes: Sequence[torch.Tensor]) -> tuple:
+    """A plane field's planes (scale-major, six a scale in `PLANES`' order)
+    → (plane TV, time smoothness, L1 of the time planes), each summed over
+    every scale's planes of its kind: TV over the spatial planes, the other
+    two over the time planes, each plane's term a mean over its entries (the
+    reductions the configuration lists as assumed). The plain formulas, in
+    the planes' type, differentiated by autograd."""
+    tv = smooth = l1 = None
+    for s in range(len(planes) // 6):
+        scale = planes[6 * s:6 * s + 6]
+        for p in SPATIAL_PLANES:
+            t = plane_tv(scale[p])
+            tv = t if tv is None else tv + t
+        for p in TIME_PLANES:
+            plane = scale[p]
+            a = time_smoothness(plane)
+            smooth = a if smooth is None else smooth + a
+            a = (1.0 - plane).abs().mean()
+            l1 = a if l1 is None else l1 + a
+    return tv, smooth, l1
 
 
 def plane_tv(plane: torch.Tensor) -> torch.Tensor:
@@ -248,9 +261,27 @@ class KPlanesModel(nn.Module):
             served = n if n_valid is None else n_valid.reshape(()).clamp(0, n).long()
             profiling.device_counter(name, self.frame_to_time.device).add_(served)
 
+    def regularizer_inputs(self) -> tuple:
+        """→ (the planes of the field and of each proposal, one list a
+        field; their (tv, smoothness, l1) weights, one triple a field)."""
+        cfg = self.config
+        fields = [self.field.planes()] + [p.field.planes() for p in self.proposals]
+        weights = [(cfg.plane_tv_weight, cfg.time_smoothness_weight, cfg.l1_time_planes_weight)]
+        weights += [(cfg.proposal_plane_tv_weight, cfg.proposal_time_smoothness_weight,
+                     cfg.proposal_l1_time_planes_weight)] * len(self.proposals)
+        return fields, weights
+
     def regularization(self) -> torch.Tensor:
         """The weighted plane regularisers of the field and the proposals,
-        one scalar tensor (see the module docstring)."""
+        one scalar tensor (see the module docstring): on the card through
+        the kernels, elsewhere `plain_regularization()`."""
+        fields, weights = self.regularizer_inputs()
+        if fields[0][0].is_cuda:
+            return plane_regularization(fields, weights)
+        return self.plain_regularization()
+
+    def plain_regularization(self) -> torch.Tensor:
+        """`regularization()` by the plain formulas, on any device."""
         cfg = self.config
         tv, smooth, l1 = self.field.regularizers()
         total = cfg.plane_tv_weight * tv + cfg.time_smoothness_weight * smooth + cfg.l1_time_planes_weight * l1

@@ -1,5 +1,6 @@
 """The K-Planes field's plane query: every scale's six plane lookups and
-their product, `plane_query(planes, coords)`.
+their product, `plane_query(planes, coords)`; and its plane regularisers,
+`plane_regularization(fields, weights)`.
 
 A field of S scales holds, per scale, six planes, the axis pairs (i, j) of
 `itertools.combinations(range(4), 2)` over (x, y, z, t): xy, xz, xt, yz,
@@ -28,6 +29,17 @@ int32 (samples at or past it are skipped), and `seg`, (N,) int32 (a sample
 whose entry is negative is skipped). A skipped sample's features are 0 and
 it adds nothing to the gradient. Only the planes are differentiated: the
 coordinates get no gradient.
+
+`plane_regularization(fields, weights)` is the plane regularisers of every
+plane field on the card: plane TV over each scale's spatial planes, time
+smoothness and the L1 distance from 1 over its time planes, each term a mean
+over a plane's entries, weighted by its field's (tv, smoothness, l1) and
+summed into one scalar; two launches forward and one backward over every
+plane of every field (`PlaneRegKernel`). Its backward adds each plane's
+analytic gradient into its `.grad` under the same in-place rule, and
+`plane_reg_bwd_plain` is its arithmetic in PyTorch, which the kernel equals
+bit for bit. Its CPU version is the plain formulas that autograd
+differentiates (`models/kplanes.py::plane_regularizers`).
 """
 from __future__ import annotations
 
@@ -36,9 +48,11 @@ import itertools
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from humanrf_torch.ops import field_interp as fli
 from humanrf_torch.ops.cuda_build import load_library
+from humanrf_torch.utils import profiling
 
 PLANES = tuple(itertools.combinations(range(4), 2))  # xy, xz, xt, yz, yt, zt
 PLANE_NAMES = tuple("".join("xyzt"[a] for a in pair) for pair in PLANES)
@@ -50,8 +64,9 @@ MAX_SCALES = 4  # kMaxScales of csrc/kplanes.cu
 KERNEL_WIDTHS = (8, 32)
 KERNEL_SCALES = (1, 4)
 
-# The query's kernel launches since the last reset, per direction.
-launches = {"fwd": 0, "bwd": 0}
+# The kernel launches since the last reset: the query's per direction, and
+# the regularisers' (two a forward, one a backward).
+launches = {"fwd": 0, "bwd": 0, "reg_fwd": 0, "reg_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -308,3 +323,192 @@ def plane_query(planes: Sequence[torch.Tensor], coords: torch.Tensor, n_valid: O
     if coords.device.type == "cpu":
         return plane_query_plain(planes, coords.detach(), n_valid, seg)
     raise ValueError(f"plane_query runs on cuda or cpu tensors, not {coords.device}")
+
+
+# ---------------------------------------------------------- the regularisers
+
+MAX_REG_PLANES = 64  # kMaxRegPlanes of csrc/kplanes.cu
+REG_THREADS = 256    # kRegThreads
+REG_STRIP = 32       # kRegStrip: the rows a thread marches down
+SPATIAL, TIME = 0, 1  # kSpatial, kTime
+
+
+def reg_terms(fields: Sequence[Sequence[torch.Tensor]], weights: Sequence[Sequence[float]]) -> list:
+    """Per plane of `fields` (each scale-major, six a scale in `PLANES`'
+    order) with its field's (tv, smoothness, l1) weights → (kind, w0, w1),
+    each weight over its term's count: a spatial plane (h, w, M) TV's
+    2·tv / ((h−1)·w·M) on the squared row differences and 2·tv / (h·(w−1)·M)
+    on the column ones; a time plane smoothness / ((h−2)·w·M) on the
+    squared second differences along t and l1 / (h·w·M) on |1 − P|."""
+    terms = []
+    for planes, (tv, smooth, l1) in zip(fields, weights, strict=True):
+        for i, t in enumerate(planes):
+            h, w, m = t.shape
+            if i % 6 in TIME_PLANES:
+                terms.append((TIME, smooth / ((h - 2) * w * m), l1 / (h * w * m)))
+            else:
+                terms.append((SPATIAL, 2.0 * tv / ((h - 1) * w * m), 2.0 * tv / (h * (w - 1) * m)))
+    return terms
+
+
+def plane_reg_bwd_plain(fields: Sequence[Sequence[torch.Tensor]], weights: Sequence[Sequence[float]],
+                        grad: torch.Tensor) -> list:
+    """The regularisers' backward in PyTorch, the kernel's arithmetic: every
+    product and sum rounded on its own in float32, in the kernel's order.
+    `grad` is the scalar's cotangent (one float32) → each plane's gradient,
+    in `fields`' order, plane by plane."""
+    out = []
+    planes = [t.detach() for f in fields for t in f]
+    for t, (kind, w0, w1) in zip(planes, reg_terms(fields, weights)):
+        c0 = grad * torch.tensor(2.0 * w0, dtype=torch.float32, device=t.device)
+        if kind == SPATIAL:
+            c1 = grad * torch.tensor(2.0 * w1, dtype=torch.float32, device=t.device)
+            d = t[1:] - t[:-1]  # F.pad's last pair pads dim 0
+            rows = F.pad(d, (0, 0, 0, 0, 1, 0)) - F.pad(d, (0, 0, 0, 0, 0, 1))
+            d = t[:, 1:] - t[:, :-1]
+            cols = F.pad(d, (0, 0, 1, 0)) - F.pad(d, (0, 0, 0, 1))
+            out.append(c0 * rows + c1 * cols)
+        else:
+            c1 = grad * torch.tensor(w1, dtype=torch.float32, device=t.device)
+            s = (t[2:] - t[1:-1]) - (t[1:-1] - t[:-2])  # s_k for k in [2, h)
+            gs = (F.pad(s, (0, 0, 0, 0, 2, 0)) - 2.0 * F.pad(s, (0, 0, 0, 0, 1, 1))) + F.pad(s, (0, 0, 0, 0, 0, 2))
+            out.append(c0 * gs + c1 * torch.sign(t - 1.0))
+    return out
+
+
+def _check_reg(fields: Sequence[Sequence[torch.Tensor]], weights: Sequence[Sequence[float]]) -> list:
+    """→ the planes of every field, flat; raises unless they are float32,
+    contiguous, (h, w, M) with M a multiple of 4, on one device, six a scale,
+    spatial planes of at least 2 × 2 texels and time planes of at least 3 rows."""
+    if not fields or len(fields) != len(weights) or any(len(w) != 3 for w in weights):
+        raise ValueError(f"expected a (tv, smoothness, l1) weight per field, got {len(fields)} fields and {weights}")
+    planes = [t for f in fields for t in f]
+    if any(not f or len(f) % 6 for f in fields) or len(planes) > MAX_REG_PLANES:
+        raise ValueError(f"the regularisers take six planes a scale and at most {MAX_REG_PLANES} planes, got "
+                         f"{[len(f) for f in fields]}")
+    device = planes[0].device
+    for f in fields:
+        for i, t in enumerate(f):
+            if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
+                raise TypeError(f"planes must be contiguous float32 on {device}, got {t.dtype} on {t.device} "
+                                f"(contiguous: {t.is_contiguous()})")
+            least = (3, 1) if i % 6 in TIME_PLANES else (2, 2)
+            if t.dim() != 3 or t.shape[2] % 4 or t.shape[0] < least[0] or t.shape[1] < least[1]:
+                raise ValueError(f"plane {i} of shape {tuple(t.shape)}: expected (h, w, M), M a multiple of 4, at "
+                                 f"least {least[0]} rows and {least[1]} columns")
+    return planes
+
+
+class RegPlaneStruct(ctypes.Structure):
+    """`struct RegPlane` of `csrc/kplanes.cu`."""
+
+    _fields_ = [
+        ("plane", ctypes.c_void_p),
+        ("grad", ctypes.c_void_p),
+        ("h", ctypes.c_int32),
+        ("row4", ctypes.c_int32),
+        ("m4", ctypes.c_int32),
+        ("kind", ctypes.c_int32),
+        ("block0", ctypes.c_int32),
+        ("accumulate", ctypes.c_int32),
+        ("w0", ctypes.c_double),
+        ("w1", ctypes.c_double),
+    ]
+
+
+class PlaneRegStruct(ctypes.Structure):
+    """`struct PlaneReg` of `csrc/kplanes.cu`, passed by value."""
+
+    _fields_ = [("n_planes", ctypes.c_int32), ("n_blocks", ctypes.c_int32), ("p", RegPlaneStruct * MAX_REG_PLANES)]
+
+
+def _reg_struct(planes: Sequence[torch.Tensor], terms: Sequence[tuple], grads=None, accumulate=None) -> PlaneRegStruct:
+    """The kernels' table: per plane its pointers, shape, kind, weights and
+    first block (a thread a float4 of a row and a strip of REG_STRIP rows)."""
+    r = PlaneRegStruct(n_planes=len(planes))
+    block = 0
+    for i, (t, (kind, w0, w1)) in enumerate(zip(planes, terms)):
+        h, w, m = t.shape
+        e = r.p[i]
+        e.plane, e.h, e.row4, e.m4, e.kind, e.w0, e.w1 = t.data_ptr(), h, w * m // 4, m // 4, kind, w0, w1
+        e.block0 = block
+        if grads is not None:
+            e.grad, e.accumulate = grads[i].data_ptr(), int(accumulate[i])
+        block += -(-(e.row4 * -(-h // REG_STRIP)) // REG_THREADS)
+    r.n_blocks = block
+    return r
+
+
+def _reg_fn(name: str):
+    fn = getattr(load_library("kplanes").lib, name)
+    if fn.argtypes is None:
+        # r; partial and out (forward) or the cotangent (backward); stream.
+        fn.argtypes = [PlaneRegStruct] + [ctypes.c_void_p] * (3 if name == "plane_reg_fwd" else 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _reg_call(name: str, planes, *pointers) -> None:
+    device = planes[0].device
+    with torch.cuda.device(device):
+        err = _reg_fn(name)(*pointers, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed over {len(planes)} planes: cudaError {err}")
+
+
+def _launch_reg_fwd(planes: Sequence[torch.Tensor], terms: Sequence[tuple]) -> torch.Tensor:
+    """The forward's two launches → the weighted sum, a float32 scalar."""
+    r = _reg_struct(planes, terms)
+    partial = torch.empty(r.n_blocks, dtype=torch.float64, device=planes[0].device)
+    out = torch.empty((), dtype=torch.float32, device=planes[0].device)
+    _reg_call("plane_reg_fwd", planes, r, partial.data_ptr(), out.data_ptr())
+    launches["reg_fwd"] += 2
+    profiling.gauge("kplanes.reg_entries", sum(t.numel() for t in planes))
+    return out
+
+
+def _launch_reg_bwd(planes: Sequence[torch.Tensor], terms: Sequence[tuple], grad: torch.Tensor) -> list:
+    """The backward's launch → per plane its gradient, or None where the
+    launch added it into the plane's own `.grad` (`fli.grad_in_place`)."""
+    if grad.dtype != torch.float32 or grad.numel() != 1 or grad.device != planes[0].device:
+        raise ValueError(f"expected one float32 cotangent on {planes[0].device}, got {tuple(grad.shape)} {grad.dtype}")
+    in_place = [fli.grad_in_place(t) for t in planes]
+    buffers = [t.grad if own else torch.empty_like(t) for t, own in zip(planes, in_place)]
+    _reg_call("plane_reg_bwd", planes, _reg_struct(planes, terms, buffers, in_place), grad.contiguous().data_ptr())
+    launches["reg_bwd"] += 1
+    profiling.gauge("kplanes.reg_entries", sum(t.numel() for t in planes))
+    return [None if own else b for b, own in zip(buffers, in_place)]
+
+
+class PlaneRegKernel(torch.autograd.Function):
+    """The regularisers on their CUDA kernels: two launches forward, one
+    backward; the forward saves the planes. Inside `fli.grads_in_place()`
+    the backward adds a plane's gradient into its `.grad` where that is
+    there and returns None for it."""
+
+    @staticmethod
+    def forward(ctx, terms, *planes):
+        ctx.terms = terms
+        ctx.save_for_backward(*planes)
+        return _launch_reg_fwd(planes, terms)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return (None, *_launch_reg_bwd(ctx.saved_tensors, ctx.terms, grad))
+
+
+def plane_regularization(fields: Sequence[Sequence[torch.Tensor]], weights: Sequence[Sequence[float]]) -> torch.Tensor:
+    """The weighted plane regularisers of `fields` (each a plane field's
+    planes, scale-major, six a scale in `PLANES`' order, (h, w, M) float32
+    contiguous) with per field (tv, smoothness, l1) weights → one float32
+    scalar, differentiable in the planes: Σ over fields of tv · Σ plane TV
+    + smoothness · Σ time smoothness + l1 · Σ mean |1 − P| (the terms of
+    `reg_terms`). CUDA tensors only, through the kernels; a CPU model takes
+    the plain formulas (`models/kplanes.py::plane_regularizers`)."""
+    planes = _check_reg(fields, weights)
+    if planes[0].device.type != "cuda":
+        raise ValueError(f"plane_regularization runs on cuda tensors, not {planes[0].device}")
+    if any(t.data_ptr() % 16 for t in planes):
+        raise ValueError("the regularisers' kernels read planes 16-byte aligned")
+    return PlaneRegKernel.apply(tuple(reg_terms(fields, weights)), *planes)

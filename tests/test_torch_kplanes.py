@@ -9,7 +9,9 @@ render).
 The card's cases carry `cuda` and skip here: the kernels against the plain
 path (forward bit for bit, backward against the fp64 plain sum), their
 launch counts, `torch.autograd.grad` through both field kernels, and the
-backward adding into `.grad` inside a captured graph. On the card:
+backward adding into `.grad` inside a captured graph; the regularisers'
+kernels against the plain formulas in fp64 and their backward's plain
+mirror, in place and fresh, eager and captured. On the card:
 `python3 -m pytest -q -m cuda --noconftest tests/test_torch_kplanes.py`.
 """
 from __future__ import annotations
@@ -182,7 +184,7 @@ def test_kernels_equal_the_plain_query_on_card(cuda_device, case):
     out.backward(g)
     ref = K.plane_query_bwd_plain([t.detach() for t in planes], q, g.double(), n_valid, seg)
     torch.cuda.synchronize()
-    assert K.launches == {"fwd": 1, "bwd": 1}
+    assert K.launches == {"fwd": 1, "bwd": 1, "reg_fwd": 0, "reg_bwd": 0}
     for i, (t, r) in enumerate(zip(planes, ref)):
         assert float((t.grad.double() - r).abs().max() / r.abs().max()) < 1e-5, i
 
@@ -254,9 +256,227 @@ def test_captured_backward_adds_into_grad_on_card(cuda_device, monkeypatch):
     K.reset_launches()
     step(q, g)
     torch.cuda.synchronize()
-    assert K.launches == {"fwd": 1, "bwd": 1}
+    assert K.launches == {"fwd": 1, "bwd": 1, "reg_fwd": 0, "reg_bwd": 0}
     for t, h, r in zip(planes, held, ref):
         assert float(((t.grad - h).double() - r).abs().max() / r.abs().max()) < 1e-5
+
+
+# ------------------------------------------------------ the regularisers
+
+# Plane fields as the regularisers take them: per field its per-axis sizes
+# (x, y, z, t) per scale, its channels and its (tv, smoothness, l1) weights.
+REG_CASES = {
+    # The cell's: the field (M 32, 64·s spatial for s in 1, 2, 4, 8, time 25)
+    # and two proposals (M 8 at 128 and 256), the configuration's weights.
+    "cell": [([(64 * s,) * 3 + (25,) for s in (1, 2, 4, 8)], 32, (1e-4, 0.1, 1e-4)),
+             ([(128,) * 3 + (25,)], 8, (1e-4, 1e-3, 1e-4)), ([(256,) * 3 + (25,)], 8, (1e-4, 1e-3, 1e-4))],
+    # Small odd shapes: axes of 2 and 3 texels, time resolution 3, M 4 and 8.
+    "odd": [([(2, 3, 5, 3), (3, 2, 2, 4)], 4, (2.0, 3.0, 5.0)), ([(3, 3, 2, 3)], 8, (7.0, 11.0, 13.0))],
+    # The CPU tests' field: M 4, 8 texels at scales 1 and 2, time 5; a proposal.
+    "tiny": [([(8,) * 3 + (5,), (16,) * 3 + (5,)], 4, (2.0, 3.0, 5.0)), ([(8,) * 3 + (5,)], 8, (7.0, 11.0, 13.0))],
+}
+
+
+def _reg_fields(case, seed, device="cpu", ones=0.0):
+    """`REG_CASES[case]` → (fields, weights): spatial planes U[0.1, 0.5],
+    time planes 1 + U[-0.1, 0.1] with a share `ones` of their entries set to
+    exactly 1.0, leaves that require a gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    fields, weights = [], []
+    for scales, m, w in REG_CASES[case]:
+        planes = []
+        for res in scales:
+            for p in range(6):
+                u = torch.rand(K.plane_shape(res, p, m), generator=gen)
+                if p in K.TIME_PLANES:
+                    t = 1.0 + 0.2 * (u - 0.5)
+                    t[torch.rand(t.shape, generator=gen) < ones] = 1.0
+                else:
+                    t = 0.1 + 0.4 * u
+                planes.append(t.to(device).requires_grad_())
+        fields.append(planes)
+        weights.append(w)
+    return fields, weights
+
+
+def _plain_regularization(fields, weights, dtype=None):
+    """The weighted plain formulas (`models/kplanes.py::plane_regularizers`),
+    differentiable; in `dtype` where given."""
+    from humanrf_torch.models.kplanes import plane_regularizers
+
+    total = 0.0
+    for planes, w in zip(fields, weights):
+        terms = plane_regularizers([t if dtype is None else t.to(dtype) for t in planes])
+        total = total + sum(wk * term for wk, term in zip(w, terms))
+    return total
+
+
+@pytest.mark.parametrize("case", ["odd", "tiny"])
+def test_plain_regularizer_backward_is_autograd(case):
+    """`plane_reg_bwd_plain` (the backward kernel's arithmetic) against
+    autograd through the plain formulas in fp64, each plane within 1e-5 of
+    its gradient's scale; time-plane entries at exactly 1.0 take sign 0 for
+    the L1 term, as autograd's `abs` gives them."""
+    fields, weights = _reg_fields(case, seed=41, ones=0.3)
+    planes = [t for f in fields for t in f]
+    grad = torch.tensor(0.75)
+    expect = torch.autograd.grad(_plain_regularization(fields, weights, torch.float64) * grad.double(), planes)
+    got = K.plane_reg_bwd_plain(fields, weights, grad)
+    for i, (a, b) in enumerate(zip(got, expect)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert float((a.double() - b).abs().max() / b.abs().max()) < 1e-5, i
+    # With every time entry at 1.0 the time planes' gradients are exactly 0.
+    with torch.no_grad():
+        for f in fields:
+            for p in K.TIME_PLANES:
+                for s in range(len(f) // 6):
+                    f[6 * s + p].fill_(1.0)
+    got = K.plane_reg_bwd_plain(fields, weights, grad)
+    for f_start, f in zip(np.cumsum([0] + [len(f) for f in fields]), fields):
+        for i in range(len(f)):
+            if i % 6 in K.TIME_PLANES:
+                assert not got[f_start + i].any()
+
+
+def test_reg_terms_weigh_the_plain_formulas():
+    """The kernels' per-plane weights (`reg_terms`) over the squared row and
+    column differences (spatial), the squared second differences along t
+    and |1 − P| (time) sum to the weighted plain formulas, in fp64; the
+    kernels' table lays each plane's blocks after the previous plane's."""
+    fields, weights = _reg_fields("odd", seed=43, ones=0.2)
+    planes = [t.detach().double() for f in fields for t in f]
+    total = 0.0
+    for t, (kind, w0, w1) in zip(planes, K.reg_terms(fields, weights)):
+        if kind == K.SPATIAL:
+            total += w0 * float(((t[1:] - t[:-1]) ** 2).sum()) + w1 * float(((t[:, 1:] - t[:, :-1]) ** 2).sum())
+        else:
+            total += w0 * float((((t[2:] - t[1:-1]) - (t[1:-1] - t[:-2])) ** 2).sum())
+            total += w1 * float((1.0 - t).abs().sum())
+    assert total == pytest.approx(float(_plain_regularization(fields, weights, torch.float64).detach()), rel=1e-12)
+    flat = [t for f in fields for t in f]
+    table = K._reg_struct(flat, K.reg_terms(fields, weights))
+    blocks = [-(-(t.shape[1] * t.shape[2] // 4 * -(-t.shape[0] // K.REG_STRIP)) // K.REG_THREADS) for t in flat]
+    assert [table.p[i].block0 for i in range(len(flat))] == list(np.cumsum([0] + blocks[:-1]))
+    assert table.n_blocks == sum(blocks) and table.n_planes == len(flat)
+
+
+def test_regularization_checks_its_planes():
+    """The wrapper raises before any launch on a plane that is not float32,
+    not contiguous, too small for its terms, or not six a scale, on a
+    missing weight, and on CPU planes (the model takes the plain formulas there)."""
+    fields, weights = _reg_fields("odd", seed=45)
+    fields = [[t.detach() for t in f] for f in fields]
+    with pytest.raises(TypeError):
+        K.plane_regularization([[fields[0][0].double()] + fields[0][1:], fields[1]], weights)
+    wide = torch.zeros(fields[0][0].shape[1], fields[0][0].shape[0], fields[0][0].shape[2]).transpose(0, 1)
+    with pytest.raises(TypeError):
+        K.plane_regularization([[wide] + fields[0][1:], fields[1]], weights)
+    with pytest.raises(ValueError):
+        K.plane_regularization([fields[0][:5], fields[1]], weights)
+    with pytest.raises(ValueError):
+        K.plane_regularization(fields, weights[:1])
+    short = [t[:2] if i % 6 in K.TIME_PLANES else t for i, t in enumerate(fields[1])]
+    with pytest.raises(ValueError):
+        K.plane_regularization([fields[0], short], weights)
+    odd_m = [t[..., :3].contiguous() for t in fields[1]]
+    with pytest.raises(ValueError):
+        K.plane_regularization([fields[0], odd_m], weights)
+    with pytest.raises(ValueError):
+        K.plane_regularization(fields, weights)
+
+
+def _reg_check(fields, weights, grads):
+    """Each plane's kernel gradient equals the plain mirror's bit for bit
+    and lies within 1e-6 of its scale of autograd's through the formulas in fp64."""
+    g = torch.ones((), device=grads[0].device)
+    mirror = K.plane_reg_bwd_plain(fields, weights, g)
+    planes = [t for f in fields for t in f]
+    fp64 = torch.autograd.grad(_plain_regularization(fields, weights, torch.float64), planes)
+    for i, (a, m, r) in enumerate(zip(grads, mirror, fp64)):
+        assert torch.equal(a, m), i
+        assert float((a.double() - r).abs().max() / r.abs().max()) < 1e-6, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(REG_CASES))
+def test_regularizer_kernels_equal_the_plain_formulas_on_card(cuda_device, case):
+    """Forward: the scalar within 1e-6 relative of the plain formulas summed
+    in fp64, bit-equal between two launches (no float atomics). Backward,
+    outside `grads_in_place()` (fresh buffers): each plane's gradient as
+    `_reg_check` asks. Two launches forward, one backward; the gauge
+    `kplanes.reg_entries` holds the planes' entries."""
+    fields, weights = _reg_fields(case, seed=47, device=cuda_device, ones=0.1)
+    planes = [t for f in fields for t in f]
+    K.reset_launches()
+    out = K.plane_regularization(fields, weights)
+    again = K.plane_regularization(fields, weights)
+    expect = float(_plain_regularization(fields, weights, torch.float64).detach())
+    assert abs(float(out) - expect) / abs(expect) < 1e-6
+    assert torch.equal(out, again)
+    grads = torch.autograd.grad(out, planes)
+    torch.cuda.synchronize()
+    assert K.launches == {"fwd": 0, "bwd": 0, "reg_fwd": 4, "reg_bwd": 1}
+    assert profiling.snapshot()["counters"]["kplanes.reg_entries"] == sum(t.numel() for t in planes)
+    _reg_check(fields, weights, grads)
+
+
+@pytest.mark.cuda
+def test_time_planes_at_one_take_no_regularizer_gradient_on_card(cuda_device):
+    """Time planes at exactly 1.0 (the source's initialisation): their
+    smoothness and L1 read 0 and their gradients are exactly 0 (sign 0)."""
+    fields, weights = _reg_fields("cell", seed=49, device=cuda_device, ones=1.0)
+    planes = [t for f in fields for t in f]
+    out = K.plane_regularization(fields, weights)
+    spatial = [[t for i, t in enumerate(f) if i % 6 in K.SPATIAL_PLANES] for f in fields]
+    from humanrf_torch.models.kplanes import plane_tv
+
+    expect = sum(w[0] * sum(float(plane_tv(t.double())) for t in f) for f, w in zip(spatial, weights))
+    assert abs(float(out) - expect) / expect < 1e-6
+    grads = torch.autograd.grad(out, planes)
+    for f_start, f in zip(np.cumsum([0] + [len(f) for f in fields]), fields):
+        for i in range(len(f)):
+            assert bool(grads[f_start + i].any()) == (i % 6 in K.SPATIAL_PLANES)
+
+
+@pytest.mark.cuda
+def test_regularizer_backward_in_place_eager_and_captured_on_card(cuda_device, monkeypatch):
+    """`torch.autograd.grad` returns fresh gradients and leaves each `.grad`
+    as it was; inside `grads_in_place()` the backward adds into each
+    `.grad` (held + the plain mirror's gradient, bit for bit); captured as a
+    CUDA graph, a replay gives the eager scalar and adds the same again,
+    with the capture's 2 + 1 launches."""
+    from humanrf_torch.train.graphs import GraphedStep
+
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    fields, weights = _reg_fields("cell", seed=51, device=cuda_device, ones=0.1)
+    planes = [t for f in fields for t in f]
+    cotangent = torch.tensor(0.5, device=cuda_device)
+    mirror = K.plane_reg_bwd_plain(fields, weights, cotangent)
+    for t in planes:
+        t.grad = torch.full_like(t, 7.0)
+    fresh = torch.autograd.grad(K.plane_regularization(fields, weights), planes, cotangent)
+    for t, a, m in zip(planes, fresh, mirror):
+        assert torch.equal(a, m) and bool((t.grad == 7.0).all())
+
+    def body(c):
+        with fli.grads_in_place():
+            out = K.plane_regularization(fields, weights)
+            out.backward(c)
+        return out.detach()  # holds no graph, whose leaves' nodes would sync with this call's stream
+
+    eager = body(cotangent).clone()
+    for t, m in zip(planes, mirror):
+        assert torch.equal(t.grad, torch.full_like(t, 7.0) + m)
+    step = GraphedStep("the regularisers", body)
+    step(cotangent)  # the eager body again, then the capture, which runs nothing
+    held = [t.grad.clone() for t in planes]
+    K.reset_launches()
+    out = step(cotangent)
+    torch.cuda.synchronize()
+    assert K.launches == {"fwd": 0, "bwd": 0, "reg_fwd": 2, "reg_bwd": 1}
+    assert torch.equal(out, eager)
+    for t, h, m in zip(planes, held, mirror):
+        assert torch.equal(t.grad, h + m)
 
 
 # ----------------------------------------------- against the reference, CPU
